@@ -1,0 +1,64 @@
+"""pgdrome_tpu_torch — the PyTorch/CUDA port of :mod:`pgdrome_tpu`.
+
+A package of its own beside the JAX one, with the same layout and names, so
+each module here has its counterpart at the same relative path there.  It
+imports ``torch``, ``numpy`` and ``scipy`` only: never ``jax``, never
+``h5py`` and nothing of ``pgdrome_tpu``.
+
+What it covers so far is the serving side of a trained vademecum: the host
+f64 build of the parametric-elliptic family (:mod:`.fem`,
+:mod:`.models.problems`, :mod:`.separated`), the weights brought across
+from the JAX package's saved states (:mod:`.convert`), and the batched
+field / sensor / moment sweeps (:mod:`.parallel.vademecum`,
+:mod:`.serving`) whose hot loop is one hand-written CUDA kernel
+(:mod:`.ops.fused_sweep`, ``csrc/fused_sweep.cu``).
+
+Entry points run on the CUDA device unless the caller passes
+``device="cpu"``; without a CUDA device they raise.
+"""
+
+from pgdrome_tpu_torch import config as config
+from pgdrome_tpu_torch.fem.mesh import IntervalMesh
+from pgdrome_tpu_torch.fem.space import FunctionSpace
+from pgdrome_tpu_torch.fem.function import Function, Expression, Constant
+from pgdrome_tpu_torch.fem.bc import DirichletBC
+from pgdrome_tpu_torch.fem.assembly import (
+    mass_matrix,
+    stiffness_matrix,
+    load_vector,
+)
+from pgdrome_tpu_torch.separated import (
+    SeparatedProblem,
+    PGDResult,
+    Dim0Transform,
+    precondition_dim0,
+    precondition_dim,
+)
+from pgdrome_tpu_torch.serving import Vademecum
+from pgdrome_tpu_torch.convert import (
+    result_from_numpy,
+    load_state_npz,
+    frontier_vademecum,
+)
+
+__all__ = [
+    "config",
+    "IntervalMesh",
+    "FunctionSpace",
+    "Function",
+    "Expression",
+    "Constant",
+    "DirichletBC",
+    "mass_matrix",
+    "stiffness_matrix",
+    "load_vector",
+    "SeparatedProblem",
+    "PGDResult",
+    "Dim0Transform",
+    "precondition_dim0",
+    "precondition_dim",
+    "Vademecum",
+    "result_from_numpy",
+    "load_state_npz",
+    "frontier_vademecum",
+]

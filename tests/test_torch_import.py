@@ -1,0 +1,72 @@
+"""The port imports neither JAX, h5py nor the JAX package.
+
+A subprocess imports ``pgdrome_tpu_torch`` and every submodule and reports
+what ``sys.modules`` then holds; a source scan checks every import
+statement of the package and of ``chip_smoke.py``.
+"""
+
+import ast
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "pgdrome_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "h5py", "pgdrome_tpu")
+SOURCES = sorted(p.relative_to(ROOT).as_posix() for p in PKG.rglob("*.py")) + ["chip_smoke.py"]
+MODULES = sorted(
+    p.relative_to(ROOT).with_suffix("").as_posix().replace("/", ".").removesuffix(".__init__")
+    for p in PKG.rglob("*.py")
+)
+
+_PROBE = """
+import importlib, json, sys
+mods = json.loads(sys.argv[1])
+failed = {}
+for m in mods:
+    try:
+        importlib.import_module(m)
+    except Exception as e:
+        failed[m] = repr(e)
+print(json.dumps({"loaded": sorted(sys.modules), "failed": failed}))
+"""
+
+
+@pytest.fixture(scope="module")
+def imported():
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE, json.dumps(MODULES)],
+        capture_output=True, text=True, cwd=ROOT, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _forbidden(name):
+    return name.split(".")[0] in FORBIDDEN
+
+
+def test_no_forbidden_module_loaded(imported):
+    bad = [m for m in imported["loaded"] if _forbidden(m)]
+    assert bad == []
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_submodule_imports(imported, module):
+    assert module not in imported["failed"], imported["failed"].get(module)
+    assert module in imported["loaded"]
+
+
+@pytest.mark.parametrize("source", SOURCES)
+def test_source_imports(source):
+    tree = ast.parse((ROOT / source).read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    assert [n for n in names if _forbidden(n)] == []
