@@ -40,11 +40,15 @@ U32 = 2.0 ** -24             # unit roundoff of float32
 FEM_BOUND = 1e-6             # served fields vs FEM at the inset corners
 F64_BOUND = 7.0e-7           # plain f64 reconstruction there (6.93e-7 measured on a CPU)
 BF16_REL = 1.6e-2            # bf16 store vs f32, relative to max |f32|
-# moments: the kernel and plain paths share every reduction and differ only
-# in the rounding of each f32 factor (a few u relative); 1e-5 / 1e-4 leave
-# two orders of magnitude over the f32 accumulation error of a 4M-sample sum
-MEAN_REL = 1e-5              # |Δmean| ≤ MEAN_REL · max|mean|
-VAR_REL = 1e-4               # |Δvar| ≤ VAR_REL · max(mean²)
+# moments: the kernel and plain paths share every reduction (f32 GEMMs over
+# 1M-sample chunks, f64 across chunks) and differ only in the rounding of
+# each f32 factor.  The variance is E[u²] − mean² in both, which cancels
+# about three digits here (E[u²] / var ≈ 1500), so its gap is held against
+# the scale of E[u²], not of var.  Both limits are about ten times the gaps
+# measured on an H100 (1.0e-8 and 1.5e-8); no bound is derived for the
+# library's reduction order.
+MEAN_REL = 1e-6              # |Δmean| ≤ MEAN_REL · max|mean|
+VAR_REL = 1e-5               # |Δvar| ≤ VAR_REL · max(var + mean²)
 
 # published dense peaks (NVIDIA data sheets): (f32 CUDA-core FLOP/s, HBM B/s)
 PEAKS = {"PCIe": (51e12, 2.0e12), "NVL": (60e12, 3.9e12), "SXM": (67e12, 3.35e12)}
@@ -271,11 +275,20 @@ def main() -> int:
     m0_64 = m0.double()
     kernels = []
 
-    def hold(kernel_out, samples, table, c, rows=65_536):
-        """Max |kernel − plain f32| and |kernel − plain f64| against the
-        γ_c bound on |F|·|table| (with φ ≥ 0 for P1, |F| is the plain
-        factor of |T|).  Chunked over rows to bound memory."""
-        worst = {"vs_f32": 0.0, "vs_f64": 0.0, "ratio": 0.0}
+    def bf16_ulp(x):
+        """The spacing of bfloat16 numbers (8 significant bits) at |x|; the
+        smallest subnormal's at 0."""
+        e = torch.frexp(x)[1]
+        return torch.where(x == 0, torch.full_like(x, 2.0 ** -133),
+                           torch.ldexp(torch.ones_like(x), e - 8))
+
+    def hold(kernel_out, samples, table, c, rows=65_536, out_dtype=None):
+        """Max |kernel − plain| (the plain version storing ``out_dtype``) and
+        |kernel − plain f64| against the γ_c bound on |F|·|table| (with
+        φ ≥ 0 for P1, |F| is the plain factor of |T|).  A bf16 store adds
+        half a bf16 ulp per rounded value.  Chunked over rows to bound
+        memory."""
+        worst = {"vs_plain": 0.0, "vs_f64": 0.0, "ratio": 0.0}
         t64 = None if table is None else table.double()
         for r0 in range(0, samples.shape[0], rows):
             s = samples[r0 : r0 + rows]
@@ -283,21 +296,27 @@ def main() -> int:
             fabs = fs.fused_sweep_plain(s, grid, tabs_abs64, None, vd.n_modes)
             if t64 is None:
                 ref64 = fs.fused_sweep_plain(s, grid, tabs.double(), None, vd.n_modes)
-                p32 = fs.fused_sweep_plain(s, grid, tabs, None, vd.n_modes)
+                plain = fs.fused_sweep_plain(s, grid, tabs, None, vd.n_modes).double()
                 bound = gamma(c) * fabs
             else:
                 ref64 = fs.fused_sweep_plain(s, grid, tabs.double(), t64, vd.n_modes)
-                p32 = fs.fused_sweep_plain(s, grid, tabs, table, vd.n_modes)
+                plain = fs.fused_sweep_plain(s, grid, tabs, table, vd.n_modes,
+                                             out_dtype).double()
                 bound = gamma(c) * (fabs @ t64.abs())
-            e64 = (k_out - ref64).abs()
-            e32 = (k_out - p32.double()).abs()
-            check(bool((e64 <= bound).all()), "kernel within γ-bound of the f64 plain version")
-            # plain f32 is within the same bound of the exact value, so the
+            # plain f32 is within the same γ-bound of the exact value, so the
             # two f32 results are within twice it of each other
-            check(bool((e32 <= 2 * bound).all()), "kernel within 2γ-bound of the f32 plain version")
-            worst["vs_f32"] = max(worst["vs_f32"], float(e32.max()))
+            bound64, bound_plain = bound, 2 * bound
+            if out_dtype == torch.bfloat16:
+                bound64 = bound + bf16_ulp(k_out) / 2
+                bound_plain = 2 * bound + bf16_ulp(torch.maximum(k_out.abs(), plain.abs()))
+            e64 = (k_out - ref64).abs()
+            e_plain = (k_out - plain).abs()
+            check(bool((e64 <= bound64).all()), "kernel within its bound of the f64 plain version")
+            check(bool((e_plain <= bound_plain).all()),
+                  "kernel within twice its bound of the plain version")
+            worst["vs_plain"] = max(worst["vs_plain"], float(e_plain.max()))
             worst["vs_f64"] = max(worst["vs_f64"], float(e64.max()))
-            worst["ratio"] = max(worst["ratio"], float((e64 / bound.clamp_min(1e-300)).max()))
+            worst["ratio"] = max(worst["ratio"], float((e64 / bound64.clamp_min(1e-300)).max()))
         return worst
 
     def roofline(B, n_out, out_bytes, product):
@@ -310,21 +329,22 @@ def main() -> int:
                 flops, nbytes)
 
     def entry(name, wiring, kernel_out_shape, launches_n, worst, ms, plain_ms, lib_ms,
-              bound, c):
+              bound, c, **extra):
         bound_ms, bound_by, flops, nbytes = bound
         kernels.append({
             "name": name, "route": "cuda",
             "source": "pgdrome_tpu_torch/csrc/fused_sweep.cu",
             "replaces": "pgdrome_tpu/ops/pallas_kernels.py:44",
             "wiring": wiring, "shape": list(kernel_out_shape),
-            "launches": launches_n, "max_abs_err": worst["vs_f32"],
+            "launches": launches_n, "max_abs_err": worst["vs_plain"],
             "max_abs_err_vs_f64": worst["vs_f64"], "err_over_bound": worst["ratio"],
             "gamma_c": c, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "flops": flops, "bytes": nbytes, "library_ms": lib_ms,
+            **extra,
         })
         say(f"kernel {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, library "
             f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound {bound_ms:.4f} ms "
-            f"by {bound_by}), max|err| vs plain f32 {worst['vs_f32']:.3e}, "
+            f"by {bound_by}), max|err| vs plain {worst['vs_plain']:.3e}, "
             f"vs f64 {worst['vs_f64']} ({worst['ratio']:.3f} of its bound)")
 
     # ------------------------------------------------------------- fields
@@ -336,14 +356,26 @@ def main() -> int:
             del one_shot
         del kept
         bf = bf16_blocks.pop()
+        check(bf.dtype == torch.bfloat16 and bf.shape == out.shape, "bf16 block shape")
         bf_err = float((bf.double() - out.double()).abs().max())
         out_max = float(out.abs().max())
-        say(f"bf16 store: max|bf16 − f32| {bf_err:.4e} (bound {BF16_REL:g} · {out_max:.4e})")
-        check(bf.dtype == torch.bfloat16 and bf.shape == out.shape, "bf16 block shape")
+        say(f"bf16 store: max|bf16 − f32 kernel| {bf_err:.4e} "
+            f"(bound {BF16_REL:g} · {out_max:.4e})")
         check(bf_err < BF16_REL * out_max, "bf16 store within its quantization")
-        w_bf16 = {"vs_f32": bf_err, "vs_f64": None, "ratio": bf_err / (BF16_REL * out_max)}
+        w_bf16 = hold(bf, s_fields, m0, c_fields, out_dtype=torch.bfloat16)
         fac_fields = fs.fused_sweep(s_fields, grid, tabs, None, vd.n_modes)
         ms_f32 = cuda_ms(lambda: fs.fused_sweep(s_fields, grid, tabs, m0, vd.n_modes), 3)
+        # split the field launch into its factor and product stages: a block
+        # builds its factor tile once whatever n0 is, and the product's work
+        # grows with the columns computed (256 per full n0 tile, 128 for a
+        # last tile of at most 128); two widths give the line
+        m0_128 = m0[:, :128].contiguous()
+        ms_128 = cuda_ms(lambda: fs.fused_sweep(s_fields, grid, tabs, m0_128, vd.n_modes), 3)
+        cols = 256 * (n0 // 256) + (0 if n0 % 256 == 0 else 128 if n0 % 256 <= 128 else 256)
+        per_col = (ms_f32 - ms_128) / (cols - 128)
+        split = {"ms_n0_128": ms_128, "factor_stage_ms": ms_128 - 128 * per_col,
+                 "product_stage_ms": per_col * cols}
+        say(f"fields f32 split: {json.dumps(split)}")
         ms_bf16 = cuda_ms(lambda: fs.fused_sweep(s_fields, grid, tabs, m0, vd.n_modes,
                                                  torch.bfloat16), 3)
         plain_f32 = cuda_ms(lambda: fs.fused_sweep_plain(s_fields, grid, tabs, m0, vd.n_modes), 2)
@@ -353,7 +385,7 @@ def main() -> int:
         del bf, fac_fields
         entry("fused_sweep_fields_f32", "parallel/vademecum.py::make_sweep_fn", out.shape,
               launches["fields_f32"], w_f32, ms_f32, plain_f32, lib,
-              roofline(B_FIELDS, n0, 4, True), c_fields)
+              roofline(B_FIELDS, n0, 4, True), c_fields, split=split)
         entry("fused_sweep_fields_bf16", "parallel/vademecum.py::make_sweep_fn(out_dtype=bf16)",
               out.shape, launches["fields_bf16"], w_bf16, ms_bf16, plain_bf16, lib,
               roofline(B_FIELDS, n0, 2, True), c_fields)
@@ -390,12 +422,14 @@ def main() -> int:
         d_mean = float((mean - mean_p).abs().max())
         d_var = float((var - var_p).abs().max())
         m_max = float(mean_p.abs().max())
+        m2_max = float((var_p + mean_p ** 2).max())  # E[u²]
+        var_max = float(var_p.max())
         say(f"moments: max|Δmean| {d_mean:.4e} (bound {MEAN_REL:g} · {m_max:.4e}), "
-            f"max|Δvar| {d_var:.4e} (bound {VAR_REL:g} · {m_max ** 2:.4e}), "
-            f"max var {float(var_p.max()):.4e}")
+            f"max|Δvar| {d_var:.4e} (bound {VAR_REL:g} · max E[u²] {m2_max:.4e}), "
+            f"max var {var_max:.4e}, max|Δvar| / max var {d_var / var_max:.4e}")
         check(bool(torch.isfinite(mean).all() and torch.isfinite(var).all()), "finite moments")
         check(d_mean <= MEAN_REL * m_max, "kernel-path mean vs plain-path mean")
-        check(d_var <= VAR_REL * m_max ** 2, "kernel-path variance vs plain-path variance")
+        check(d_var <= VAR_REL * m2_max, "kernel-path variance vs plain-path variance")
 
     say(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     say(f"wall seconds: {time.perf_counter() - t_start:.1f}")

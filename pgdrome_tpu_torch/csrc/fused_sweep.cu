@@ -9,10 +9,10 @@
 //   out[b, :] = sum_k F[b, k] M0[k, :]
 //
 // with c = clip(floor((s - x0)/h), 0, ncell-1) and xi = (s - x0)/h - c,
-// exactly the TPU kernel's arithmetic.  Three entry points:
+// exactly the TPU kernel's arithmetic.  Two entry points:
 //
-//   pgd_sweep_tile     fields: (B, n0) output, n0 wide;    f32 or bf16 store
-//   pgd_sweep_rowdot   sensors: (B, n0) output, n0 <= 32;  f32 or bf16 store
+//   pgd_sweep_tile     fields and sensors: (B, n0) output, any n0 >= 1;
+//                      f32 or bf16 store
 //   pgd_sweep_factors  moments: (B, K) output = F itself (the identity M0 of
 //                      the TPU wiring is skipped)
 //
@@ -42,11 +42,12 @@
 //    to device memory.  The tables (NP*ndof*K*4 = 1.65 MB at K=640) stay in
 //    L2; M0 (5.2 MB) is re-read from L2 by every block.
 //
-// The factor stage moves 2*NP table rows of K floats per sample from L2,
-// which bounds the sensor and factor wirings.  The narrow (sensor) wiring
-// builds the same F tile and gives each output element a K-long dot
-// product against M0 read through L1, since n0=8 is far narrower than any
-// tile.  The factor wiring is elementwise over (b, k).
+// The sensor wiring (n0 = 8) runs the same kernel: one n0 tile whose
+// single 128-column group is masked past n0, so its time is the factor
+// stage plus a 128-column product.  At K=640 a block holds 207 KiB of
+// shared memory, one block (8 warps) per SM, and the factor stage's L2
+// gathers run at that occupancy.  The factor wiring is elementwise over
+// (b, k) at full occupancy.
 //
 // Every entry point launches on the given stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError() (0 on success).
@@ -62,7 +63,6 @@ constexpr int kTileN = 256;    // output columns per n0 tile: 8 per lane
 constexpr int kHalfN = 128;    // the second float4 group of a lane
 constexpr int kTileK = 16;     // M0 rows staged per step
 constexpr int kMaxNP = 16;     // parameter dims per sample
-constexpr int kMaxN0Narrow = 32;  // the row-dot kernel's output width
 constexpr int kMaxSmem = 232448;  // 227 KB per block on sm_90
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
@@ -71,17 +71,17 @@ __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m *
 // _smem_bytes in pgdrome_tpu_torch/ops/fused_sweep.py):
 //   Fs    Kp * (ROWS + 4)    factor tile, k-major; +4 pads the row stride
 //                            so stores along k hit 8 banks, not 1
-//   Ms    2 * kTileK * kTileN (tile kernel only) double-buffered M0 tile
+//   Ms    2 * kTileK * kTileN    double-buffered M0 tile
 //   w     ROWS * NP * 3      basis weights per (row, dim)
 //   base  ROWS * NP          first dof per (row, dim)
 //   grid  4 * kMaxNP         x0, 1/h, ncell, degree per dim
 __host__ __device__ inline int fs_stride(int rpw) { return 8 * rpw + 4; }
 
-__host__ __device__ inline long long smem_words(int K, int rpw, int NP, bool tile) {
+__host__ __device__ inline long long smem_words(int K, int rpw, int NP) {
   const int Kp = round_up(K, kTileK);
   const int rows = 8 * rpw;
-  return (long long)Kp * fs_stride(rpw) + (tile ? 2 * kTileK * kTileN : 0) +
-         (long long)rows * NP * 4 + 4 * kMaxNP;
+  return (long long)Kp * fs_stride(rpw) + 2 * kTileK * kTileN + (long long)rows * NP * 4 +
+         4 * kMaxNP;
 }
 
 // Cell locate + Lagrange basis on a uniform grid, in f32, in the TPU
@@ -119,8 +119,8 @@ __device__ inline float factor_value(const float* __restrict__ tabs, int ndofp, 
   return f;
 }
 
-// Phases shared by the tile and rowdot kernels: load the grid, locate the
-// block's ROWS samples, and fill the factor tile Fs (Kp x ROWS, stride FS).
+// The tile kernel's first phases: load the grid, locate the block's ROWS
+// samples, and fill the factor tile Fs (Kp x ROWS, stride FS).
 // Ends with a barrier.
 template <int RPW>
 __device__ inline void build_factor_tile(const float* __restrict__ samples,
@@ -293,42 +293,6 @@ sweep_tile_kernel(const float* __restrict__ samples, const float* __restrict__ g
   }
 }
 
-template <int RPW, typename OutT>
-__global__ void __launch_bounds__(kThreads)
-sweep_rowdot_kernel(const float* __restrict__ samples, const float* __restrict__ grid,
-                    const float* __restrict__ tabs, const float* __restrict__ m0,
-                    OutT* __restrict__ out, long long B, int NP, int ndofp, int K,
-                    int n_modes, int n0) {
-  constexpr int ROWS = 8 * RPW;
-  constexpr int FS = 8 * RPW + 4;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int Kp = round_up(K, kTileK);
-  float* Fs = smem;
-  float* s_w = Fs + (size_t)Kp * FS;
-  int* s_base = reinterpret_cast<int*>(s_w + ROWS * NP * 3);
-  float* s_grid = reinterpret_cast<float*>(s_base + ROWS * NP);
-
-  const long long row0 = (long long)blockIdx.x * ROWS;
-  build_factor_tile<RPW>(samples, grid, tabs, B, NP, ndofp, K, n_modes, row0, Fs, s_w,
-                         s_base, s_grid);
-
-  for (int i = threadIdx.x; i < ROWS * n0; i += kThreads) {
-    const int r = i / n0, p = i - r * n0;
-    const long long b = row0 + r;
-    if (b >= B) continue;
-    float acc = 0.0f;  // blocked over 16 k, as in the tile kernel
-    for (int k0 = 0; k0 < n_modes; k0 += kTileK) {
-      const int k1 = min(k0 + kTileK, n_modes);
-      float part = 0.0f;
-      for (int k = k0; k < k1; ++k)
-        part = fmaf(Fs[k * FS + r], __ldg(m0 + (size_t)k * n0 + p), part);
-      acc += part;
-    }
-    store<OutT>(out + b * n0 + p, acc);
-  }
-}
-
 __global__ void __launch_bounds__(kThreads)
 sweep_factors_kernel(const float* __restrict__ samples, const float* __restrict__ grid,
                      const float* __restrict__ tabs, float* __restrict__ out,
@@ -365,19 +329,14 @@ bool args_ok(long long B, int NP, int ndofp, int K, int n_modes, int rpw) {
          n_modes <= K && (rpw == 1 || rpw == 2 || rpw == 4 || rpw == 8);
 }
 
-template <int RPW, typename OutT, bool TILE>
+template <int RPW, typename OutT>
 int launch_rows(const float* samples, const float* grid, const float* tabs,
                 const float* m0, void* out, long long B, int NP, int ndofp, int K,
                 int n_modes, int n0, cudaStream_t stream) {
-  const long long words = smem_words(K, RPW, NP, TILE);
+  const long long words = smem_words(K, RPW, NP);
   if (words * 4 > kMaxSmem) return (int)cudaErrorInvalidValue;
   const int smem = (int)(words * 4);
-  void (*kernel)(const float*, const float*, const float*, const float*, OutT*, long long,
-                 int, int, int, int, int);
-  if constexpr (TILE)
-    kernel = sweep_tile_kernel<RPW, OutT>;
-  else
-    kernel = sweep_rowdot_kernel<RPW, OutT>;
+  auto kernel = sweep_tile_kernel<RPW, OutT>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -389,45 +348,24 @@ int launch_rows(const float* samples, const float* grid, const float* tabs,
   return (int)cudaGetLastError();
 }
 
-template <typename OutT, bool TILE>
+template <typename OutT>
 int launch(const float* samples, const float* grid, const float* tabs, const float* m0,
            void* out, long long B, int NP, int ndofp, int K, int n_modes, int n0,
            int rpw, cudaStream_t stream) {
   switch (rpw) {
     case 8:
-      return launch_rows<8, OutT, TILE>(samples, grid, tabs, m0, out, B, NP, ndofp, K,
-                                        n_modes, n0, stream);
+      return launch_rows<8, OutT>(samples, grid, tabs, m0, out, B, NP, ndofp, K, n_modes,
+                                  n0, stream);
     case 4:
-      return launch_rows<4, OutT, TILE>(samples, grid, tabs, m0, out, B, NP, ndofp, K,
-                                        n_modes, n0, stream);
+      return launch_rows<4, OutT>(samples, grid, tabs, m0, out, B, NP, ndofp, K, n_modes,
+                                  n0, stream);
     case 2:
-      return launch_rows<2, OutT, TILE>(samples, grid, tabs, m0, out, B, NP, ndofp, K,
-                                        n_modes, n0, stream);
+      return launch_rows<2, OutT>(samples, grid, tabs, m0, out, B, NP, ndofp, K, n_modes,
+                                  n0, stream);
     default:
-      return launch_rows<1, OutT, TILE>(samples, grid, tabs, m0, out, B, NP, ndofp, K,
-                                        n_modes, n0, stream);
+      return launch_rows<1, OutT>(samples, grid, tabs, m0, out, B, NP, ndofp, K, n_modes,
+                                  n0, stream);
   }
-}
-
-int dispatch(bool tile, const void* samples, const void* grid, const void* tabs,
-             const void* m0, void* out, long long B, int NP, int ndofp, int K, int n_modes,
-             int n0, int out_bf16, int rpw, void* stream) {
-  if (!args_ok(B, NP, ndofp, K, n_modes, rpw) || n0 < 1 || (!tile && n0 > kMaxN0Narrow))
-    return (int)cudaErrorInvalidValue;
-  const auto* s = static_cast<const float*>(samples);
-  const auto* g = static_cast<const float*>(grid);
-  const auto* t = static_cast<const float*>(tabs);
-  const auto* m = static_cast<const float*>(m0);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (tile)
-    return out_bf16 ? launch<__nv_bfloat16, true>(s, g, t, m, out, B, NP, ndofp, K,
-                                                  n_modes, n0, rpw, st)
-                    : launch<float, true>(s, g, t, m, out, B, NP, ndofp, K, n_modes, n0,
-                                          rpw, st);
-  return out_bf16 ? launch<__nv_bfloat16, false>(s, g, t, m, out, B, NP, ndofp, K,
-                                                 n_modes, n0, rpw, st)
-                  : launch<float, false>(s, g, t, m, out, B, NP, ndofp, K, n_modes, n0,
-                                         rpw, st);
 }
 
 }  // namespace
@@ -441,16 +379,15 @@ extern "C" {
 int pgd_sweep_tile(const void* samples, const void* grid, const void* tabs,
                    const void* m0, void* out, long long B, int NP, int ndofp, int K,
                    int n_modes, int n0, int out_bf16, int rpw, void* stream) {
-  return dispatch(true, samples, grid, tabs, m0, out, B, NP, ndofp, K, n_modes, n0,
-                  out_bf16, rpw, stream);
-}
-
-// As pgd_sweep_tile, for narrow outputs, n0 <= 32 (the sensor table as m0).
-int pgd_sweep_rowdot(const void* samples, const void* grid, const void* tabs,
-                     const void* m0, void* out, long long B, int NP, int ndofp, int K,
-                     int n_modes, int n0, int out_bf16, int rpw, void* stream) {
-  return dispatch(false, samples, grid, tabs, m0, out, B, NP, ndofp, K, n_modes, n0,
-                  out_bf16, rpw, stream);
+  if (!args_ok(B, NP, ndofp, K, n_modes, rpw) || n0 < 1) return (int)cudaErrorInvalidValue;
+  const auto* s = static_cast<const float*>(samples);
+  const auto* g = static_cast<const float*>(grid);
+  const auto* t = static_cast<const float*>(tabs);
+  const auto* m = static_cast<const float*>(m0);
+  auto st = static_cast<cudaStream_t>(stream);
+  return out_bf16 ? launch<__nv_bfloat16>(s, g, t, m, out, B, NP, ndofp, K, n_modes, n0,
+                                          rpw, st)
+                  : launch<float>(s, g, t, m, out, B, NP, ndofp, K, n_modes, n0, rpw, st);
 }
 
 // The masked factors themselves: out (B, K) f32.

@@ -51,9 +51,8 @@ BUILD_TIMEOUT_S = 600
 # launches per kernel wiring; incremented only where a kernel is launched
 LAUNCHES = {"fields_f32": 0, "fields_bf16": 0, "sensors": 0, "factors": 0}
 
-# output widths up to this go to the row-dot kernel (the sensor wiring):
-# the tile kernel's 128-column tiles would be mostly idle
-NARROW_MAX = 32
+# launches with outputs up to this wide count as the sensor wiring
+SENSORS_MAX = 32
 _MAX_SMEM = 232448  # bytes of shared memory a block may use on sm_90
 _TILE_K = 16  # K is padded to a multiple of this (kTileK)
 _STEP_WORDS = 4096  # words of one staged M0 tile (kTileK * kTileN)
@@ -127,10 +126,8 @@ def _library():
         info = _LAST_BUILD if _LAST_BUILD is not None else build()
         lib = ctypes.CDLL(str(info.path))
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        for name in ("pgd_sweep_tile", "pgd_sweep_rowdot"):
-            fn = getattr(lib, name)
-            fn.argtypes = [p, p, p, p, p, ll, i, i, i, i, i, i, i, p]
-            fn.restype = i
+        lib.pgd_sweep_tile.argtypes = [p, p, p, p, p, ll, i, i, i, i, i, i, i, p]
+        lib.pgd_sweep_tile.restype = i
         lib.pgd_sweep_factors.argtypes = [p, p, p, p, ll, i, i, i, i, p]
         lib.pgd_sweep_factors.restype = i
         lib.pgd_error_string.argtypes = [i]
@@ -176,18 +173,18 @@ def stack_tables(param_modes, device) -> torch.Tensor:
     return tabs
 
 
-def _smem_bytes(K: int, rpw: int, NP: int, tile: bool) -> int:
-    """Shared memory of a tile/row-dot block (layout in the .cu header)."""
+def _smem_bytes(K: int, rpw: int, NP: int) -> int:
+    """Shared memory of a tile block (layout in the .cu header)."""
     Kp = -(-K // _TILE_K) * _TILE_K
     rows = 8 * rpw
-    words = Kp * (rows + 4) + (2 * _STEP_WORDS if tile else 0) + rows * NP * 4 + 4 * _MAX_NP
+    words = Kp * (rows + 4) + 2 * _STEP_WORDS + rows * NP * 4 + 4 * _MAX_NP
     return 4 * words
 
 
-def rows_per_warp(K: int, NP: int, tile: bool) -> int:
+def rows_per_warp(K: int, NP: int) -> int:
     """Largest rows-per-warp (8, 4, 2, 1) whose block fits in shared memory."""
     for rpw in (8, 4, 2, 1):
-        if _smem_bytes(K, rpw, NP, tile) <= _MAX_SMEM:
+        if _smem_bytes(K, rpw, NP) <= _MAX_SMEM:
             return rpw
     raise ValueError(f"K={K} modes do not fit the fused sweep's shared memory")
 
@@ -301,14 +298,16 @@ def fused_sweep(samples, grid, tabs, m0, n_modes, out_dtype=None):
                           device=dev)
         if B == 0:
             return out
-        narrow = n0 <= NARROW_MAX
-        rpw = rows_per_warp(K, NP, tile=not narrow)
-        fn = lib.pgd_sweep_rowdot if narrow else lib.pgd_sweep_tile
         with torch.cuda.device(dev):
-            rc = fn(samples.data_ptr(), grid.data_ptr(), tabs.data_ptr(),
-                    m0.data_ptr(), out.data_ptr(), B, NP, ndofp, K, int(n_modes),
-                    n0, int(bf16), rpw, stream)
-        wiring = "sensors" if narrow else ("fields_bf16" if bf16 else "fields_f32")
+            rc = lib.pgd_sweep_tile(
+                samples.data_ptr(), grid.data_ptr(), tabs.data_ptr(), m0.data_ptr(),
+                out.data_ptr(), B, NP, ndofp, K, int(n_modes), n0, int(bf16),
+                rows_per_warp(K, NP), stream,
+            )
+        if n0 <= SENSORS_MAX:
+            wiring = "sensors"
+        else:
+            wiring = "fields_bf16" if bf16 else "fields_f32"
     if rc != 0:
         msg = lib.pgd_error_string(rc).decode(errors="replace")
         raise RuntimeError(f"fused sweep ({wiring}) launch failed: CUDA error {rc}: {msg}")

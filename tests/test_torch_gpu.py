@@ -94,12 +94,16 @@ def test_p2_param_dims(cuda):
     np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-5 * float(ref.abs().max()))
 
 
-@pytest.mark.parametrize("K,n0", [(40, 1), (40, 8), (40, 32), (640, 8), (640, 32)])
-def test_narrow_rowdot(cuda, K, n0):
+@pytest.mark.parametrize("K,n0", [(40, 1), (40, 8), (40, 32), (640, 8), (640, 33)])
+def test_narrow_outputs(cuda, K, n0):
+    # outputs narrower than one 128-column group: the sensor wiring
     spaces, modes = _case(1, 16, K, n0, 3, seed=n0)
     samples = np.random.default_rng(4).uniform(0.0, 2.0, size=(131, 3)).astype(np.float32)
+    fs.reset_launch_counts()
     out, ref = _run(cuda, spaces, modes, K - 3, samples)
     assert out.shape == (131, n0)
+    wiring = "sensors" if n0 <= fs.SENSORS_MAX else "fields_f32"
+    assert fs.LAUNCHES[wiring] == 1 and sum(fs.LAUNCHES.values()) == 1
     bound = _gamma_bound(spaces, modes, K - 3, samples, K + 12)
     assert bool(((out.double() - ref.double()).abs() <= 2 * bound).all())
 

@@ -199,15 +199,17 @@ def test_gate():
     assert not isinstance(tv.make_sweep_fn(graded, t32, 4, method="auto"), fs.FusedSweep)
 
 
-@pytest.mark.parametrize("K,NP,tile,rpw", [
-    (640, 5, True, 8), (640, 5, False, 8), (10, 2, True, 8), (1000, 5, True, 4),
-    (1000, 5, False, 4), (2717, 10, True, 1), (4000, 3, False, 1),
+@pytest.mark.parametrize("K,NP,rpw", [
+    (640, 5, 8), (640, 16, 8), (10, 2, 8), (1000, 5, 4),
+    (1500, 5, 2), (2717, 10, 1), (3900, 3, 1),
 ])
-def test_rows_per_warp(K, NP, tile, rpw):
-    assert fs.rows_per_warp(K, NP, tile) == rpw
-    assert fs._smem_bytes(K, rpw, NP, tile) <= 232448
+def test_rows_per_warp(K, NP, rpw):
+    assert fs.rows_per_warp(K, NP) == rpw
+    assert fs._smem_bytes(K, rpw, NP) <= 232448
+    if rpw < 8:  # the next larger block would not fit
+        assert fs._smem_bytes(K, 2 * rpw, NP) > 232448
 
 
 def test_too_many_modes_rejected():
     with pytest.raises(ValueError, match="shared memory"):
-        fs.rows_per_warp(6000, 5, True)
+        fs.rows_per_warp(6000, 5)
