@@ -4,7 +4,8 @@ NVIDIA GPU.
 
     python3 chip_smoke.py
 
-It builds the fused-sweep kernel from ``pgdrome_tpu_torch/csrc`` with nvcc,
+It builds the sweep's kernels (factor stage, tensor-core GEMM) from
+``pgdrome_tpu_torch/csrc`` with nvcc,
 loads the committed rank-640 d=5 vademecum (``states/frontier_d5_state.npz``)
 onto the card at full width, and serves it through the port's entry points:
 fields (f32, streamed, bf16 store), sensors and Monte-Carlo moments.  It
@@ -50,8 +51,10 @@ BF16_REL = 1.6e-2            # bf16 store vs f32, relative to max |f32|
 MEAN_REL = 1e-6              # |Δmean| ≤ MEAN_REL · max|mean|
 VAR_REL = 1e-5               # |Δvar| ≤ VAR_REL · max(var + mean²)
 
-# published dense peaks (NVIDIA data sheets): (f32 CUDA-core FLOP/s, HBM B/s)
-PEAKS = {"PCIe": (51e12, 2.0e12), "NVL": (60e12, 3.9e12), "SXM": (67e12, 3.35e12)}
+# published dense peaks (NVIDIA data sheets, without sparsity):
+# (f32 CUDA-core FLOP/s, TF32 tensor-core FLOP/s, HBM B/s)
+PEAKS = {"PCIe": (51e12, 378e12, 2.0e12), "NVL": (60e12, 417.5e12, 3.9e12),
+         "SXM": (67e12, 495e12, 3.35e12)}
 
 
 def say(*args):
@@ -106,6 +109,15 @@ def nvidia_smi_line():
     return proc.stdout.strip().splitlines()[0]
 
 
+def clocks():
+    """SM clock, power draw and temperature now (a timing's conditions)."""
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60, check=True,
+    )
+    return proc.stdout.strip().splitlines()[0]
+
+
 def make_samples(torch, B, gen, device):
     """B uniform samples on [0, 1]^NP, with rows pinned at exactly 0 and 1
     per dim and in all dims (the right end must land in the last cell with
@@ -145,9 +157,10 @@ def main() -> int:
         say(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
             f"cuda {torch.version.cuda}, devices {torch.cuda.device_count()}")
         kind = next((k for k in ("PCIe", "NVL") if k in name), "SXM")
-        peak_flops, peak_bw = PEAKS[kind]
+        peak_flops, peak_tf32, peak_bw = PEAKS[kind]
         say(f"peaks for the roofline ({kind} data sheet): "
-            f"{peak_flops / 1e12:g} TFLOP/s f32, {peak_bw / 1e12:g} TB/s")
+            f"{peak_flops / 1e12:g} TFLOP/s f32, {peak_tf32 / 1e12:g} TFLOP/s tf32 "
+            f"tensor, {peak_bw / 1e12:g} TB/s")
 
     from pgdrome_tpu_torch.ops import fused_sweep as fs
 
@@ -156,10 +169,23 @@ def main() -> int:
         info = fs.build(force=True)
         say("nvcc: " + " ".join(info.command))
         say(f"nvcc seconds: {info.seconds:.2f}")
+        kernel_name = "?"
         for line in info.log.splitlines():
-            if "registers" in line or "spill" in line:
-                say("  ptxas: " + line.strip())
-        fs._library()
+            if "Compiling entry function" in line:
+                mangled = line.split("'")[1]
+                kernel_name = next((k for k in ("sweep_factors_kernel", "sweep_gemm_kernel")
+                                    if k in mangled), mangled)
+                if "factors" in kernel_name:
+                    kernel_name += "<split>" if "ILb1E" in mangled else "<F>"
+                if "gemm" in kernel_name:
+                    kernel_name += ("<BN=128" if "ILi128E" in mangled else "<BN=8") + (
+                        ", bf16>" if "bfloat16" in mangled else ", f32>")
+            elif "registers" in line or "spill" in line:
+                say(f"  ptxas {kernel_name}: {line.strip().removeprefix('ptxas info    : ')}")
+        lib = fs._library()
+        for bn, width in ((128, 2049), (8, N_PTS)):
+            say(f"  sweep_gemm_kernel<BN={bn}>: {lib.pgd_sweep_gemm_smem(width)} bytes of "
+                f"dynamic shared memory")
 
     from pgdrome_tpu_torch.convert import frontier_vademecum
     from pgdrome_tpu_torch.models.problems import box_corners, elliptic_fem_solver
@@ -254,12 +280,24 @@ def main() -> int:
         rates["moment samples/s"] = B_BIG / (time.perf_counter() - t0)
         torch.cuda.synchronize()
         launches = dict(fs.LAUNCHES)
+        stage_launches = dict(fs.STAGE_LAUNCHES)
         say(f"launches on the main path: {json.dumps(launches)}")
+        say(f"kernel launches on the main path: {json.dumps(stage_launches)}")
         for k, v in rates.items():
             say(f"rate {k}: {v:.6g}")
         say(f"rate sensor responses/s (samples x {N_PTS} points): "
             f"{rates['sensor samples/s one-shot'] * N_PTS:.6g}")
         check(all(v > 0 for v in launches.values()), "every wiring launched on the main path")
+        # each field and sensor call walks its batch in the wrapper's row chunks
+        # and launches the GEMM once per chunk (the streams pad every dispatch
+        # to a full chunk)
+        calls = [B_FIELDS] * (1 + len(kept["seen"]) + 1) + [B_BIG, B_BIG]
+        expected_gemm = sum(len(fs.row_chunks(n, K)) for n in calls)
+        say(f"GEMM launches expected from {len(calls)} field and sensor calls: {expected_gemm}")
+        check(stage_launches["gemm"] == expected_gemm,
+              "every field and sensor call ran the tensor-core GEMM on every row chunk")
+        check(stage_launches["factors_stage"] == stage_launches["gemm"] + launches["factors"],
+              "one factor-stage launch per GEMM launch, plus the factor wiring's")
         check(kept["seen"][-1] == B_stream - (n_chunks - 1) * B_FIELDS, "stream tail trimmed")
 
     grid, tabs, m0 = fused.grid, fused.tabs, fused.m0
@@ -320,17 +358,49 @@ def main() -> int:
         return worst
 
     def roofline(B, n_out, out_bytes, product):
+        """Least time for a wiring: each input read once, each output written
+        once, over HBM's rate; against the factor FLOPs over the f32 peak
+        plus the product's over the TF32 tensor peak (the product runs on
+        tensor cores, each FLOP counted once, not per tf32 pass).
+        ``bound_fp32_ms`` prices every FLOP at the f32 CUDA-core peak, the
+        bound of the earlier FP32-pipe kernel, kept for comparison."""
         fac_flops = B * K * 2 * 2 * NP  # P1: 2 mul + 1 add + 1 product mul per dim
-        flops = fac_flops + (2 * B * K * n_out if product else 0)
+        mm_flops = 2 * B * K * n_out if product else 0
         nbytes = (B * NP * 4 + NP * ndofp * K * 4 + 4 * 4 * NP
                   + (K * n_out * 4 if product else 0) + B * n_out * out_bytes)
-        t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
-        return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
-                flops, nbytes)
+        t_bytes = nbytes / peak_bw * 1e3
+        t_ops = (mm_flops / peak_tf32 + fac_flops / peak_flops) * 1e3
+        t_fp32 = (mm_flops + fac_flops) / peak_flops * 1e3
+        return {"bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "bound_fp32_ms": max(t_fp32, t_bytes), "flops": fac_flops + mm_flops,
+                "bytes": nbytes}
+
+    def stage_ms(samples, split_table, n_out, out_dtype=torch.float32):
+        """Device time of the two kernels of a product wiring over the
+        wrapper's row chunks, timed apart: all factor-stage launches, then
+        all GEMM launches.  The GEMM rereads the last chunk's factors (its
+        time does not depend on their values)."""
+        B = samples.shape[0]
+        chunks = fs.row_chunks(B, K)
+        hi = torch.empty((chunks[0][1], fs.padded_k(K)), device=dev)
+        lo = torch.empty_like(hi)
+        dst = torch.empty((B, n_out), dtype=out_dtype, device=dev)
+
+        def stage1():
+            for r0, r1 in chunks:
+                fs.factors_stage(samples[r0:r1], grid, tabs, vd.n_modes, hi[: r1 - r0],
+                                 lo[: r1 - r0])
+
+        def stage2():
+            for r0, r1 in chunks:
+                fs.gemm_stage(hi[: r1 - r0], lo[: r1 - r0], *split_table, dst[r0:r1])
+
+        return {"factor_stage_ms": cuda_ms(stage1, 3), "gemm_ms": cuda_ms(stage2, 3),
+                "row_chunks": len(chunks)}
 
     def entry(name, wiring, kernel_out_shape, launches_n, worst, ms, plain_ms, lib_ms,
               bound, c, **extra):
-        bound_ms, bound_by, flops, nbytes = bound
         kernels.append({
             "name": name, "route": "cuda",
             "source": "pgdrome_tpu_torch/csrc/fused_sweep.cu",
@@ -338,14 +408,19 @@ def main() -> int:
             "wiring": wiring, "shape": list(kernel_out_shape),
             "launches": launches_n, "max_abs_err": worst["vs_plain"],
             "max_abs_err_vs_f64": worst["vs_f64"], "err_over_bound": worst["ratio"],
-            "gamma_c": c, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "flops": flops, "bytes": nbytes, "library_ms": lib_ms,
+            "gamma_c": c, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"], "library_ms": lib_ms,
+            "bound_fp32_ms": bound["bound_fp32_ms"], "share": bound["bound_ms"] / ms,
+            "flops": bound["flops"], "bytes": bound["bytes"], "clocks_after": clocks(),
             **extra,
         })
         say(f"kernel {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, library "
-            f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound {bound_ms:.4f} ms "
-            f"by {bound_by}), max|err| vs plain {worst['vs_plain']:.3e}, "
-            f"vs f64 {worst['vs_f64']} ({worst['ratio']:.3f} of its bound)")
+            f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+            f"{bound['bound_ms']:.4f} ms by {bound['bound_by']}, f32-pipe bound "
+            f"{bound['bound_fp32_ms']:.4f} ms), max|err| vs plain {worst['vs_plain']:.3e}, "
+            f"vs f64 {worst['vs_f64']} ({worst['ratio']:.3f} of its bound)"
+            + "".join(f", {k} {v}" for k, v in extra.items())
+            + f", clocks after (sm, power, temperature): {kernels[-1]['clocks_after']}")
 
     # ------------------------------------------------------------- fields
     with Phase("check_fields"):
@@ -363,32 +438,24 @@ def main() -> int:
             f"(bound {BF16_REL:g} · {out_max:.4e})")
         check(bf_err < BF16_REL * out_max, "bf16 store within its quantization")
         w_bf16 = hold(bf, s_fields, m0, c_fields, out_dtype=torch.bfloat16)
+        del bf
         fac_fields = fs.fused_sweep(s_fields, grid, tabs, None, vd.n_modes)
-        ms_f32 = cuda_ms(lambda: fs.fused_sweep(s_fields, grid, tabs, m0, vd.n_modes), 3)
-        # split the field launch into its factor and product stages: a block
-        # builds its factor tile once whatever n0 is, and the product's work
-        # grows with the columns computed (256 per full n0 tile, 128 for a
-        # last tile of at most 128); two widths give the line
-        m0_128 = m0[:, :128].contiguous()
-        ms_128 = cuda_ms(lambda: fs.fused_sweep(s_fields, grid, tabs, m0_128, vd.n_modes), 3)
-        cols = 256 * (n0 // 256) + (0 if n0 % 256 == 0 else 128 if n0 % 256 <= 128 else 256)
-        per_col = (ms_f32 - ms_128) / (cols - 128)
-        split = {"ms_n0_128": ms_128, "factor_stage_ms": ms_128 - 128 * per_col,
-                 "product_stage_ms": per_col * cols}
-        say(f"fields f32 split: {json.dumps(split)}")
-        ms_bf16 = cuda_ms(lambda: fs.fused_sweep(s_fields, grid, tabs, m0, vd.n_modes,
-                                                 torch.bfloat16), 3)
+        ms_f32 = cuda_ms(lambda: fused(s_fields), 3)
+        stages_f32 = stage_ms(s_fields, fused.table, n0)
+        fused_bf16 = vd._sweep(torch.bfloat16)
+        ms_bf16 = cuda_ms(lambda: fused_bf16(s_fields), 3)
+        stages_bf16 = stage_ms(s_fields, fused.table, n0, torch.bfloat16)
         plain_f32 = cuda_ms(lambda: fs.fused_sweep_plain(s_fields, grid, tabs, m0, vd.n_modes), 2)
         plain_bf16 = cuda_ms(lambda: fs.fused_sweep_plain(s_fields, grid, tabs, m0, vd.n_modes,
                                                           torch.bfloat16), 2)
         lib = cuda_ms(lambda: torch.matmul(fac_fields, m0), 3)
-        del bf, fac_fields
+        del fac_fields
         entry("fused_sweep_fields_f32", "parallel/vademecum.py::make_sweep_fn", out.shape,
               launches["fields_f32"], w_f32, ms_f32, plain_f32, lib,
-              roofline(B_FIELDS, n0, 4, True), c_fields, split=split)
+              roofline(B_FIELDS, n0, 4, True), c_fields, stages=stages_f32)
         entry("fused_sweep_fields_bf16", "parallel/vademecum.py::make_sweep_fn(out_dtype=bf16)",
               out.shape, launches["fields_bf16"], w_bf16, ms_bf16, plain_bf16, lib,
-              roofline(B_FIELDS, n0, 2, True), c_fields)
+              roofline(B_FIELDS, n0, 2, True), c_fields, stages=stages_bf16)
         del out
 
     # ------------------------------------------------------------ sensors
@@ -397,13 +464,15 @@ def main() -> int:
         check(table.shape == (K, N_PTS), "sensor table shape")
         w_sens = hold(resp, s_big, table, c_fields, rows=524_288)
         check(torch.equal(resp_stream, resp.cpu()), "sensors_stream equals one-shot sensors")
-        ms_sens = cuda_ms(lambda: fs.fused_sweep(s_big, grid, tabs, table, vd.n_modes), 3)
+        sensor_sweep = vd.sensors(pts)
+        ms_sens = cuda_ms(lambda: sensor_sweep(s_big), 3)
+        stages_sens = stage_ms(s_big, sensor_sweep.table, N_PTS)
         plain_sens = cuda_ms(lambda: fs.fused_sweep_plain(s_big, grid, tabs, table, vd.n_modes), 1)
         fac_big = fs.fused_sweep(s_big, grid, tabs, None, vd.n_modes)
         lib_sens = cuda_ms(lambda: torch.matmul(fac_big, table), 3)
         entry("fused_sweep_sensors", "parallel/vademecum.py::make_sensor_sweep_fn",
               resp.shape, launches["sensors"], w_sens, ms_sens, plain_sens, lib_sens,
-              roofline(B_BIG, N_PTS, 4, True), c_fields)
+              roofline(B_BIG, N_PTS, 4, True), c_fields, stages=stages_sens)
         del resp, resp_stream
 
     # ------------------------------------------------------------ moments

@@ -1,4 +1,4 @@
-"""Fused vademecum sweep: a hand-written CUDA kernel for Hopper and its plain
+"""Vademecum sweep: hand-written CUDA kernels for Hopper and their plain
 PyTorch version (counterpart of ``pgdrome_tpu/ops/pallas_kernels.py``).
 
 For samples s (B, NP), uniform P1/P2 parameter grids with mode tables
@@ -13,12 +13,18 @@ arithmetic, in float32.  ``M0=None`` asks for the masked factors F
 themselves, (B, K): the factor wiring behind ``moments``, which on the TPU
 multiplied by an identity table.
 
-The kernel (``csrc/fused_sweep.cu``; design and bound in its header) is
-built with ``nvcc`` into a plain C shared library at first use and called
-through ``ctypes`` on PyTorch's current stream.  :func:`fused_sweep` takes
-the plain version only for tensors on the CPU; a CUDA tensor always goes to
-the kernel, and a build or launch failure raises.  Each launch adds one to
-its entry in :data:`LAUNCHES`.
+On the card the sweep runs in two kernels (``csrc/fused_sweep.cu``;
+design and bounds in its header): stage 1 writes F, split into tf32
+hi/lo halves, into a scratch buffer whose rows are K rounded up to a
+multiple of 8; stage 2 is a TMA + wgmma GEMM that multiplies it by the
+split, transposed, masked M0 table in three tf32 passes.  The wrapper walks
+the batch in row chunks so the scratch stays under :data:`SCRATCH_BYTES`.
+The kernels are built with ``nvcc`` into a plain C shared library at first
+use and called through ``ctypes`` on PyTorch's current stream.
+:func:`fused_sweep` takes the plain version only for tensors on the CPU; a
+CUDA tensor always goes to the kernels, and a build or launch failure
+raises.  Each wiring call adds one to its entry in :data:`LAUNCHES`, each
+kernel launch one to its entry in :data:`STAGE_LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -48,20 +54,25 @@ NVCC_FLAGS = (
 )
 BUILD_TIMEOUT_S = 600
 
-# launches per kernel wiring; incremented only where a kernel is launched
+# calls per sweep wiring; incremented only where the kernels are launched
 LAUNCHES = {"fields_f32": 0, "fields_bf16": 0, "sensors": 0, "factors": 0}
+# launches per kernel: stage 1 (factors) and stage 2 (the tensor-core GEMM)
+STAGE_LAUNCHES = {"factors_stage": 0, "gemm": 0}
 
-# launches with outputs up to this wide count as the sensor wiring
+# launches with outputs up to this wide count as the sensor wiring (the
+# GEMM also takes its narrow, 8-column tile up to this width)
 SENSORS_MAX = 32
-_MAX_SMEM = 232448  # bytes of shared memory a block may use on sm_90
-_TILE_K = 16  # K is padded to a multiple of this (kTileK)
-_STEP_WORDS = 4096  # words of one staged M0 tile (kTileK * kTileN)
+# bytes of F scratch (both tf32 halves) one row chunk may hold
+SCRATCH_BYTES = 1 << 30
+GEMM_ROWS = 128  # output rows of one GEMM block; chunks are multiples of it
+K_ALIGN = 8  # F and table rows are padded to a multiple of this (TMA, k8 steps)
 _MAX_NP = 16
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, STAGE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 # ------------------------------------------------------------------- build
@@ -126,10 +137,12 @@ def _library():
         info = _LAST_BUILD if _LAST_BUILD is not None else build()
         lib = ctypes.CDLL(str(info.path))
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.pgd_sweep_tile.argtypes = [p, p, p, p, p, ll, i, i, i, i, i, i, i, p]
-        lib.pgd_sweep_tile.restype = i
-        lib.pgd_sweep_factors.argtypes = [p, p, p, p, ll, i, i, i, i, p]
+        lib.pgd_sweep_factors.argtypes = [p, p, p, p, p, ll, i, i, i, i, i, p]
         lib.pgd_sweep_factors.restype = i
+        lib.pgd_sweep_gemm.argtypes = [p, p, p, p, p, ll, i, i, i, p]
+        lib.pgd_sweep_gemm.restype = i
+        lib.pgd_sweep_gemm_smem.argtypes = [i]
+        lib.pgd_sweep_gemm_smem.restype = i
         lib.pgd_error_string.argtypes = [i]
         lib.pgd_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -173,20 +186,55 @@ def stack_tables(param_modes, device) -> torch.Tensor:
     return tabs
 
 
-def _smem_bytes(K: int, rpw: int, NP: int) -> int:
-    """Shared memory of a tile block (layout in the .cu header)."""
-    Kp = -(-K // _TILE_K) * _TILE_K
-    rows = 8 * rpw
-    words = Kp * (rows + 4) + 2 * _STEP_WORDS + rows * NP * 4 + 4 * _MAX_NP
-    return 4 * words
+def padded_k(K: int) -> int:
+    """Row length of the F scratch and the M0 table: K rounded up to a
+    multiple of :data:`K_ALIGN`."""
+    return -(-int(K) // K_ALIGN) * K_ALIGN
 
 
-def rows_per_warp(K: int, NP: int) -> int:
-    """Largest rows-per-warp (8, 4, 2, 1) whose block fits in shared memory."""
-    for rpw in (8, 4, 2, 1):
-        if _smem_bytes(K, rpw, NP) <= _MAX_SMEM:
-            return rpw
-    raise ValueError(f"K={K} modes do not fit the fused sweep's shared memory")
+def split_tf32(x: torch.Tensor):
+    """Split float32 ``x`` into tf32 halves ``(hi, lo)``: hi rounds x to 10
+    stored mantissa bits (nearest, ties away from zero — the integer form
+    of ``cvt.rna.tf32.f32``), lo rounds x − hi the same way, so
+    |x − hi − lo| ≤ 2⁻²²|x| for normal x.  A value that would round to
+    infinity is truncated instead; non-finite x gives (x, 0).  Bit for bit
+    what the kernel's stage 1 stores."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"split_tf32 takes float32, got {x.dtype}")
+
+    def rn(v):
+        u = v.view(torch.int32)
+        h = (u + 0x1000) & -0x2000  # & 0xffffe000; the sign bit stays
+        inf = (h & 0x7F800000) == 0x7F800000
+        return torch.where(inf, u & -0x2000, h).view(torch.float32)
+
+    finite = torch.isfinite(x)
+    xf = torch.where(finite, x, torch.zeros_like(x))
+    hi = rn(xf)
+    lo = rn(xf - hi)
+    return torch.where(finite, hi, x), lo
+
+
+def split_table(m0: torch.Tensor, n_modes: int):
+    """The GEMM's B operand: M0 (K, n0) transposed to (n0, Kp), rows
+    k ≥ ``n_modes`` and the padding k ≥ K zero (whatever M0 holds there,
+    NaN included), split by :func:`split_tf32`.  Returns (hi, lo)."""
+    K, n0 = m0.shape
+    t = torch.zeros((n0, padded_k(K)), dtype=torch.float32, device=m0.device)
+    keep = torch.arange(K, device=m0.device) < int(n_modes)
+    t[:, :K] = torch.where(keep[:, None], m0.to(torch.float32), 0.0).T
+    hi, lo = split_tf32(t)
+    return hi.contiguous(), lo.contiguous()
+
+
+def row_chunks(B: int, K: int):
+    """The wrapper's walk over a batch: (start, stop) row ranges covering
+    [0, B) in order, each a multiple of :data:`GEMM_ROWS` rows (but the
+    last) whose F scratch, 8·Kp bytes a row, fits :data:`SCRATCH_BYTES`
+    (one 128-row tile at least)."""
+    per_row = 8 * padded_k(K)
+    rows = max(GEMM_ROWS, SCRATCH_BYTES // per_row // GEMM_ROWS * GEMM_ROWS)
+    return [(r0, min(B, r0 + rows)) for r0 in range(0, int(B), rows)]
 
 
 # ------------------------------------------------------------ plain version
@@ -245,16 +293,134 @@ def _check(t, name, device, ndim, dtype=torch.float32):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _raise_on(rc, lib, what):
+    if rc != 0:
+        msg = lib.pgd_error_string(rc).decode(errors="replace")
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc}: {msg}")
+
+
+def _stream(dev):
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def factors_stage(samples, grid, tabs, n_modes, out, out_lo=None):
+    """Stage 1 on the card: the masked factors of ``samples`` (B, NP) into
+    ``out`` (B, K), columns k ≥ ``n_modes`` zero — or, with ``out_lo``,
+    their tf32 halves (:func:`split_tf32`) into ``out`` and ``out_lo``
+    (B, ldf), ldf ≥ K, the padding zero.  ``samples``, ``grid`` and
+    ``tabs`` as :func:`fused_sweep` takes them; B ≥ 1."""
+    dev = samples.device
+    B, NP = samples.shape
+    _, ndofp, K = tabs.shape
+    for name, t in (("out", out), ("out_lo", out_lo)):
+        if t is not None:
+            _check(t, name, dev, 2)
+            if t.shape[0] != B or t.shape[1] < K or (out_lo is None and t.shape[1] != K):
+                raise ValueError(f"{name} {tuple(t.shape)} does not fit ({B}, {K}) factors")
+    if out_lo is not None and out_lo.shape != out.shape:
+        raise ValueError("out and out_lo differ in shape")
+    lib = _library()
+    with torch.cuda.device(dev):
+        rc = lib.pgd_sweep_factors(
+            samples.data_ptr(), grid.data_ptr(), tabs.data_ptr(), out.data_ptr(),
+            None if out_lo is None else out_lo.data_ptr(), B, NP, ndofp, K,
+            int(n_modes), int(out.shape[1]), _stream(dev),
+        )
+    _raise_on(rc, lib, "sweep factor stage")
+    STAGE_LAUNCHES["factors_stage"] += 1
+
+
+def gemm_stage(f_hi, f_lo, t_hi, t_lo, out):
+    """Stage 2 on the card: ``out`` (rows, n0) = F · M0 in three tf32
+    passes, from the split factors ``f_hi``/``f_lo`` (rows, Kp) and the
+    split table ``t_hi``/``t_lo`` (n0, Kp) of :func:`split_table`; ``out``
+    float32 or bfloat16 (the store rounds).  rows ≥ 1."""
+    dev = out.device
+    for name, t in (("f_hi", f_hi), ("f_lo", f_lo), ("t_hi", t_hi), ("t_lo", t_lo)):
+        _check(t, name, dev, 2)
+    _check(out, "out", dev, 2, out.dtype)
+    rows, Kp = f_hi.shape
+    n0 = t_hi.shape[0]
+    if (f_lo.shape != f_hi.shape or t_hi.shape != (n0, Kp) or t_lo.shape != t_hi.shape
+            or out.shape != (rows, n0)):
+        raise ValueError(
+            f"GEMM shapes do not match: F {tuple(f_hi.shape)}, table "
+            f"{tuple(t_hi.shape)}, out {tuple(out.shape)}"
+        )
+    if out.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"out must be float32 or bfloat16, got {out.dtype}")
+    if Kp % K_ALIGN:
+        raise ValueError(f"Kp={Kp} must be a multiple of {K_ALIGN}")
+    lib = _library()
+    with torch.cuda.device(dev):
+        rc = lib.pgd_sweep_gemm(
+            f_hi.data_ptr(), f_lo.data_ptr(), t_hi.data_ptr(), t_lo.data_ptr(),
+            out.data_ptr(), rows, Kp, n0, int(out.dtype == torch.bfloat16), _stream(dev),
+        )
+    _raise_on(rc, lib, "sweep GEMM")
+    STAGE_LAUNCHES["gemm"] += 1
+
+
+def _check_operands(samples, grid, tabs, n_modes):
+    """The checks :func:`fused_sweep` makes of a CUDA call's operands."""
+    dev = samples.device
+    if dev.type != "cuda":
+        raise ValueError(f"fused sweep runs on cuda or cpu, not {dev}")
+    _check(samples, "samples", dev, 2)
+    _check(grid, "grid", dev, 2)
+    _check(tabs, "tabs", dev, 3)
+    NP = samples.shape[1]
+    _, ndofp, K = tabs.shape
+    if grid.shape != (4, NP) or tabs.shape[0] != NP or not 1 <= NP <= _MAX_NP:
+        raise ValueError(
+            f"grid {tuple(grid.shape)} / tabs {tuple(tabs.shape)} do not "
+            f"match {NP} parameter dims (1..{_MAX_NP})"
+        )
+    if ndofp < 2:
+        raise ValueError(f"tables hold {ndofp} dofs per dim, need at least 2")
+    if not 0 <= int(n_modes) <= K:
+        raise ValueError(f"n_modes={n_modes} outside [0, {K}]")
+
+
+def _product(samples, grid, tabs, n_modes, table, out_dtype):
+    """The product wirings on the card, from checked operands and the split
+    M0 table (:func:`split_table`): both stages over :func:`row_chunks` of
+    the batch, the split factors of each chunk into one scratch pair, then
+    the GEMM into the chunk's rows of the (B, n0) output."""
+    dev = samples.device
+    B, K = samples.shape[0], tabs.shape[2]
+    t_hi, t_lo = table
+    n0 = int(t_hi.shape[0])
+    if t_hi.shape[1] != padded_k(K):
+        raise ValueError(f"split table {tuple(t_hi.shape)} does not fit K={K}")
+    bf16 = out_dtype == torch.bfloat16
+    out = torch.empty((B, n0), dtype=torch.bfloat16 if bf16 else torch.float32, device=dev)
+    if B == 0:
+        return out
+    chunks = row_chunks(B, K)
+    f_hi = torch.empty((chunks[0][1], padded_k(K)), dtype=torch.float32, device=dev)
+    f_lo = torch.empty_like(f_hi)
+    for r0, r1 in chunks:
+        n = r1 - r0
+        factors_stage(samples[r0:r1], grid, tabs, n_modes, f_hi[:n], f_lo[:n])
+        gemm_stage(f_hi[:n], f_lo[:n], t_hi, t_lo, out[r0:r1])
+    if n0 <= SENSORS_MAX:
+        LAUNCHES["sensors"] += 1
+    else:
+        LAUNCHES["fields_bf16" if bf16 else "fields_f32"] += 1
+    return out
+
+
 def fused_sweep(samples, grid, tabs, m0, n_modes, out_dtype=None):
-    """Run the fused sweep.
+    """Run the sweep.
 
     samples (B, NP) float32; grid (4, NP) float32 from :func:`sweep_grid`;
     tabs (NP, ndofp, K) float32 from :func:`stack_tables`; m0 (K, n0)
     float32, or None for the factors (B, K); ``out_dtype`` float32 (None)
-    or bfloat16 — compute stays true f32, only the store narrows.
+    or bfloat16 — only the store narrows.
 
     A CPU ``samples`` takes :func:`fused_sweep_plain`; a CUDA one launches
-    the kernel (building it at first use) and raises on any failure."""
+    the kernels (building them at first use) and raises on any failure."""
     if out_dtype not in (None, torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
     if m0 is None and out_dtype not in (None, torch.float32):
@@ -262,73 +428,44 @@ def fused_sweep(samples, grid, tabs, m0, n_modes, out_dtype=None):
     dev = samples.device
     if dev.type == "cpu":
         return fused_sweep_plain(samples, grid, tabs, m0, n_modes, out_dtype)
-    if dev.type != "cuda":
-        raise ValueError(f"fused sweep runs on cuda or cpu, not {dev}")
-    _check(samples, "samples", dev, 2)
-    _check(grid, "grid", dev, 2)
-    _check(tabs, "tabs", dev, 3)
-    B, NP = samples.shape
-    _, ndofp, K = tabs.shape
-    if grid.shape != (4, NP) or tabs.shape[0] != NP:
-        raise ValueError(
-            f"grid {tuple(grid.shape)} / tabs {tuple(tabs.shape)} do not "
-            f"match {NP} parameter dims"
-        )
-    if not 0 <= int(n_modes) <= K:
-        raise ValueError(f"n_modes={n_modes} outside [0, {K}]")
-    lib = _library()
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    _check_operands(samples, grid, tabs, n_modes)
+    B, K = samples.shape[0], tabs.shape[2]
     if m0 is None:
         out = torch.empty((B, K), dtype=torch.float32, device=dev)
-        if B == 0:
-            return out
-        with torch.cuda.device(dev):
-            rc = lib.pgd_sweep_factors(
-                samples.data_ptr(), grid.data_ptr(), tabs.data_ptr(),
-                out.data_ptr(), B, NP, ndofp, K, int(n_modes), stream,
-            )
-        wiring = "factors"
-    else:
-        _check(m0, "m0", dev, 2)
-        if m0.shape[0] != K:
-            raise ValueError(f"m0 has {m0.shape[0]} rows, tables have K={K}")
-        n0 = int(m0.shape[1])
-        bf16 = out_dtype == torch.bfloat16
-        out = torch.empty((B, n0), dtype=torch.bfloat16 if bf16 else torch.float32,
-                          device=dev)
-        if B == 0:
-            return out
-        with torch.cuda.device(dev):
-            rc = lib.pgd_sweep_tile(
-                samples.data_ptr(), grid.data_ptr(), tabs.data_ptr(), m0.data_ptr(),
-                out.data_ptr(), B, NP, ndofp, K, int(n_modes), n0, int(bf16),
-                rows_per_warp(K, NP), stream,
-            )
-        if n0 <= SENSORS_MAX:
-            wiring = "sensors"
-        else:
-            wiring = "fields_bf16" if bf16 else "fields_f32"
-    if rc != 0:
-        msg = lib.pgd_error_string(rc).decode(errors="replace")
-        raise RuntimeError(f"fused sweep ({wiring}) launch failed: CUDA error {rc}: {msg}")
-    LAUNCHES[wiring] += 1
-    return out
+        if B:
+            factors_stage(samples, grid, tabs, n_modes, out)
+            LAUNCHES["factors"] += 1
+        return out
+    _check(m0, "m0", dev, 2)
+    if m0.shape[0] != K:
+        raise ValueError(f"m0 has {m0.shape[0]} rows, tables have K={K}")
+    return _product(samples, grid, tabs, n_modes, split_table(m0, n_modes), out_dtype)
 
 
 class FusedSweep:
-    """A fused sweep bound to one vademecum's tables on one device:
+    """A sweep bound to one vademecum's tables on one device:
     ``sweep(samples (B, NP)) → (B, n0)`` (or the factors (B, K) when built
-    with no dim-0 table)."""
+    with no dim-0 table).  The GEMM's split M0 table is made once, here,
+    when the tables are on the card; ``m0`` itself serves the plain
+    version on the CPU."""
 
     def __init__(self, grid, tabs, m0, n_modes, out_dtype=None):
         self.grid, self.tabs, self.m0 = grid, tabs, m0
         self.n_modes = int(n_modes)
+        if out_dtype not in (None, torch.float32, torch.bfloat16):
+            raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
         self.out_dtype = out_dtype
+        self.table = None
+        if m0 is not None and tabs.device.type == "cuda":
+            self.table = split_table(m0, self.n_modes)
 
     def __call__(self, samples):
         s = torch.as_tensor(samples).to(self.tabs.device, torch.float32).contiguous()
-        return fused_sweep(s, self.grid, self.tabs, self.m0, self.n_modes,
-                           self.out_dtype)
+        if self.table is None:
+            return fused_sweep(s, self.grid, self.tabs, self.m0, self.n_modes,
+                               self.out_dtype)
+        _check_operands(s, self.grid, self.tabs, self.n_modes)
+        return _product(s, self.grid, self.tabs, self.n_modes, self.table, self.out_dtype)
 
 
 def make_fused_sweep(spaces, modes, n_modes, out_dtype=None, device=None):

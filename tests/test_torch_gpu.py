@@ -1,4 +1,5 @@
-"""The fused-sweep CUDA kernel against its plain PyTorch version, on the card.
+"""The sweep's CUDA kernels (factor stage, tensor-core GEMM) against their
+plain PyTorch version, on the card.
 
 These tests need an NVIDIA GPU with ``nvcc`` (sm_90a); without one they
 skip.  They import no JAX, so they run on a machine that has only the
@@ -8,6 +9,8 @@ port's dependencies:
 
 Inputs are made with numpy from fixed seeds; tolerances are stated per test.
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -46,7 +49,8 @@ def _run(cuda, spaces, modes, n_modes, samples, out_dtype=None, factors=False):
 
 
 def _gamma_bound(spaces, modes, n_modes, samples, c, factors=False):
-    """γ_c · |F|·|M0| in f64 (P1 bases are ≥ 0, so |F| is the factor of |T|)."""
+    """γ_c · |F|·|M0| in f64 (P1 bases are ≥ 0, so |F| is the factor of |T|;
+    M0 rows at or past ``n_modes`` never contribute)."""
     grid = torch.as_tensor(fs.sweep_grid(spaces))
     tabs = fs.stack_tables([torch.as_tensor(np.abs(m)) for m in modes[1:]], "cpu").double()
     fabs = fs.fused_sweep_plain(torch.as_tensor(samples), grid, tabs, None, n_modes)
@@ -54,15 +58,18 @@ def _gamma_bound(spaces, modes, n_modes, samples, c, factors=False):
     g = c * u / (1 - c * u)
     if factors:
         return g * fabs
-    return g * (fabs @ torch.as_tensor(np.abs(modes[0])).double())
+    m0 = np.abs(modes[0]).astype(np.float64)
+    m0[n_modes:] = 0.0
+    return g * (fabs @ torch.as_tensor(m0))
 
 
 @pytest.mark.parametrize("K,n0,NP,B,n_modes", [
     (10, 41, 2, 73, 7),       # toy sizes, ragged in every axis
     (33, 130, 3, 129, 33),    # one past a tile in K, n0 and rows
     (640, 2049, 5, 200, 640),  # the d=5 vademecum's widths
-    (1000, 400, 3, 70, 1000),  # 4 rows per warp; a last tile wider than 128
-    (2717, 300, 2, 20, 2700),  # 1 row per warp (the d=10 state's rank)
+    (1000, 400, 3, 70, 1000),  # a last n0 tile wider than half a GEMM tile
+    (2717, 300, 2, 20, 2700),  # the d=10 state's rank
+    (641, 2049, 5, 300, 641),  # K not a multiple of 8; B not of 128
 ])
 def test_fields_f32_matches_plain(cuda, K, n0, NP, B, n_modes):
     spaces, modes = _case(1, 16, K, n0, NP, seed=K + n0)
@@ -138,3 +145,103 @@ def test_rejects_wrong_inputs(cuda):
                        kern.grid, kern.tabs, kern.m0, 10)
     with pytest.raises(ValueError):  # n_modes beyond the tables
         fs.fused_sweep(torch.zeros((4, 2), device=cuda), kern.grid, kern.tabs, kern.m0, 11)
+
+
+@pytest.mark.parametrize("K,n0,B", [
+    (641, 2049, 1), (641, 1, 300), (641, 8, 129), (64, 2049, 257), (8, 33, 127),
+])
+def test_edge_shapes(cuda, K, n0, B):
+    # one sample, one output column, K past a multiple of 8, ragged B
+    spaces, modes = _case(1, 16, K, n0, 5, seed=K + n0 + B)
+    samples = np.random.default_rng(B).uniform(0.0, 2.0, size=(B, 5)).astype(np.float32)
+    fs.reset_launch_counts()
+    out, ref = _run(cuda, spaces, modes, K - 1, samples)
+    assert out.shape == (B, n0)
+    assert fs.STAGE_LAUNCHES == {"factors_stage": 1, "gemm": 1}
+    bound = _gamma_bound(spaces, modes, K - 1, samples, K + 20)
+    assert bool(((out.double() - ref.double()).abs() <= 2 * bound).all())
+
+
+@pytest.mark.parametrize("n0", [8, 300])
+def test_nan_rows_past_n_modes(cuda, n0):
+    # padded-buffer rows of M0 may hold anything; none reaches the output
+    spaces, modes = _case(1, 16, 100, n0, 3, seed=n0)
+    modes[0][90:] = np.nan
+    samples = np.random.default_rng(9).uniform(0.0, 2.0, size=(200, 3)).astype(np.float32)
+    out, ref = _run(cuda, spaces, modes, 90, samples)
+    assert bool(torch.isfinite(out).all())
+    bound = _gamma_bound(spaces, modes, 90, samples, 100 + 12)
+    assert bool(((out.double() - ref.double()).abs() <= 2 * bound).all())
+
+
+def test_split_store_matches_plain(cuda):
+    # stage 1's hi/lo store is the plain split_tf32 of its own f32 factors,
+    # bit for bit; the padding columns past K are zero
+    spaces, modes = _case(1, 16, 45, 20, 4, seed=11)
+    kern = fs.make_fused_sweep(spaces, [None] + modes[1:], 41, device=cuda)
+    s = torch.as_tensor(np.random.default_rng(10).uniform(0.0, 2.0, size=(333, 4)),
+                        dtype=torch.float32, device=cuda)
+    f = torch.full((333, 45), float("nan"), device=cuda)
+    hi = torch.full((333, fs.padded_k(45)), float("nan"), device=cuda)
+    lo = torch.full_like(hi, float("nan"))
+    fs.factors_stage(s, kern.grid, kern.tabs, 41, f)
+    fs.factors_stage(s, kern.grid, kern.tabs, 41, hi, lo)
+    torch.cuda.synchronize()
+    assert bool((f[:, 41:] == 0).all())
+    assert bool((hi[:, 45:] == 0).all()) and bool((lo[:, 45:] == 0).all())
+    ph, pl = fs.split_tf32(f)
+    assert torch.equal(hi[:, :45].view(torch.int32), ph.view(torch.int32))
+    assert torch.equal(lo[:, :45].view(torch.int32), pl.view(torch.int32))
+
+
+def test_row_chunks_bitwise(cuda, monkeypatch):
+    # a batch walked in several scratch chunks equals the one-chunk result
+    spaces, modes = _case(1, 16, 64, 130, 2, seed=12)
+    samples = np.random.default_rng(11).uniform(0.0, 2.0, size=(1000, 2)).astype(np.float32)
+    kern = fs.make_fused_sweep(spaces, modes, 60, device=cuda)
+    s = torch.as_tensor(samples, device=cuda)
+    one = kern(s)
+    monkeypatch.setattr(fs, "SCRATCH_BYTES", 256 * 8 * 64)
+    assert len(fs.row_chunks(1000, 64)) == 4
+    fs.reset_launch_counts()
+    many = kern(s)
+    torch.cuda.synchronize()
+    assert fs.STAGE_LAUNCHES == {"factors_stage": 4, "gemm": 4}
+    assert fs.LAUNCHES["fields_f32"] == 1
+    assert torch.equal(one, many)
+
+
+@pytest.mark.parametrize("n0", [8, 300])
+def test_large_k(cuda, n0):
+    # K = 6000: the factor stage and the GEMM have no limit on K but memory
+    spaces, modes = _case(1, 16, 6000, n0, 2, seed=n0 + 6000)
+    samples = np.random.default_rng(13).uniform(0.0, 2.0, size=(70, 2)).astype(np.float32)
+    fs.reset_launch_counts()
+    out, ref = _run(cuda, spaces, modes, 5993, samples)
+    assert out.shape == (70, n0)
+    assert fs.STAGE_LAUNCHES == {"factors_stage": 1, "gemm": 1}
+    bound = _gamma_bound(spaces, modes, 5993, samples, 6000 + 8)
+    assert bool(((out.double() - ref.double()).abs() <= 2 * bound).all())
+
+
+def test_served_d5_fields_vs_fem(cuda):
+    # the committed rank-640 d=5 vademecum served through the kernels, held
+    # to the FEM gate at the 32 inset corners of the parameter box.  The
+    # sum over modes cancels heavily there, so a bias in the GEMM's
+    # accumulation shows in this error before the elementwise γ bound sees
+    # it (PERF.md 6.1: 32-k tensor-core accumulators give 1.02e-6)
+    from pgdrome_tpu_torch.convert import frontier_vademecum
+    from pgdrome_tpu_torch.models.problems import box_corners, elliptic_fem_solver
+
+    state = Path(__file__).resolve().parent.parent / "states" / "frontier_d5_state.npz"
+    vd = frontier_vademecum(state, 5, device=cuda)
+    assert isinstance(vd._sweep(), fs.FusedSweep)
+    grid_p = vd.spaces[1].tabulate_dof_coordinates()[:, 0]
+    corners = box_corners(grid_p[1], grid_p[-2], 5)
+    fem = elliptic_fem_solver(vd.spaces[0], 5)
+    fs.reset_launch_counts()
+    served = vd.fields(corners).double().cpu().numpy()
+    assert fs.STAGE_LAUNCHES["gemm"] == 1
+    rel = [np.linalg.norm(x - u) / np.linalg.norm(u)
+           for x, u in zip(served, (fem(p) for p in corners))]
+    assert len(rel) == 32 and max(rel) < 1e-6

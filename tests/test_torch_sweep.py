@@ -199,17 +199,155 @@ def test_gate():
     assert not isinstance(tv.make_sweep_fn(graded, t32, 4, method="auto"), fs.FusedSweep)
 
 
-@pytest.mark.parametrize("K,NP,rpw", [
-    (640, 5, 8), (640, 16, 8), (10, 2, 8), (1000, 5, 4),
-    (1500, 5, 2), (2717, 10, 1), (3900, 3, 1),
+def _f32(bits):
+    return np.asarray(bits, dtype=np.uint32).view(np.float32)
+
+
+_SPLIT_VALUES = {
+    "normal": lambda rng: rng.normal(size=4000).astype(np.float32)
+    * np.float32(2.0) ** rng.integers(-60, 60, size=4000).astype(np.float32),
+    # subnormal f32 bit patterns, both signs, and the smallest ones
+    "subnormal": lambda rng: np.concatenate([
+        _f32(rng.integers(1, 0x800000, size=2000)),
+        -_f32(rng.integers(1, 0x800000, size=2000)),
+        _f32([1, 2, 0x1000, 0x7FFFFF]),
+    ]),
+    # 0, ±0, ±max, values at and next to tf32 ties and at the binade edges
+    "extremes": lambda rng: np.concatenate([
+        np.array([0.0, -0.0, 1.0, -1.0], np.float32),
+        _f32([0x7F7FFFFF, 0xFF7FFFFF, 0x7F7FF000, 0x7F7FE000, 0x00800000]),
+        _f32(0x3F800000 + np.array([0x1000, 0x0FFF, 0x1001, 0x3000, 0x1FFF, 0x7FFFFF])),
+        -_f32(0x3F800000 + np.array([0x1000, 0x3000])),
+    ]),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(_SPLIT_VALUES))
+def test_split_tf32(kind):
+    x = torch.as_tensor(_SPLIT_VALUES[kind](np.random.default_rng(len(kind))))
+    hi, lo = fs.split_tf32(x)
+    hb, lb = hi.view(torch.int32), lo.view(torch.int32)
+    # both halves are tf32 numbers: the low 13 mantissa bits are zero
+    assert bool(((hb & 0x1FFF) == 0).all()) and bool(((lb & 0x1FFF) == 0).all())
+    assert bool(torch.isfinite(hi).all()) and bool(torch.isfinite(lo).all())
+    # hi is x rounded to nearest — |x − hi| ≤ half a tf32 ulp of x — except
+    # from the tie below f32's max up, where rounding would overflow and hi
+    # truncates; the split loses at most 2⁻²²|x| beyond the tf32 subnormal
+    # spacing 2⁻¹³⁶
+    x64, hi64, lo64 = x.double(), hi.double(), lo.double()
+    ulp_hi = torch.ldexp(torch.ones_like(x64), torch.frexp(x64)[1].clamp_min(-125) - 11)
+    nearest = x64.abs() < float(_f32([0x7F7FF000])[0])
+    assert bool(((x64 - hi64).abs() <= ulp_hi / 2)[nearest].all())
+    assert bool(((x64 - hi64).abs() < ulp_hi).all())
+    err = (x64 - hi64 - lo64).abs()
+    assert bool((err <= 2.0 ** -22 * x64.abs() + 2.0 ** -137).all())
+    if kind == "normal":
+        assert bool((err <= 2.0 ** -22 * x64.abs()).all())
+    # ties round away from zero, as cvt.rna.tf32.f32 does
+    one_tie = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11)], dtype=torch.float32)
+    assert fs.split_tf32(one_tie)[0].tolist() == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10)]
+
+
+def test_split_tf32_non_finite():
+    x = torch.tensor([float("inf"), float("-inf"), float("nan")])
+    hi, lo = fs.split_tf32(x)
+    assert hi[0] == float("inf") and hi[1] == float("-inf") and bool(torch.isnan(hi[2]))
+    assert lo.tolist() == [0.0, 0.0, 0.0]
+
+
+@pytest.mark.parametrize("K,n0,n_modes", [(13, 5, 9), (641, 40, 637)])
+def test_split_table(K, n0, n_modes):
+    rng = np.random.default_rng(K)
+    m0 = rng.normal(size=(K, n0)).astype(np.float32)
+    m0[n_modes:] = np.nan  # padded-buffer rows never reach the product
+    hi, lo = fs.split_table(torch.as_tensor(m0), n_modes)
+    Kp = fs.padded_k(K)
+    assert Kp % 8 == 0 and K <= Kp < K + 8
+    assert hi.shape == lo.shape == (n0, Kp) and hi.is_contiguous() and lo.is_contiguous()
+    assert bool((hi[:, n_modes:] == 0).all()) and bool((lo[:, n_modes:] == 0).all())
+    rebuilt = hi.double() + lo.double()
+    ref = torch.as_tensor(m0[:n_modes]).double().T
+    assert bool(((rebuilt[:, :n_modes] - ref).abs() <= 2.0 ** -22 * ref.abs()).all())
+
+
+@pytest.mark.parametrize("B,K,cap", [
+    (1, 640, None), (524_288, 640, None), (4_194_309, 641, None), (1000, 6000, 1 << 20),
 ])
-def test_rows_per_warp(K, NP, rpw):
-    assert fs.rows_per_warp(K, NP) == rpw
-    assert fs._smem_bytes(K, rpw, NP) <= 232448
-    if rpw < 8:  # the next larger block would not fit
-        assert fs._smem_bytes(K, 2 * rpw, NP) > 232448
+def test_row_chunks(B, K, cap, monkeypatch):
+    if cap is not None:
+        monkeypatch.setattr(fs, "SCRATCH_BYTES", cap)
+    chunks = fs.row_chunks(B, K)
+    limit = fs.SCRATCH_BYTES
+    assert chunks[0][0] == 0 and chunks[-1][1] == B
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    assert all(r0 < r1 for r0, r1 in chunks)
+    for r0, r1 in chunks[:-1]:
+        assert (r1 - r0) % fs.GEMM_ROWS == 0
+    rows = max(r1 - r0 for r0, r1 in chunks)
+    assert rows * 8 * fs.padded_k(K) <= max(limit, fs.GEMM_ROWS * 8 * fs.padded_k(K))
 
 
-def test_too_many_modes_rejected():
-    with pytest.raises(ValueError, match="shared memory"):
-        fs.rows_per_warp(6000, 5)
+def _emulate_3xtf32(fac, m0, n_modes, depth=32):
+    """The GEMM's arithmetic with a round-to-nearest accumulator: per
+    ``depth``-k chunk hi·lo + lo·hi + hi·hi summed exactly (f64 holds the
+    tf32 products and their short sums), rounded to f32, and the chunks
+    added in f32."""
+    K = fac.shape[1]
+    Kp = fs.padded_k(K)
+    f = torch.zeros((fac.shape[0], Kp), dtype=torch.float32)
+    f[:, :K] = fac
+    fh, fl = (t.double() for t in fs.split_tf32(f))
+    th, tl = (t.double() for t in fs.split_table(m0, n_modes))
+    tot = torch.zeros((fac.shape[0], m0.shape[1]), dtype=torch.float32)
+    for k0 in range(0, Kp, depth):
+        k = slice(k0, k0 + depth)
+        part = fh[:, k] @ tl[:, k].T + fl[:, k] @ th[:, k].T + fh[:, k] @ th[:, k].T
+        tot += part.float()
+    return tot
+
+
+@pytest.mark.parametrize("seed,depth", [(1, 16), (2, 64)])
+def test_3xtf32_emulation_d5_widths(seed, depth):
+    # the d=5 state's widths: K = 640 modes, 2049 dofs, 5 P1 dims of 129 dofs
+    tV = [TSpace(TMesh(2048, 0.0, 1.0), "P", 1)] + [
+        TSpace(TMesh(128, 0.0, 1.0), "P", 1) for _ in range(5)]
+    rng = np.random.default_rng(seed)
+    modes = [rng.normal(size=(640, V.ndofs)).astype(np.float32) for V in tV]
+    sweep = _port(tV, modes, 637)
+    s = torch.as_tensor(_samples(24, 5, seed=seed))
+    fac = fs.fused_sweep_plain(s, sweep.grid, sweep.tabs, None, 637)
+    out = _emulate_3xtf32(fac, sweep.m0, 637, depth)
+    ref = fs.fused_sweep_plain(s, sweep.grid, sweep.tabs.double(), sweep.m0.double(), 637)
+    fabs = fs.fused_sweep_plain(s, sweep.grid, sweep.tabs.abs().double(), None, 637)
+    c = 640 + 4 * 5
+    u = 2.0 ** -24
+    bound = c * u / (1 - c * u) * (fabs @ sweep.m0.double().abs())
+    ratio = float(((out.double() - ref).abs() / bound).max())
+    print(f"3xTF32 emulation, depth {depth}: max |err| / gamma_c bound = {ratio:.4f}")
+    assert ratio <= 1.0
+
+
+def test_large_k_accepted():
+    # no shared-memory limit on K any more: K = 6000 plans, splits its
+    # table and sweeps; held to the JAX kernel on the same inputs within
+    # 2γ_c·|F||M0|, c = K + 4·NP (P1 bases are ≥ 0, so |F| is the factor
+    # of |T|)
+    K, n_modes = 6000, 5993
+    assert len(fs.row_chunks(4_194_304, K)) >= 1
+    jV = [JSpace(JMesh(20, 0.0, 1.0), "P", 1)] + [JSpace(JMesh(8, 0.0, 1.0), "P", 1)] * 2
+    tV = [TSpace(TMesh(20, 0.0, 1.0), "P", 1)] + [TSpace(TMesh(8, 0.0, 1.0), "P", 1)] * 2
+    rng = np.random.default_rng(6000)
+    modes = [rng.normal(size=(K, V.ndofs)).astype(np.float32) for V in tV]
+    sweep = _port(tV, modes, n_modes)
+    assert fs.split_table(sweep.m0, n_modes)[0].shape == (21, 6000)
+    s = _samples(5, 2, seed=7)
+    out = sweep(torch.as_tensor(s)).double()
+    ref = np.asarray(j_fused(jV, [jnp.asarray(m) for m in modes], n_modes,
+                             block_b=64, block_n=128)(s), dtype=np.float64)
+    fabs = fs.fused_sweep_plain(torch.as_tensor(s), sweep.grid, sweep.tabs.abs().double(),
+                                None, n_modes)
+    c = K + 4 * 2
+    u = 2.0 ** -24
+    bound = c * u / (1 - c * u) * (fabs @ sweep.m0.double().abs())
+    assert out.shape == ref.shape == (5, 21)
+    assert bool(((out - torch.as_tensor(ref)).abs() <= 2 * bound).all())
