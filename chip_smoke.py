@@ -4,15 +4,17 @@ NVIDIA GPU.
 
     python3 chip_smoke.py
 
-It builds the sweep's kernels (factor stage, tensor-core GEMM) from
-``pgdrome_tpu_torch/csrc`` with nvcc,
+It builds the sweep's kernels (the factor kernel, with its fused narrow
+product, and the tensor-core GEMM) from ``pgdrome_tpu_torch/csrc`` with nvcc,
 loads the committed rank-640 d=5 vademecum (``states/frontier_d5_state.npz``)
 onto the card at full width, and serves it through the port's entry points:
-fields (f32, streamed, bf16 store), sensors and Monte-Carlo moments.  It
-then holds every kernel wiring against the plain PyTorch version on the
-same inputs, the served fields against per-sample FEM at the 32 inset
-parameter-box corners, and prints the measurements: one line per phase, a
-``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
+fields (f32, streamed, bf16 store), sensors and Monte-Carlo moments, and
+takes one moment call apart on the device and host clocks.  It then holds
+every kernel wiring against the plain PyTorch version on the same inputs
+(the factors bit for bit), the served fields against per-sample FEM at
+the 32 inset parameter-box corners, and prints the measurements: one line
+per phase, a ``{"kernels": [...]}`` line and, last,
+``{"ok": true, "device": {...}}``.
 
 Any failed check raises (non-zero exit, no result line); a watchdog turns a
 hang into a traceback and a non-zero exit.  Without a CUDA device, or run
@@ -23,6 +25,7 @@ from __future__ import annotations
 
 import faulthandler
 import json
+import re
 import subprocess
 import sys
 import time
@@ -50,6 +53,7 @@ BF16_REL = 1.6e-2            # bf16 store vs f32, relative to max |f32|
 # library's reduction order.
 MEAN_REL = 1e-6              # |Δmean| ≤ MEAN_REL · max|mean|
 VAR_REL = 1e-5               # |Δvar| ≤ VAR_REL · max(var + mean²)
+MOMENT_REPS = 5              # timed passes of the moment split
 
 # published dense peaks (NVIDIA data sheets, without sparsity):
 # (f32 CUDA-core FLOP/s, TF32 tensor-core FLOP/s, HBM B/s)
@@ -132,6 +136,71 @@ def make_samples(torch, B, gen, device):
     return s
 
 
+def moment_split(torch, fs, vd, samples):
+    """One ``vd.moments(samples)`` call taken apart (serving.py
+    ``factor_moments`` and ``moments``, one chunk): building the moment
+    function (its first call) on the host clock; the factor kernel,
+    ``fac * w``, ``fac.sum(0)`` and ``fac.T @ fac`` on CUDA events (the
+    last pass); and on the host clock, over ``MOMENT_REPS`` passes after
+    one warm-up, the device work waited for, the copies to the host (f64
+    cast included), the host f64 finish and the whole pass, each pass
+    followed by a whole warm ``vd.moments`` call so both see the same
+    host.  Host times as median, min and max, in ms."""
+    from pgdrome_tpu_torch.parallel.vademecum import make_factor_moments_fn
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    make_factor_moments_fn(vd.spaces, vd._modes, vd.n_modes, method=vd._method)
+    torch.cuda.synchronize()
+    split = {"build_host_ms": (time.perf_counter() - t0) * 1e3,
+             "host_threads": torch.get_num_threads(), "reps": MOMENT_REPS}
+    sweep = fs.make_fused_sweep(vd.spaces, [None] + list(vd._modes[1:]), vd.n_modes)
+    B = int(samples.shape[0])
+    parts = ("factor_kernel", "fac_times_w", "fac_sum", "fac_gram")
+    host = {k: [] for k in ("device_host", "copies_host", "host_finish", "pass_host",
+                            "whole_call_host")}
+    for rep in range(MOMENT_REPS + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(parts) + 1)]
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        ev[0].record()
+        w = (torch.arange(B, device=samples.device) < B).to(torch.float32)
+        fac = sweep(samples)
+        ev[1].record()
+        fac = fac * w[:, None]
+        ev[2].record()
+        y1 = fac.sum(0)
+        ev[3].record()
+        y2 = fac.T @ fac
+        ev[4].record()
+        torch.cuda.synchronize()
+        h1 = time.perf_counter()
+        s1, s2 = y1.double().cpu() / B, y2.double().cpu() / B
+        h2 = time.perf_counter()
+        M0 = vd._modes[0].detach().cpu().double()
+        mean = s1 @ M0
+        cov = s2 - torch.outer(s1, s1)
+        var = torch.clamp(torch.einsum("ki,ki->i", cov @ M0, M0), min=0.0)
+        h3 = time.perf_counter()
+        del fac, w, y2, mean, var
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vd.moments(samples)
+        h4 = time.perf_counter()
+        if rep == 0:
+            continue
+        for key, ms in (("device_host", h1 - h0), ("copies_host", h2 - h1),
+                        ("host_finish", h3 - h2), ("pass_host", h3 - h0),
+                        ("whole_call_host", h4 - t0)):
+            host[key].append(ms * 1e3)
+    for i, name in enumerate(parts):
+        split[f"{name}_ms"] = ev[i].elapsed_time(ev[i + 1])
+    for key, v in host.items():
+        v = sorted(v)
+        split[f"{key}_ms"] = {"median": v[len(v) // 2], "min": v[0], "max": v[-1]}
+    return split
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     try:
@@ -173,19 +242,19 @@ def main() -> int:
         for line in info.log.splitlines():
             if "Compiling entry function" in line:
                 mangled = line.split("'")[1]
-                kernel_name = next((k for k in ("sweep_factors_kernel", "sweep_gemm_kernel")
-                                    if k in mangled), mangled)
-                if "factors" in kernel_name:
-                    kernel_name += "<split>" if "ILb1E" in mangled else "<F>"
-                if "gemm" in kernel_name:
-                    kernel_name += ("<BN=128" if "ILi128E" in mangled else "<BN=8") + (
-                        ", bf16>" if "bfloat16" in mangled else ", f32>")
+                factors = re.search(r"sweep_factors_kernelILi(\d+)ELi(\d)ELb(\d)E", mangled)
+                if factors:
+                    ks, mode, staged = factors.groups()
+                    kernel_name = (f"sweep_factors_kernel<ks={ks}, "
+                                   f"{('F', 'split', 'narrow')[int(mode)]}, "
+                                   f"{'staged' if staged == '1' else 'global'}>")
+                else:
+                    kernel_name = "sweep_gemm_kernel<" + (
+                        "bf16>" if "bfloat16" in mangled else "f32>")
             elif "registers" in line or "spill" in line:
                 say(f"  ptxas {kernel_name}: {line.strip().removeprefix('ptxas info    : ')}")
         lib = fs._library()
-        for bn, width in ((128, 2049), (8, N_PTS)):
-            say(f"  sweep_gemm_kernel<BN={bn}>: {lib.pgd_sweep_gemm_smem(width)} bytes of "
-                f"dynamic shared memory")
+        say(f"  sweep_gemm_kernel: {lib.pgd_sweep_gemm_smem()} bytes of dynamic shared memory")
 
     from pgdrome_tpu_torch.convert import frontier_vademecum
     from pgdrome_tpu_torch.models.problems import box_corners, elliptic_fem_solver
@@ -288,17 +357,24 @@ def main() -> int:
         say(f"rate sensor responses/s (samples x {N_PTS} points): "
             f"{rates['sensor samples/s one-shot'] * N_PTS:.6g}")
         check(all(v > 0 for v in launches.values()), "every wiring launched on the main path")
-        # each field and sensor call walks its batch in the wrapper's row chunks
-        # and launches the GEMM once per chunk (the streams pad every dispatch
-        # to a full chunk)
-        calls = [B_FIELDS] * (1 + len(kept["seen"]) + 1) + [B_BIG, B_BIG]
+        # each field call walks its batch in the wrapper's row chunks and
+        # launches the factor kernel and the GEMM once per chunk (the streams
+        # pad every dispatch to a full chunk); each sensor call is one launch
+        # of the fused narrow product; the factor wiring one of the factor
+        # kernel; no table here is wide enough for the global route
+        calls = [B_FIELDS] * (1 + len(kept["seen"]) + 1)
         expected_gemm = sum(len(fs.row_chunks(n, K)) for n in calls)
-        say(f"GEMM launches expected from {len(calls)} field and sensor calls: {expected_gemm}")
+        say(f"GEMM launches expected from {len(calls)} field calls: {expected_gemm}")
         check(stage_launches["gemm"] == expected_gemm,
-              "every field and sensor call ran the tensor-core GEMM on every row chunk")
+              "every field call ran the tensor-core GEMM on every row chunk")
         check(stage_launches["factors_stage"] == stage_launches["gemm"] + launches["factors"],
-              "one factor-stage launch per GEMM launch, plus the factor wiring's")
+              "one factor-kernel launch per GEMM launch, plus the factor wiring's")
+        check(stage_launches["sensor_fused"] == launches["sensors"] == 2,
+              "each sensor call ran the fused narrow product once")
+        check(stage_launches["factors_global"] == 0, "the d=5 tables take the staged route")
         check(kept["seen"][-1] == B_stream - (n_chunks - 1) * B_FIELDS, "stream tail trimmed")
+        split = moment_split(torch, fs, vd, s_big)
+        say(f"moment split: {json.dumps(split)}")
 
     grid, tabs, m0 = fused.grid, fused.tabs, fused.m0
     check(all(int(d) == 1 for d in grid[3].tolist()), "P1 parameter dims")
@@ -334,7 +410,13 @@ def main() -> int:
             fabs = fs.fused_sweep_plain(s, grid, tabs_abs64, None, vd.n_modes)
             if t64 is None:
                 ref64 = fs.fused_sweep_plain(s, grid, tabs.double(), None, vd.n_modes)
-                plain = fs.fused_sweep_plain(s, grid, tabs, None, vd.n_modes).double()
+                plain32 = fs.fused_sweep_plain(s, grid, tabs, None, vd.n_modes)
+                # the factor kernel rounds every operation as the plain
+                # version does
+                check(torch.equal(kernel_out[r0 : r0 + rows], plain32),
+                      "factors equal the plain f32 factors bit for bit")
+                plain = plain32.double()
+                del plain32
                 bound = gamma(c) * fabs
             else:
                 ref64 = fs.fused_sweep_plain(s, grid, tabs.double(), t64, vd.n_modes)
@@ -360,10 +442,11 @@ def main() -> int:
     def roofline(B, n_out, out_bytes, product):
         """Least time for a wiring: each input read once, each output written
         once, over HBM's rate; against the factor FLOPs over the f32 peak
-        plus the product's over the TF32 tensor peak (the product runs on
-        tensor cores, each FLOP counted once, not per tf32 pass).
-        ``bound_fp32_ms`` prices every FLOP at the f32 CUDA-core peak, the
-        bound of the earlier FP32-pipe kernel, kept for comparison."""
+        plus the product's over the TF32 tensor peak (each FLOP counted
+        once, not per tf32 pass), whatever unit a kernel runs the product
+        on.  ``bound_fp32_ms`` prices every FLOP at the f32 CUDA-core peak
+        (the bound of the earlier FP32-pipe kernel, and the price of the
+        fused sensor product on the CUDA cores), kept beside it."""
         fac_flops = B * K * 2 * 2 * NP  # P1: 2 mul + 1 add + 1 product mul per dim
         mm_flops = 2 * B * K * n_out if product else 0
         nbytes = (B * NP * 4 + NP * ndofp * K * 4 + 4 * 4 * NP
@@ -376,11 +459,12 @@ def main() -> int:
                 "bound_fp32_ms": max(t_fp32, t_bytes), "flops": fac_flops + mm_flops,
                 "bytes": nbytes}
 
-    def stage_ms(samples, split_table, n_out, out_dtype=torch.float32):
-        """Device time of the two kernels of a product wiring over the
-        wrapper's row chunks, timed apart: all factor-stage launches, then
-        all GEMM launches.  The GEMM rereads the last chunk's factors (its
-        time does not depend on their values)."""
+    def stage_ms(samples, sweep, n_out, out_dtype=torch.float32):
+        """Device time of the two kernels of a field wiring over the
+        wrapper's row chunks, timed apart: all factor-kernel launches, then
+        all GEMM launches, beside stage 1's own bound (its F halves written
+        once).  The GEMM rereads the last chunk's factors (its time does not
+        depend on their values)."""
         B = samples.shape[0]
         chunks = fs.row_chunks(B, K)
         hi = torch.empty((chunks[0][1], fs.padded_k(K)), device=dev)
@@ -390,19 +474,25 @@ def main() -> int:
         def stage1():
             for r0, r1 in chunks:
                 fs.factors_stage(samples[r0:r1], grid, tabs, vd.n_modes, hi[: r1 - r0],
-                                 lo[: r1 - r0])
+                                 lo[: r1 - r0], plan=sweep.plan, sliced=sweep.sliced)
 
         def stage2():
             for r0, r1 in chunks:
-                fs.gemm_stage(hi[: r1 - r0], lo[: r1 - r0], *split_table, dst[r0:r1])
+                fs.gemm_stage(hi[: r1 - r0], lo[: r1 - r0], *sweep.table, dst[r0:r1])
 
+        s1_bytes = B * NP * 4 + NP * ndofp * K * 4 + 2 * B * fs.padded_k(K) * 4
+        s1_bound = max(s1_bytes / peak_bw, B * K * 4 * NP / peak_flops) * 1e3
         return {"factor_stage_ms": cuda_ms(stage1, 3), "gemm_ms": cuda_ms(stage2, 3),
-                "row_chunks": len(chunks)}
+                "factor_stage_bound_ms": s1_bound, "row_chunks": len(chunks)}
 
-    def entry(name, wiring, kernel_out_shape, launches_n, worst, ms, plain_ms, lib_ms,
+    def kernel_of(sweep, mode):
+        p = sweep.plan
+        return f"sweep_factors_kernel<ks={p.ks}, {mode}, {p.route}> ({p.rows} rows a block)"
+
+    def entry(name, kernel, wiring, kernel_out_shape, launches_n, worst, ms, plain_ms, lib_ms,
               bound, c, **extra):
         kernels.append({
-            "name": name, "route": "cuda",
+            "name": name, "kernel": kernel, "route": "cuda",
             "source": "pgdrome_tpu_torch/csrc/fused_sweep.cu",
             "replaces": "pgdrome_tpu/ops/pallas_kernels.py:44",
             "wiring": wiring, "shape": list(kernel_out_shape),
@@ -440,20 +530,37 @@ def main() -> int:
         w_bf16 = hold(bf, s_fields, m0, c_fields, out_dtype=torch.bfloat16)
         del bf
         fac_fields = fs.fused_sweep(s_fields, grid, tabs, None, vd.n_modes)
+        # the GEMM's operand: the split store is split_tf32 of the plain
+        # factors, bit for bit
+        rows_split = 65_536
+        hi = torch.empty((rows_split, fs.padded_k(K)), device=dev)
+        lo = torch.empty_like(hi)
+        fs.factors_stage(s_fields[:rows_split], grid, tabs, vd.n_modes, hi, lo,
+                         plan=fused.plan, sliced=fused.sliced)
+        p_hi, p_lo = fs.split_tf32(fs.fused_sweep_plain(s_fields[:rows_split], grid, tabs,
+                                                        None, vd.n_modes))
+        check(torch.equal(hi[:, :K].view(torch.int32), p_hi.view(torch.int32))
+              and torch.equal(lo[:, :K].view(torch.int32), p_lo.view(torch.int32))
+              and not bool(hi[:, K:].any()) and not bool(lo[:, K:].any()),
+              "split factor store equals split_tf32 of the plain factors bit for bit")
+        del hi, lo, p_hi, p_lo
         ms_f32 = cuda_ms(lambda: fused(s_fields), 3)
-        stages_f32 = stage_ms(s_fields, fused.table, n0)
+        stages_f32 = stage_ms(s_fields, fused, n0)
         fused_bf16 = vd._sweep(torch.bfloat16)
         ms_bf16 = cuda_ms(lambda: fused_bf16(s_fields), 3)
-        stages_bf16 = stage_ms(s_fields, fused.table, n0, torch.bfloat16)
+        stages_bf16 = stage_ms(s_fields, fused, n0, torch.bfloat16)
         plain_f32 = cuda_ms(lambda: fs.fused_sweep_plain(s_fields, grid, tabs, m0, vd.n_modes), 2)
         plain_bf16 = cuda_ms(lambda: fs.fused_sweep_plain(s_fields, grid, tabs, m0, vd.n_modes,
                                                           torch.bfloat16), 2)
         lib = cuda_ms(lambda: torch.matmul(fac_fields, m0), 3)
         del fac_fields
-        entry("fused_sweep_fields_f32", "parallel/vademecum.py::make_sweep_fn", out.shape,
+        field_kernels = kernel_of(fused, "split") + " + sweep_gemm_kernel"
+        entry("fused_sweep_fields_f32", field_kernels + "<f32>",
+              "parallel/vademecum.py::make_sweep_fn", out.shape,
               launches["fields_f32"], w_f32, ms_f32, plain_f32, lib,
               roofline(B_FIELDS, n0, 4, True), c_fields, stages=stages_f32)
-        entry("fused_sweep_fields_bf16", "parallel/vademecum.py::make_sweep_fn(out_dtype=bf16)",
+        entry("fused_sweep_fields_bf16", field_kernels + "<bf16>",
+              "parallel/vademecum.py::make_sweep_fn(out_dtype=bf16)",
               out.shape, launches["fields_bf16"], w_bf16, ms_bf16, plain_bf16, lib,
               roofline(B_FIELDS, n0, 2, True), c_fields, stages=stages_bf16)
         del out
@@ -466,11 +573,18 @@ def main() -> int:
         check(torch.equal(resp_stream, resp.cpu()), "sensors_stream equals one-shot sensors")
         sensor_sweep = vd.sensors(pts)
         ms_sens = cuda_ms(lambda: sensor_sweep(s_big), 3)
-        stages_sens = stage_ms(s_big, sensor_sweep.table, N_PTS)
+        # the fused launch alone, into a preallocated output
+        dst = torch.empty((B_BIG, N_PTS), device=dev)
+        stages_sens = {"sensor_fused_ms": cuda_ms(lambda: fs._launch_factors(
+            s_big, grid, tabs, vd.n_modes, sensor_sweep.plan, sensor_sweep.sliced, dst,
+            m0_slices=sensor_sweep.m0_slices), 3)}
+        del dst
         plain_sens = cuda_ms(lambda: fs.fused_sweep_plain(s_big, grid, tabs, table, vd.n_modes), 1)
-        fac_big = fs.fused_sweep(s_big, grid, tabs, None, vd.n_modes)
+        factor_sweep = fs.FusedSweep(grid, tabs, None, vd.n_modes)
+        fac_big = factor_sweep(s_big)
         lib_sens = cuda_ms(lambda: torch.matmul(fac_big, table), 3)
-        entry("fused_sweep_sensors", "parallel/vademecum.py::make_sensor_sweep_fn",
+        entry("fused_sweep_sensors", kernel_of(sensor_sweep, "narrow"),
+              "parallel/vademecum.py::make_sensor_sweep_fn",
               resp.shape, launches["sensors"], w_sens, ms_sens, plain_sens, lib_sens,
               roofline(B_BIG, N_PTS, 4, True), c_fields, stages=stages_sens)
         del resp, resp_stream
@@ -480,9 +594,10 @@ def main() -> int:
         w_fac = hold(fac_big, s_big, None, c_factors, rows=524_288)
         del fac_big
         torch.cuda.empty_cache()
-        ms_fac = cuda_ms(lambda: fs.fused_sweep(s_big, grid, tabs, None, vd.n_modes), 3)
+        ms_fac = cuda_ms(lambda: factor_sweep(s_big), 3)
         plain_fac = cuda_ms(lambda: fs.fused_sweep_plain(s_big, grid, tabs, None, vd.n_modes), 1)
-        entry("fused_sweep_factors", "parallel/vademecum.py::make_factor_moments_fn",
+        entry("fused_sweep_factors", kernel_of(factor_sweep, "F"),
+              "parallel/vademecum.py::make_factor_moments_fn",
               (B_BIG, K), launches["factors"], w_fac, ms_fac, plain_fac, None,
               roofline(B_BIG, K, 4, False), c_factors)
         torch.cuda.empty_cache()

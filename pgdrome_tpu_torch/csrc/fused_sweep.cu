@@ -8,33 +8,67 @@
 //   F[b, k]   = [k < n_modes] * prod_j sum_l phi_l(xi_bj) T_j[deg_j*c_bj + l, k]
 //   out[b, :] = sum_k F[b, k] M0[k, :]
 //
-// with c = clip(floor((s - x0)/h), 0, ncell-1) and xi = (s - x0)/h - c,
-// exactly the TPU kernel's arithmetic.  The TPU kernel fused both lines to
-// keep F out of HBM; here they are two kernels, because a round trip of F
-// through HBM costs less on this card than what the fusion costs (a factor
-// stage held to the product's occupancy, a product held off the tensor
-// cores).  Entry points:
+// with c = clip(floor((s - x0)/h), 0, ncell-1) and xi = (s - x0)/h - c.
+// The factors are computed in the plain version's order of operations
+// (ops/fused_sweep.py::fused_sweep_plain), every operation rounded on its
+// own (__fmul_rn, __fadd_rn, __fsub_rn: no FMA contraction), so F equals
+// the plain f32 factors bit for bit.  Entry points:
 //
-//   pgd_sweep_factors  stage 1: F split into tf32 hi/lo halves in two
-//                      (B, ldf) buffers, ldf >= K, columns past n_modes
-//                      zero; or F itself (B, K): the factor wiring behind
-//                      moments (the TPU wiring's identity M0 is skipped).
+//   pgd_sweep_factors  stage 1, three modes: F itself (B, K), the factor
+//                      wiring behind moments (the TPU wiring's identity M0
+//                      is skipped); F split into tf32 hi/lo halves in two
+//                      (B, ldf) buffers for the GEMM (fields); or the narrow
+//                      product out (B, n0 <= 32) = F . M0 fused in (sensors:
+//                      F never reaches HBM, as in the TPU kernel).
 //   pgd_sweep_gemm     stage 2: out (rows, n0) = F (rows, Kp) . M0 from the
 //                      split F and a split, transposed, masked M0 table
-//                      (n0, Kp); f32 or bf16 store.
+//                      (n0, Kp); f32 or bf16 store (fields, n0 > 32).
 //
-// What bounds each stage on an H100.  Stage 1 is elementwise over (b, k):
-// NP cell locates and 2-3 table-row gathers per element from L2 (the
-// tables, NP*ndof*K*4 = 1.65 MB at K=640, stay there) and the F write; it
-// runs at full occupancy (no shared memory, ~32 registers), so the gathers
-// overlap.  Stage 2 is a GEMM of 2*K*n0 FLOPs per sample (2.62 MFLOP at
-// K=640, n0=2049), bound by tensor-core FLOPs at the field width and by
-// the F read at the sensor width (n0 = 8).  Its 128 x 128 tile rereads the
-// split F and M0 from L2 once per output tile: ~48 FLOP (3 passes) per L2
-// byte, so at the tf32 peak it would need ~10 TB/s of L2 (not measured
-// on this card; one suspect for the GEMM's 58 % of the tf32 peak, with the
-// wait per 16-k group below); larger tiles or multicast clusters would
-// cut it.
+// Stage 1's design.  Per element it gathers 2-3 table values per dim, so
+// its limit is where the gathers land and how many warps hide their
+// latency.  A block owns a tile of S sample rows (a multiple of its
+// threads, up to 2048) and walks the K columns in slices of KS (32, 16, 8
+// or 4): the wrapper lays the tables out as (n_slices, NP*ndofp, KS), so
+// one slice of all NP tables is one contiguous block, copied into a ring
+// of two shared-memory stages by one cp.async.bulk, completed on an
+// mbarrier; the next-but-one slice is in flight while a stage is read.
+// Every gather then reads shared memory (at the d=5 widths a stage is
+// 5*129*32*4 = 82.6 KB, and each tile streams the 1.65 MB of tables once
+// from L2).  The tile's samples are read once, coalesced, into shared
+// memory.  Within a slice a sample row is owned by KS/4 neighbouring
+// lanes, each with 4 columns (a float4 of each table row: a quarter-warp
+// reads contiguous bytes, so no bank conflicts at KS = 32); the lanes
+// share the cell locates of the row's NP dims (lane g locates dims g,
+// g + KS/4, ... and hands them round by shuffle), so a locate runs once
+// per (sample, dim, slice), and a tile index, not a division, finds the
+// row.  F is stored with 16-byte streaming stores (__stcs: written once,
+// read once); columns at or past n_modes are zero without a gather.  A
+// block that stores F has 1024 threads (32 registers each): measured on
+// an H100 (PERF.md 6.1), 256-thread blocks ran the d=5 factor wiring at
+// 13.9 ms and 1024-thread ones at 7.1 ms, with the same arithmetic.  The
+// wrapper picks KS and S from the shared memory they need
+// (ops/fused_sweep.py::factor_plan); tables too wide for two stages even
+// at KS = 4 take the global route, the same kernel reading its gathers
+// from the sliced tables in global memory (L2) instead of a stage --
+// chosen by shape before launch, never on a failure.
+//
+// The narrow product (sensors; 512-thread blocks, ~75 registers) keeps a
+// (S, n0) f32 accumulator in shared memory.  Per slice the block writes F
+// of 512 rows into a shared tile, then each thread takes one row: a
+// partial sum over the slice's KS columns (FMA, k ascending) against the
+// slice of the masked M0 table (staged beside the tables), added to the
+// row's accumulator; the rows are stored, f32 or bf16
+// (__float2bfloat16_rn), after the last slice that holds a mode.  Blocked
+// so: KS-deep partial sums, K/KS of them per output, far inside the
+// K + 4*NP roundings the checks allow.  F never reaches HBM.
+
+// Stage 2 is a GEMM of 2*K*n0 FLOPs per sample (2.62 MFLOP at K=640,
+// n0=2049), bound by tensor-core FLOPs at the field width.  Its 128 x 128
+// tile rereads the split F and M0 from L2 once per output tile: ~48 FLOP
+// (3 passes) per L2 byte, so at the tf32 peak it would need ~10 TB/s of L2
+// (not measured on this card; one suspect for the GEMM's 58 % of the tf32
+// peak, with the wait per 16-k group below); larger tiles or multicast
+// clusters would cut it.
 //
 // Stage 2 runs on the tensor cores in split TF32 (3xTF32): each f32 operand
 // x is held as hi = rn_tf32(x) and lo = rn_tf32(x - hi), so
@@ -49,22 +83,21 @@
 // with chip_smoke.py (PERF.md 6.1): every output stays within 4.5 % of its
 // f32 rounding bound at 16, 32 or 64 k per fresh accumulator, but the
 // served d=5 fields' error against FEM at the 32 inset corners (6.93e-7
-// for an f64 product, 7.14e-7 for the f32 FMA kernel this one replaced)
-// was 8.25e-7 at 16 k, 1.02e-6 at 32 k and 1.10e-6 at 64 k: the sum
-// cancels heavily, so a biased accumulator error shows where a rounding
-// bound does not.  Hence 16 k.
+// for an f64 product, 7.14e-7 for an f32 FMA kernel) was 8.25e-7 at 16 k,
+// 1.02e-6 at 32 k and 1.10e-6 at 64 k: the sum cancels heavily, so a
+// biased accumulator error shows where a rounding bound does not.  Hence
+// 16 k.
 // The rounding of hi/lo is the integer form of cvt.rna.tf32.f32 (ties
 // away from zero), bit for bit the plain split_tf32 in ops/fused_sweep.py,
 // except that a value that would round to infinity is truncated instead.
 //
-// Stage 2's shape is Hopper's: a block of three warpgroups owns a 128 x BN
-// output tile (BN = 128, or 8 for outputs of at most 32 columns).  One
-// producer thread keeps a ring of shared-memory stages filled by TMA (each
-// stage: A hi/lo 128 x 32 tf32, B hi/lo BN x 32, 128-byte swizzle,
-// completed on an mbarrier); the two consumer warpgroups wait on a stage
-// and issue its wgmma m64nBNk8 on their 64 rows in two commit groups of
-// 16 k (3 passes x 2 k-steps each), each waited for before the next; a
-// stage is released when both its groups are done.
+// Stage 2's shape is Hopper's: a block of three warpgroups owns a 128 x 128
+// output tile.  One producer thread keeps a ring of shared-memory stages
+// filled by TMA (each stage: A hi/lo 128 x 32 tf32, B hi/lo 128 x 32,
+// 128-byte swizzle, completed on an mbarrier); the two consumer warpgroups
+// wait on a stage and issue its wgmma m64n128k8 on their 64 rows in two
+// commit groups of 16 k (3 passes x 2 k-steps each), each waited for
+// before the next; a stage is released when both its groups are done.
 // setmaxnreg gives the producer 40 registers and the consumers 232.  A
 // version with a second accumulator set, to keep one group in flight while
 // folding, compiled to 168 registers with 540 bytes of spills and ran the
@@ -89,116 +122,13 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // factor kernel block
-constexpr int kMaxNP = 16;     // parameter dims per sample
-constexpr int kMaxSmem = 232448;  // 227 KB per block on sm_90
+constexpr int kMaxNP = 16;           // parameter dims per sample
+constexpr int kMaxN0 = 32;           // widest output of the fused narrow product
+constexpr int kMaxSmem = 232448;     // 227 KB per block on sm_90
 constexpr int kEncodeError = 100000;
-
-// ------------------------------------------------------------- stage 1
-
-// Cell locate + Lagrange basis on a uniform grid, in f32, in the TPU
-// kernel's order of operations.  A NaN sample yields cell 0 and NaN weights
-// (so a NaN output), never an out-of-range dof.
-__device__ inline void locate(float x, float x0, float inv_h, float ncell, int deg,
-                              int* base, float* w0, float* w1, float* w2) {
-  const float t = (x - x0) * inv_h;
-  const float c = fminf(fmaxf(floorf(t), 0.0f), ncell - 1.0f);
-  const float xi = t - c;
-  *base = deg * (int)c;
-  if (deg == 1) {
-    *w0 = 1.0f - xi;
-    *w1 = xi;
-    *w2 = 0.0f;
-  } else {
-    *w0 = (1.0f - xi) * (1.0f - 2.0f * xi);
-    *w1 = 4.0f * xi * (1.0f - xi);
-    *w2 = xi * (2.0f * xi - 1.0f);
-  }
-}
-
-// Round a finite f32 to tf32 (10 stored mantissa bits), nearest, ties away
-// from zero; a value that would round to infinity is truncated.
-__device__ __forceinline__ float round_tf32(float x) {
-  const uint32_t u = __float_as_uint(x);
-  uint32_t h = (u + 0x1000u) & 0xffffe000u;
-  if ((h & 0x7f800000u) == 0x7f800000u) h = u & 0xffffe000u;
-  return __uint_as_float(h);
-}
-
-__device__ __forceinline__ void split_tf32(float x, float* hi, float* lo) {
-  if (!isfinite(x)) {
-    *hi = x;
-    *lo = 0.0f;
-    return;
-  }
-  *hi = round_tf32(x);
-  *lo = round_tf32(x - *hi);  // x - hi is exact
-}
-
-// kSplit: store the tf32 halves of F in out and out_lo, rows ldf apart
-// (the GEMM's A operand); otherwise F itself in out, rows K apart (the
-// factor wiring, in the TPU kernel's arithmetic and layout).
-template <bool kSplit>
-__global__ void __launch_bounds__(kThreads)
-sweep_factors_kernel(const float* __restrict__ samples, const float* __restrict__ grid,
-                     const float* __restrict__ tabs, float* __restrict__ out,
-                     float* __restrict__ out_lo, long long B, int NP, int ndofp, int K,
-                     int n_modes, int ldf) {
-  __shared__ float s_grid[4 * kMaxNP];
-  for (int i = threadIdx.x; i < 4 * NP; i += kThreads) s_grid[i] = grid[i];
-  __syncthreads();
-  const int row = kSplit ? ldf : K;
-  const long long total = B * (long long)row;
-  for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x; e < total;
-       e += (long long)gridDim.x * kThreads) {
-    const long long b = e / row;
-    const int k = (int)(e - b * row);
-    float f = 0.0f;
-    if (k < n_modes) {
-      f = 1.0f;
-      for (int j = 0; j < NP; ++j) {
-        int base;
-        float w0, w1, w2;
-        const int deg = (int)s_grid[3 * NP + j];
-        locate(samples[b * NP + j], s_grid[j], s_grid[NP + j], s_grid[2 * NP + j], deg,
-               &base, &w0, &w1, &w2);
-        const float* T = tabs + ((size_t)j * ndofp + base) * K + k;
-        float v = w0 * __ldg(T) + w1 * __ldg(T + K);
-        if (deg == 2) v += w2 * __ldg(T + 2 * K);
-        f *= v;
-      }
-    }
-    if constexpr (kSplit) {
-      float hi, lo;
-      split_tf32(f, &hi, &lo);
-      out[e] = hi;
-      out_lo[e] = lo;
-    } else {
-      out[e] = f;
-    }
-  }
-}
-
-// ------------------------------------------------------------- stage 2
-
-constexpr int kBM = 128;               // output rows per block: 2 x 64
-constexpr int kBoxK = 32;              // k per stage: one 128-byte swizzle row
-constexpr int kGemmThreads = 384;      // producer warpgroup + 2 consumer warpgroups
-constexpr int kConsumerThreads = 256;
-constexpr int kATileBytes = kBM * kBoxK * 4;  // 16 KiB
-constexpr int kGroupK = 16;            // k per fresh accumulator (see the header)
-constexpr int kGroups = kBoxK / kGroupK;  // groups per stage
-static_assert(kGroupK == 16, "issue_group issues two k8 steps per group");
 constexpr long long kHangCycles = 20000000000LL;  // ~10 s: a lost barrier traps
 
-template <int BN>
-struct GemmShape {
-  static constexpr int kBTileBytes = BN * kBoxK * 4;
-  static constexpr int kStageBytes = 2 * kATileBytes + 2 * kBTileBytes;
-  static constexpr int kStages = BN >= 64 ? 3 : 6;
-  static constexpr int kSmem = kStages * kStageBytes + 2 * kStages * 8 + 1024;
-  static_assert(kSmem <= kMaxSmem, "stage ring exceeds shared memory");
-};
+// ------------------------------------------------------- barriers, copies
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -236,6 +166,346 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// Contiguous global -> shared copy of `bytes` (a multiple of 16, both
+// addresses 16-byte aligned), completed on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// ------------------------------------------------------------- stage 1
+
+enum Mode { kFactors = 0, kSplit = 1, kNarrow = 2 };
+
+// Threads of a factor-kernel block: 32 warps for the F stores (32
+// registers a thread), 16 for the narrow product (~75 registers).
+__host__ __device__ constexpr int factor_threads(int mode) {
+  return mode == kNarrow ? 512 : 1024;
+}
+
+__host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
+
+// Row stride of the narrow accumulator, in floats: n0 rounded up to 4, an
+// odd number of float4s, so the 8 rows of a quarter-warp hit 8 bank groups.
+__host__ __device__ constexpr int acc_stride(int n0) {
+  return (round4(n0) / 4) % 2 ? round4(n0) : round4(n0) + 4;
+}
+
+// Dynamic shared memory of a factor launch, in bytes; the layout in order:
+// two table stages (each NP*ndofp*ks floats, plus ks*round4(n0) of M0 in
+// narrow mode) when staged, the tile's samples, and in narrow mode the
+// F tile of one row per thread (row stride ks + 4) and the accumulator.
+// n0 = 0: no narrow product.  ops/fused_sweep.py::factor_smem is the same
+// formula.
+__host__ __device__ constexpr long long factor_smem(int NP, int ndofp, int ks, int rows, int n0,
+                                                    bool staged) {
+  return (staged ? 2LL * ((long long)NP * ndofp * ks + (long long)ks * round4(n0)) * 4 : 0) +
+         round4(rows * NP) * 4LL +
+         (n0 > 0 ? ((long long)factor_threads(kNarrow) * (ks + 4) +
+                    (long long)rows * acc_stride(n0)) * 4
+                 : 0);
+}
+
+// Cell locate + Lagrange basis on a uniform grid, in f32, in the plain
+// version's order of operations, each rounded on its own.  A NaN sample
+// yields cell 0 and NaN weights (so a NaN output), never an out-of-range
+// dof.
+__device__ __forceinline__ void locate(float x, float x0, float inv_h, float ncell, int deg,
+                                       int* base, float* w0, float* w1, float* w2) {
+  const float t = __fmul_rn(__fsub_rn(x, x0), inv_h);
+  const float c = fminf(fmaxf(floorf(t), 0.0f), ncell - 1.0f);
+  const float xi = __fsub_rn(t, c);
+  const float omx = __fsub_rn(1.0f, xi);
+  *base = deg * (int)c;
+  if (deg == 1) {
+    *w0 = omx;
+    *w1 = xi;
+    *w2 = 0.0f;
+  } else {
+    const float two_xi = __fmul_rn(2.0f, xi);
+    *w0 = __fmul_rn(omx, __fsub_rn(1.0f, two_xi));
+    *w1 = __fmul_rn(__fmul_rn(4.0f, xi), omx);
+    *w2 = __fmul_rn(xi, __fsub_rn(two_xi, 1.0f));
+  }
+}
+
+__device__ __forceinline__ float4 scale4(float a, float4 t) {
+  return make_float4(__fmul_rn(a, t.x), __fmul_rn(a, t.y), __fmul_rn(a, t.z),
+                     __fmul_rn(a, t.w));
+}
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
+                     __fadd_rn(a.w, b.w));
+}
+__device__ __forceinline__ float4 mul4(float4 a, float4 b) {
+  return make_float4(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y), __fmul_rn(a.z, b.z),
+                     __fmul_rn(a.w, b.w));
+}
+
+template <bool kStaged>
+__device__ __forceinline__ float4 load4(const float* p) {
+  if constexpr (kStaged) return *reinterpret_cast<const float4*>(p);
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+// Columns k .. k+3 of one sample row's factors from one k-slice `tab`
+// (NP*ndofp rows of KS floats, in shared memory or, off the staged route,
+// global), the row's samples `samp`, and this lane's place g among the
+// row's KS/4 lanes.  Every lane of the warp must call it (shuffles).
+template <int KS, bool kStaged>
+__device__ __forceinline__ float4 factor4(const float* samp, const float* s_grid,
+                                          const float* tab, int NP, int ndofp, int g, int k,
+                                          int n_modes) {
+  constexpr int L = KS / 4;  // lanes per sample row
+  float4 f = make_float4(1.0f, 1.0f, 1.0f, 1.0f);
+  for (int j0 = 0; j0 < NP; j0 += L) {
+    int base = 0;
+    float w0 = 0.0f, w1 = 0.0f, w2 = 0.0f;
+    const int jj = j0 + g;
+    if (jj < NP)
+      locate(samp[jj], s_grid[jj], s_grid[NP + jj], s_grid[2 * NP + jj],
+             (int)s_grid[3 * NP + jj], &base, &w0, &w1, &w2);
+#pragma unroll
+    for (int t = 0; t < L; ++t) {
+      const int j = j0 + t;
+      if (j >= NP) break;  // uniform across the warp
+      const int b = __shfl_sync(0xffffffffu, base, t, L);
+      const float a0 = __shfl_sync(0xffffffffu, w0, t, L);
+      const float a1 = __shfl_sync(0xffffffffu, w1, t, L);
+      const float a2 = __shfl_sync(0xffffffffu, w2, t, L);
+      const float* T = tab + (j * ndofp + b) * KS + 4 * g;
+      // Σ_l φ_l T_l in l order, then the product over dims in j order
+      float4 v = add4(scale4(a0, load4<kStaged>(T)), scale4(a1, load4<kStaged>(T + KS)));
+      if ((int)s_grid[3 * NP + j] == 2) v = add4(v, scale4(a2, load4<kStaged>(T + 2 * KS)));
+      f = mul4(f, v);
+    }
+  }
+  if (k + 0 >= n_modes) f.x = 0.0f;
+  if (k + 1 >= n_modes) f.y = 0.0f;
+  if (k + 2 >= n_modes) f.z = 0.0f;
+  if (k + 3 >= n_modes) f.w = 0.0f;
+  return f;
+}
+
+// Round a finite f32 to tf32 (10 stored mantissa bits), nearest, ties away
+// from zero; a value that would round to infinity is truncated.
+__device__ __forceinline__ float round_tf32(float x) {
+  const uint32_t u = __float_as_uint(x);
+  uint32_t h = (u + 0x1000u) & 0xffffe000u;
+  if ((h & 0x7f800000u) == 0x7f800000u) h = u & 0xffffe000u;
+  return __uint_as_float(h);
+}
+
+__device__ __forceinline__ void split_tf32(float x, float* hi, float* lo) {
+  if (!isfinite(x)) {
+    *hi = x;
+    *lo = 0.0f;
+    return;
+  }
+  *hi = round_tf32(x);
+  *lo = round_tf32(__fsub_rn(x, *hi));  // x - hi is exact
+}
+
+// Columns k .. k+3 of F's row `row` into out (and out_lo), rows ld apart;
+// columns at or past ld are not stored.  vec: 16-byte stores are aligned.
+template <int kMode>
+__device__ __forceinline__ void store_factors(float* out, float* out_lo, long long row, int ld,
+                                              int k, float4 f, bool vec) {
+  if (k >= ld) return;
+  const long long at = row * ld + k;
+  if constexpr (kMode == kSplit) {  // ld and k are multiples of 4
+    float4 hi, lo;
+    split_tf32(f.x, &hi.x, &lo.x);
+    split_tf32(f.y, &hi.y, &lo.y);
+    split_tf32(f.z, &hi.z, &lo.z);
+    split_tf32(f.w, &hi.w, &lo.w);
+    __stcs(reinterpret_cast<float4*>(out + at), hi);
+    __stcs(reinterpret_cast<float4*>(out_lo + at), lo);
+  } else if (vec && k + 4 <= ld) {
+    __stcs(reinterpret_cast<float4*>(out + at), f);
+  } else {
+    const float v[4] = {f.x, f.y, f.z, f.w};
+    for (int e = 0; e < 4 && k + e < ld; ++e) __stcs(out + at + e, v[e]);
+  }
+}
+
+// One block per tile of `S` sample rows (a multiple of the block's threads).  tslices
+// (n_slices, NP*ndofp, KS): the tables by k-slice, zero past K; mslices
+// (n_slices, KS, round4(n0)): the masked M0 by k-slice (narrow mode).
+// out: F (B, ld = K), F's hi half (B, ld = ldf, out_lo the lo half), or
+// the narrow product (B, ld = n0), f32 or (out_bf16) bf16.
+template <int KS, int kMode, bool kStaged>
+__global__ void __launch_bounds__(factor_threads(kMode))
+sweep_factors_kernel(const float* __restrict__ samples, const float* __restrict__ grid,
+                     const float* __restrict__ tslices, const float* __restrict__ mslices,
+                     float* __restrict__ out, float* __restrict__ out_lo, long long B, int NP,
+                     int ndofp, int n_modes, int ld, int S, int vec, int out_bf16) {
+  constexpr int kThreads = factor_threads(kMode);
+  constexpr int L = KS / 4;             // lanes per sample row
+  constexpr int kRowsPerPass = kThreads / L;
+  constexpr int kTileLd = KS + 4;       // F tile row stride (narrow mode)
+  extern __shared__ __align__(128) float smem[];
+  __shared__ float s_grid[4 * kMaxNP];
+  __shared__ __align__(8) uint64_t s_bar[2];
+
+  const int tid = threadIdx.x, g = tid % L, lr = tid / L;
+  const long long tile0 = (long long)blockIdx.x * S;
+  const int rows = (int)(B - tile0 < S ? B - tile0 : S);
+  const int n0 = kMode == kNarrow ? ld : 0;
+  const int n0p = round4(n0), ldacc = acc_stride(n0);
+  const int tab_floats = NP * ndofp * KS;
+  const int stage_floats = tab_floats + (kMode == kNarrow ? KS * n0p : 0);
+  float* s_samp = smem + (kStaged ? 2 * stage_floats : 0);
+  float* s_f = s_samp + round4(S * NP);
+  float* s_acc = s_f + kThreads * kTileLd;
+  const int n_active = (n_modes + KS - 1) / KS;  // slices holding a mode
+  const int n_slices = kMode == kNarrow ? n_active : (ld + KS - 1) / KS;
+  const uint32_t bar0 = smem_u32(&s_bar[0]);
+
+  if (kStaged && tid == 0) {
+    mbar_init(bar0, 1);
+    mbar_init(bar0 + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  for (int i = tid; i < 4 * NP; i += kThreads) s_grid[i] = grid[i];
+  const float* src = samples + tile0 * NP;
+  for (int i = tid; i < S * NP; i += kThreads) s_samp[i] = i < rows * NP ? src[i] : 0.0f;
+  if constexpr (kMode == kNarrow)
+    for (int i = tid; i < S * ldacc; i += kThreads) s_acc[i] = 0.0f;
+  __syncthreads();
+
+  // slice q goes to stage q % 2, its (q / 2)-th fill
+  auto fill = [&](int q) {
+    const uint32_t bar = bar0 + 8 * (q & 1);
+    const uint32_t dst = smem_u32(smem + (q & 1) * stage_floats);
+    mbar_expect_tx(bar, stage_floats * 4);
+    bulk_load(dst, tslices + (size_t)q * tab_floats, tab_floats * 4, bar);
+    if (kMode == kNarrow)
+      bulk_load(dst + tab_floats * 4, mslices + (size_t)q * KS * n0p, KS * n0p * 4, bar);
+  };
+  if (kStaged && tid == 0)
+    for (int q = 0; q < 2 && q < n_active; ++q) fill(q);
+
+  for (int q = 0; q < n_slices; ++q) {
+    const int k = q * KS + 4 * g;  // this lane's first column
+    if (q >= n_active) {           // every column at or past n_modes
+      for (int p = 0; p < rows; p += kRowsPerPass)
+        if (p + lr < rows)
+          store_factors<kMode>(out, out_lo, tile0 + p + lr, ld, k, make_float4(0, 0, 0, 0),
+                               vec);
+      continue;
+    }
+    const float* tab;
+    const float* m0s;
+    if constexpr (kStaged) {
+      mbar_wait(bar0 + 8 * (q & 1), (q >> 1) & 1);
+      tab = smem + (q & 1) * stage_floats;
+      m0s = tab + tab_floats;
+    } else {
+      tab = tslices + (size_t)q * tab_floats;
+      m0s = mslices + (size_t)q * KS * n0p;
+    }
+    if constexpr (kMode != kNarrow) {
+      for (int p = 0; p < rows; p += kRowsPerPass) {
+        const int r = p + lr;
+        const float4 f = factor4<KS, kStaged>(s_samp + r * NP, s_grid, tab, NP, ndofp, g, k,
+                                              n_modes);
+        if (r < rows) store_factors<kMode>(out, out_lo, tile0 + r, ld, k, f, vec);
+      }
+    } else {
+      for (int c0 = 0; c0 < rows; c0 += kThreads) {
+        for (int p = 0; p < kThreads; p += kRowsPerPass) {
+          const int r = p + lr;
+          const float4 f = factor4<KS, kStaged>(s_samp + (c0 + r) * NP, s_grid, tab, NP, ndofp,
+                                                g, k, n_modes);
+          *reinterpret_cast<float4*>(s_f + r * kTileLd + 4 * g) = f;
+        }
+        __syncthreads();
+        if (c0 + tid < rows) {
+          // this row's partial sums over the slice, k ascending
+          float part[kMaxN0];
+#pragma unroll
+          for (int c = 0; c < kMaxN0; ++c) part[c] = 0.0f;
+          const float* fr = s_f + tid * kTileLd;
+#pragma unroll
+          for (int k4 = 0; k4 < KS; k4 += 4) {
+            const float4 fv = *reinterpret_cast<const float4*>(fr + k4);
+            const float fk[4] = {fv.x, fv.y, fv.z, fv.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float* mr = m0s + (k4 + e) * n0p;
+#pragma unroll
+              for (int c = 0; c < kMaxN0; c += 4) {
+                if (c < n0p) {
+                  const float4 m = load4<kStaged>(mr + c);
+                  part[c] = __fmaf_rn(fk[e], m.x, part[c]);
+                  part[c + 1] = __fmaf_rn(fk[e], m.y, part[c + 1]);
+                  part[c + 2] = __fmaf_rn(fk[e], m.z, part[c + 2]);
+                  part[c + 3] = __fmaf_rn(fk[e], m.w, part[c + 3]);
+                }
+              }
+            }
+          }
+          float* acc = s_acc + (c0 + tid) * ldacc;
+#pragma unroll
+          for (int c = 0; c < kMaxN0; c += 4) {
+            if (c < n0p) {
+              float4 a = *reinterpret_cast<float4*>(acc + c);
+              a.x = __fadd_rn(a.x, part[c]);
+              a.y = __fadd_rn(a.y, part[c + 1]);
+              a.z = __fadd_rn(a.z, part[c + 2]);
+              a.w = __fadd_rn(a.w, part[c + 3]);
+              *reinterpret_cast<float4*>(acc + c) = a;
+            }
+          }
+        }
+        __syncthreads();
+      }
+    }
+    if constexpr (kStaged) {
+      __syncthreads();  // every thread is done with this stage
+      if (tid == 0 && q + 2 < n_active) {
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        fill(q + 2);
+      }
+    }
+  }
+
+  if constexpr (kMode == kNarrow) {
+    // each row's accumulator was written by thread (row % kThreads) alone
+    for (int r = tid; r < rows; r += kThreads) {
+      const float* acc = s_acc + r * ldacc;
+      const long long at = (tile0 + r) * n0;
+      if (out_bf16) {
+        __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(out) + at;
+        for (int c = 0; c < n0; ++c) o[c] = __float2bfloat16_rn(acc[c]);
+      } else {
+        for (int c = 0; c < n0; ++c) out[at + c] = acc[c];
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------- stage 2
+
+constexpr int kBM = 128;               // output rows per block: 2 x 64
+constexpr int kBoxK = 32;              // k per stage: one 128-byte swizzle row
+constexpr int kGemmThreads = 384;      // producer warpgroup + 2 consumer warpgroups
+constexpr int kConsumerThreads = 256;
+constexpr int kATileBytes = kBM * kBoxK * 4;  // 16 KiB
+constexpr int kGroupK = 16;            // k per fresh accumulator (see the header)
+constexpr int kGroups = kBoxK / kGroupK;  // groups per stage
+static_assert(kGroupK == 16, "issue_group issues two k8 steps per group");
+constexpr int kBN = 128;               // output columns per block
+constexpr int kBTileBytes = kBN * kBoxK * 4;
+constexpr int kStageBytes = 2 * kATileBytes + 2 * kBTileBytes;
+constexpr int kStages = 3;
+constexpr int kGemmSmem = kStages * kStageBytes + 2 * kStages * 8 + 1024;
+static_assert(kGemmSmem <= kMaxSmem, "stage ring exceeds shared memory");
+
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
                                             uint32_t bar, int c0, int c1) {
   asm volatile(
@@ -267,51 +537,28 @@ __device__ __forceinline__ void fence_operands(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D (64 x N, f32, in registers) = [D +] A (64 x 8 tf32) . B (N x 8 tf32)^T
-template <int N>
-struct Wgmma;
-
-template <>
-struct Wgmma<8> {
-  static __device__ __forceinline__ void mma(float (&d)[4], uint64_t a, uint64_t b,
-                                             int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %6, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
-        "{"
-        "%0, %1, %2, %3"
-        "}, %4, %5, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<128> {
-  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t a, uint64_t b,
-                                             int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
+// D (64 x 128, f32, in registers) = [D +] A (64 x 8 tf32) . B (128 x 8 tf32)^T
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
 
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
@@ -322,21 +569,20 @@ __device__ __forceinline__ void wgmma_wait() {
 // cross passes hi.lo and lo.hi first, while the sum is small, then hi.hi;
 // two k8 steps each, a k8 step being 32 bytes along the swizzled row (+2 in
 // a descriptor).
-template <int BN, int R>
-__device__ __forceinline__ void issue_group(float (&acc)[R], uint64_t ahi, uint64_t alo,
+__device__ __forceinline__ void issue_group(float (&acc)[64], uint64_t ahi, uint64_t alo,
                                             uint64_t bhi, uint64_t blo, int half) {
   fence_operands(acc);
   wgmma_fence();
 #pragma unroll
   for (int ks = 0; ks < 2; ++ks) {
     const int o = 2 * (2 * half + ks);
-    Wgmma<BN>::mma(acc, ahi + o, blo + o, ks == 0 ? 0 : 1);
-    Wgmma<BN>::mma(acc, alo + o, bhi + o, 1);
+    wgmma_tf32(acc, ahi + o, blo + o, ks == 0 ? 0 : 1);
+    wgmma_tf32(acc, alo + o, bhi + o, 1);
   }
 #pragma unroll
   for (int ks = 0; ks < 2; ++ks) {
     const int o = 2 * (2 * half + ks);
-    Wgmma<BN>::mma(acc, ahi + o, bhi + o, 1);
+    wgmma_tf32(acc, ahi + o, bhi + o, 1);
   }
   wgmma_commit();
 }
@@ -360,21 +606,20 @@ __device__ inline void store<__nv_bfloat16>(__nv_bfloat16* p, float v) {
 
 // out (rows, n0) = F (rows, Kp) . M0 (Kp, n0), from a_hi/a_lo over F's
 // halves (box 32 x 128 rows) and b_hi/b_lo over M0^T's (n0, Kp) halves (box
-// 32 x BN).  Block x = m_tile * n_tiles + n_tile, so neighbouring blocks
+// 32 x 128).  Block x = m_tile * n_tiles + n_tile, so neighbouring blocks
 // share an F tile in L2.
-template <int BN, typename OutT>
+template <typename OutT>
 __global__ void __launch_bounds__(kGemmThreads, 1)
 sweep_gemm_kernel(const __grid_constant__ CUtensorMap a_hi,
                   const __grid_constant__ CUtensorMap a_lo,
                   const __grid_constant__ CUtensorMap b_hi,
                   const __grid_constant__ CUtensorMap b_lo, OutT* __restrict__ out,
                   long long rows, int n0, int n_kb, int n_tiles) {
-  using G = GemmShape<BN>;
-  constexpr int S = G::kStages;
-  constexpr int R = BN / 2;  // accumulator floats per thread
+  constexpr int S = kStages;
+  constexpr int R = kBN / 2;  // accumulator floats per thread
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t bars = base + S * G::kStageBytes;  // full[S], then empty[S]
+  const uint32_t bars = base + S * kStageBytes;  // full[S], then empty[S]
   const int tid = threadIdx.x, wg = tid / 128;
   const int m_tile = blockIdx.x / n_tiles, n_tile = blockIdx.x - m_tile * n_tiles;
 
@@ -393,13 +638,13 @@ sweep_gemm_kernel(const __grid_constant__ CUtensorMap a_hi,
       for (int kb = 0; kb < n_kb; ++kb) {
         const int s = kb % S;
         if (kb >= S) mbar_wait(bars + 8 * (S + s), ((kb / S) - 1) & 1);
-        const uint32_t st = base + s * G::kStageBytes, full = bars + 8 * s;
-        mbar_expect_tx(full, G::kStageBytes);
-        const int k = kb * kBoxK, ra = m_tile * kBM, rb = n_tile * BN;
+        const uint32_t st = base + s * kStageBytes, full = bars + 8 * s;
+        mbar_expect_tx(full, kStageBytes);
+        const int k = kb * kBoxK, ra = m_tile * kBM, rb = n_tile * kBN;
         tma_load_2d(st, &a_hi, full, k, ra);
         tma_load_2d(st + kATileBytes, &a_lo, full, k, ra);
         tma_load_2d(st + 2 * kATileBytes, &b_hi, full, k, rb);
-        tma_load_2d(st + 2 * kATileBytes + G::kBTileBytes, &b_lo, full, k, rb);
+        tma_load_2d(st + 2 * kATileBytes + kBTileBytes, &b_lo, full, k, rb);
       }
     }
     return;
@@ -418,12 +663,12 @@ sweep_gemm_kernel(const __grid_constant__ CUtensorMap a_hi,
   for (int g = 0; g < n_groups; ++g) {
     const int kb = g / kGroups, half = g % kGroups, s = kb % S;
     if (half == 0) mbar_wait(bars + 8 * s, (kb / S) & 1);
-    const uint32_t st = base + s * G::kStageBytes;
+    const uint32_t st = base + s * kStageBytes;
     const uint64_t ahi = smem_desc(st + c * 64 * 128);
     const uint64_t alo = smem_desc(st + kATileBytes + c * 64 * 128);
     const uint64_t bhi = smem_desc(st + 2 * kATileBytes);
-    const uint64_t blo = smem_desc(st + 2 * kATileBytes + G::kBTileBytes);
-    issue_group<BN>(acc, ahi, alo, bhi, blo, half);
+    const uint64_t blo = smem_desc(st + 2 * kATileBytes + kBTileBytes);
+    issue_group(acc, ahi, alo, bhi, blo, half);
     wgmma_wait<0>();
     fold(tot, acc);
     if (half == kGroups - 1) mbar_arrive(bars + 8 * (S + s));
@@ -434,8 +679,8 @@ sweep_gemm_kernel(const __grid_constant__ CUtensorMap a_hi,
   const int w = (tid % 128) / 32, lane = tid % 32;
   const long long r0 = (long long)m_tile * kBM + c * 64 + 16 * w + lane / 4;
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int col = n_tile * BN + 8 * j + 2 * (lane % 4);
+  for (int j = 0; j < kBN / 8; ++j) {
+    const int col = n_tile * kBN + 8 * j + 2 * (lane % 4);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const long long row = r0 + 8 * h;
@@ -486,7 +731,7 @@ int tile_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, long long ro
   return r == CUDA_SUCCESS ? 0 : kEncodeError + (int)r;
 }
 
-template <int BN, typename OutT>
+template <typename OutT>
 int launch_gemm(const void* f_hi, const void* f_lo, const void* t_hi, const void* t_lo,
                 void* out, long long rows, int Kp, int n0, cudaStream_t stream) {
   EncodeTiled encode;
@@ -495,57 +740,110 @@ int launch_gemm(const void* f_hi, const void* f_lo, const void* t_hi, const void
   CUtensorMap a_hi, a_lo, b_hi, b_lo;
   if ((rc = tile_map(encode, &a_hi, f_hi, rows, Kp, kBM)) != 0) return rc;
   if ((rc = tile_map(encode, &a_lo, f_lo, rows, Kp, kBM)) != 0) return rc;
-  if ((rc = tile_map(encode, &b_hi, t_hi, n0, Kp, BN)) != 0) return rc;
-  if ((rc = tile_map(encode, &b_lo, t_lo, n0, Kp, BN)) != 0) return rc;
-  auto kernel = sweep_gemm_kernel<BN, OutT>;
-  const int smem = GemmShape<BN>::kSmem;
+  if ((rc = tile_map(encode, &b_hi, t_hi, n0, Kp, kBN)) != 0) return rc;
+  if ((rc = tile_map(encode, &b_lo, t_lo, n0, Kp, kBN)) != 0) return rc;
+  auto kernel = sweep_gemm_kernel<OutT>;
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem);
   if (err != cudaSuccess) return (int)err;
-  const int n_tiles = (n0 + BN - 1) / BN;
+  const int n_tiles = (n0 + kBN - 1) / kBN;
   const long long blocks = (rows + kBM - 1) / kBM * n_tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const int n_kb = (Kp + kBoxK - 1) / kBoxK;
-  kernel<<<(unsigned)blocks, kGemmThreads, smem, stream>>>(
+  kernel<<<(unsigned)blocks, kGemmThreads, kGemmSmem, stream>>>(
       a_hi, a_lo, b_hi, b_lo, static_cast<OutT*>(out), rows, n0, n_kb, n_tiles);
   return (int)cudaGetLastError();
 }
 
-template <typename OutT>
-int gemm_for_width(const void* f_hi, const void* f_lo, const void* t_hi, const void* t_lo,
-                   void* out, long long rows, int Kp, int n0, cudaStream_t stream) {
-  if (n0 <= 32) return launch_gemm<8, OutT>(f_hi, f_lo, t_hi, t_lo, out, rows, Kp, n0, stream);
-  return launch_gemm<128, OutT>(f_hi, f_lo, t_hi, t_lo, out, rows, Kp, n0, stream);
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+struct FactorArgs {
+  const float* samples;
+  const float* grid;
+  const float* tslices;
+  const float* mslices;
+  float* out;
+  float* out_lo;
+  long long B;
+  int NP, ndofp, n_modes, ld, S, vec, out_bf16;
+};
+
+template <int KS, int kMode, bool kStaged>
+int launch_factors(const FactorArgs& a, int smem, cudaStream_t stream) {
+  auto kernel = sweep_factors_kernel<KS, kMode, kStaged>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (a.B + a.S - 1) / a.S;
+  kernel<<<(unsigned)blocks, factor_threads(kMode), smem, stream>>>(a.samples, a.grid, a.tslices, a.mslices,
+                                                       a.out, a.out_lo, a.B, a.NP, a.ndofp,
+                                                       a.n_modes, a.ld, a.S, a.vec, a.out_bf16);
+  return (int)cudaGetLastError();
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+template <int kMode>
+int factors_for_mode(const FactorArgs& a, int ks, bool staged, int smem, cudaStream_t st) {
+  if (!staged) return ks == 32 ? launch_factors<32, kMode, false>(a, smem, st)
+                               : (int)cudaErrorInvalidValue;
+  switch (ks) {
+    case 32: return launch_factors<32, kMode, true>(a, smem, st);
+    case 16: return launch_factors<16, kMode, true>(a, smem, st);
+    case 8: return launch_factors<8, kMode, true>(a, smem, st);
+    case 4: return launch_factors<4, kMode, true>(a, smem, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 }  // namespace
 
 extern "C" {
 
 // Stage 1.  samples (B, NP) f32; grid (4, NP) f32 rows x0, 1/h, ncell,
-// degree; tabs (NP, ndofp, K) f32; out (B, K) f32: F; or, when out_lo is
-// not null, out and out_lo (B, ldf), ldf >= K: F's tf32 hi and lo halves.
-// Columns k >= n_modes are zero.  All pointers on the current device, all
-// arrays C-contiguous.
-int pgd_sweep_factors(const void* samples, const void* grid, const void* tabs, void* out,
-                      void* out_lo, long long B, int NP, int ndofp, int K, int n_modes,
-                      int ldf, void* stream) {
+// degree; tslices (n_slices, NP*ndofp, ks) f32: the (NP, ndofp, K) tables
+// cut into k-slices of ks columns, zero past K.  Three modes:
+//   mslices null, out_lo null: out (B, ld = K) f32, F itself;
+//   mslices null, out_lo set:  out, out_lo (B, ld >= K, ld % 4 == 0): F's
+//                              tf32 hi and lo halves, zero past K;
+//   mslices set:               out (B, ld = n0 <= 32), F . M0, f32 or
+//                              (out_bf16) bf16; mslices (n_slices, ks,
+//                              round4(n0)) the M0 rows, zero at or past
+//                              n_modes.
+// Columns k >= n_modes of F are zero.  rows: sample rows per block, a
+// multiple of factor_threads (512 for the narrow product, else 1024);
+// staged: the tables go through shared memory (else ks
+// must be 32 and the gathers read tslices in global memory).  All arrays
+// C-contiguous on the current device, tslices and mslices 16-byte aligned.
+int pgd_sweep_factors(const void* samples, const void* grid, const void* tslices,
+                      const void* mslices, void* out, void* out_lo, long long B, int NP,
+                      int ndofp, int K, int n_modes, int ld, int ks, int rows, int staged,
+                      int out_bf16, void* stream) {
+  const int mode = mslices ? kNarrow : out_lo ? kSplit : kFactors;
   if (B < 0 || NP < 1 || NP > kMaxNP || ndofp < 2 || K < 1 || n_modes < 0 || n_modes > K ||
-      ldf < K || (out_lo == nullptr && ldf != K))
+      rows < factor_threads(mode) || rows % factor_threads(mode) != 0 || !aligned16(tslices) ||
+      (mode == kFactors && ld != K) ||
+      (mode == kSplit && (ld < K || ld % 4 != 0 || !aligned16(out) || !aligned16(out_lo))) ||
+      (mode == kNarrow && (ld < 1 || ld > kMaxN0 || !aligned16(mslices))))
     return (int)cudaErrorInvalidValue;
-  const long long total = B * (long long)ldf;
-  if (total > 0) {
-    const long long want = (total + kThreads - 1) / kThreads;
-    const unsigned blocks = (unsigned)(want < 132LL * 64 ? want : 132LL * 64);
-    auto kernel = out_lo ? sweep_factors_kernel<true> : sweep_factors_kernel<false>;
-    kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(samples), static_cast<const float*>(grid),
-        static_cast<const float*>(tabs), static_cast<float*>(out),
-        static_cast<float*>(out_lo), B, NP, ndofp, K, n_modes, ldf);
+  const long long smem = factor_smem(NP, ndofp, ks, rows, mode == kNarrow ? ld : 0, staged);
+  if (smem > kMaxSmem - 1024) return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaGetLastError();
+  if ((B + rows - 1) / rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const FactorArgs a = {static_cast<const float*>(samples), static_cast<const float*>(grid),
+                        static_cast<const float*>(tslices), static_cast<const float*>(mslices),
+                        static_cast<float*>(out), static_cast<float*>(out_lo), B, NP, ndofp,
+                        n_modes, ld, rows, ld % 4 == 0 && aligned16(out), out_bf16};
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case kFactors: return factors_for_mode<kFactors>(a, ks, staged, (int)smem, st);
+    case kSplit: return factors_for_mode<kSplit>(a, ks, staged, (int)smem, st);
+    default: return factors_for_mode<kNarrow>(a, ks, staged, (int)smem, st);
   }
-  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of a factor launch, in bytes (n0 = 0: no narrow
+// product); ops/fused_sweep.py::factor_smem must agree.
+long long pgd_factor_smem(int NP, int ndofp, int ks, int rows, int n0, int staged) {
+  return factor_smem(NP, ndofp, ks, rows, n0, staged != 0);
 }
 
 // Stage 2.  f_hi, f_lo (rows, Kp) f32: the split factors; t_hi, t_lo
@@ -553,21 +851,18 @@ int pgd_sweep_factors(const void* samples, const void* grid, const void* tabs, v
 // f32 (out_bf16 == 0) or bf16.  Kp is a multiple of 8.
 int pgd_sweep_gemm(const void* f_hi, const void* f_lo, const void* t_hi, const void* t_lo,
                    void* out, long long rows, int Kp, int n0, int out_bf16, void* stream) {
-  if (rows < 0 || Kp < 8 || Kp % 8 != 0 || n0 < 1 || rows > 0xffffffffLL || !aligned16(f_hi) || !aligned16(f_lo) || !aligned16(t_hi) ||
-      !aligned16(t_lo))
+  if (rows < 0 || Kp < 8 || Kp % 8 != 0 || n0 < 1 || rows > 0xffffffffLL ||
+      !aligned16(f_hi) || !aligned16(f_lo) || !aligned16(t_hi) || !aligned16(t_lo))
     return (int)cudaErrorInvalidValue;
   if (rows == 0) return (int)cudaGetLastError();
   auto st = static_cast<cudaStream_t>(stream);
-  return out_bf16
-             ? gemm_for_width<__nv_bfloat16>(f_hi, f_lo, t_hi, t_lo, out, rows, Kp, n0, st)
-             : gemm_for_width<float>(f_hi, f_lo, t_hi, t_lo, out, rows, Kp, n0, st);
+  return out_bf16 ? launch_gemm<__nv_bfloat16>(f_hi, f_lo, t_hi, t_lo, out, rows, Kp, n0, st)
+                  : launch_gemm<float>(f_hi, f_lo, t_hi, t_lo, out, rows, Kp, n0, st);
 }
 
-// Dynamic shared memory of a GEMM launch for outputs n0 wide, in bytes
-// (ptxas -v reports static shared memory only).
-int pgd_sweep_gemm_smem(int n0) {
-  return n0 <= 32 ? GemmShape<8>::kSmem : GemmShape<128>::kSmem;
-}
+// Dynamic shared memory of a GEMM launch, in bytes (ptxas -v reports
+// static shared memory only).
+int pgd_sweep_gemm_smem(void) { return kGemmSmem; }
 
 const char* pgd_error_string(int code) {
   if (code >= kEncodeError) return "cuTensorMapEncodeTiled failed (code - 100000 is the CUresult)";

@@ -13,12 +13,17 @@ arithmetic, in float32.  ``M0=None`` asks for the masked factors F
 themselves, (B, K): the factor wiring behind ``moments``, which on the TPU
 multiplied by an identity table.
 
-On the card the sweep runs in two kernels (``csrc/fused_sweep.cu``;
-design and bounds in its header): stage 1 writes F, split into tf32
+On the card (``csrc/fused_sweep.cu``; design and bounds in its header)
+the factor kernel reads the tables by k-slices staged in shared memory
+(:func:`slice_tables`; tile, slice width and route from
+:func:`factor_plan`) and computes F in the plain version's rounding, bit
+for bit.  Outputs of at most :data:`SENSORS_MAX` columns (sensors) are
+its fused narrow product: F never leaves the chip.  Wider outputs
+(fields) take two kernels: the factor kernel writes F, split into tf32
 hi/lo halves, into a scratch buffer whose rows are K rounded up to a
-multiple of 8; stage 2 is a TMA + wgmma GEMM that multiplies it by the
-split, transposed, masked M0 table in three tf32 passes.  The wrapper walks
-the batch in row chunks so the scratch stays under :data:`SCRATCH_BYTES`.
+multiple of 8, and a TMA + wgmma GEMM multiplies it by the split,
+transposed, masked M0 table in three tf32 passes; the wrapper walks the
+batch in row chunks so the scratch stays under :data:`SCRATCH_BYTES`.
 The kernels are built with ``nvcc`` into a plain C shared library at first
 use and called through ``ctypes`` on PyTorch's current stream.
 :func:`fused_sweep` takes the plain version only for tensors on the CPU; a
@@ -56,17 +61,26 @@ BUILD_TIMEOUT_S = 600
 
 # calls per sweep wiring; incremented only where the kernels are launched
 LAUNCHES = {"fields_f32": 0, "fields_bf16": 0, "sensors": 0, "factors": 0}
-# launches per kernel: stage 1 (factors) and stage 2 (the tensor-core GEMM)
-STAGE_LAUNCHES = {"factors_stage": 0, "gemm": 0}
+# launches per kernel route: the staged factor kernel writing F or its
+# split (factors_stage), the staged fused narrow product (sensor_fused),
+# the factor kernel on the global route, any mode (factors_global), and
+# the tensor-core GEMM (gemm)
+STAGE_LAUNCHES = {"factors_stage": 0, "sensor_fused": 0, "factors_global": 0, "gemm": 0}
 
-# launches with outputs up to this wide count as the sensor wiring (the
-# GEMM also takes its narrow, 8-column tile up to this width)
+# outputs up to this wide are the fused narrow product (the sensor wiring)
 SENSORS_MAX = 32
 # bytes of F scratch (both tf32 halves) one row chunk may hold
 SCRATCH_BYTES = 1 << 30
 GEMM_ROWS = 128  # output rows of one GEMM block; chunks are multiples of it
 K_ALIGN = 8  # F and table rows are padded to a multiple of this (TMA, k8 steps)
 _MAX_NP = 16
+
+# the factor kernel's tiling (csrc/fused_sweep.cu, stage 1)
+FACTOR_THREADS = 1024  # a block writing F or its split
+NARROW_THREADS = 512  # a block of the fused narrow product
+SLICE_WIDTHS = (32, 16, 8, 4)  # k-slice widths, widest first
+TILE_ROWS_MAX = 2048  # sample rows per block
+SMEM_BYTES = 232448 - 1024  # dynamic shared memory a block may take
 
 
 def reset_launch_counts() -> None:
@@ -137,11 +151,13 @@ def _library():
         info = _LAST_BUILD if _LAST_BUILD is not None else build()
         lib = ctypes.CDLL(str(info.path))
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.pgd_sweep_factors.argtypes = [p, p, p, p, p, ll, i, i, i, i, i, p]
+        lib.pgd_sweep_factors.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, i, i, i, i, i, p]
         lib.pgd_sweep_factors.restype = i
+        lib.pgd_factor_smem.argtypes = [i, i, i, i, i, i]
+        lib.pgd_factor_smem.restype = ll
         lib.pgd_sweep_gemm.argtypes = [p, p, p, p, p, ll, i, i, i, p]
         lib.pgd_sweep_gemm.restype = i
-        lib.pgd_sweep_gemm_smem.argtypes = [i]
+        lib.pgd_sweep_gemm_smem.argtypes = []
         lib.pgd_sweep_gemm_smem.restype = i
         lib.pgd_error_string.argtypes = [i]
         lib.pgd_error_string.restype = ctypes.c_char_p
@@ -237,6 +253,88 @@ def row_chunks(B: int, K: int):
     return [(r0, min(B, r0 + rows)) for r0 in range(0, int(B), rows)]
 
 
+def _round4(n: int) -> int:
+    return -(-int(n) // 4) * 4
+
+
+def factor_smem(NP: int, ndofp: int, ks: int, rows: int, n0: int = 0,
+                staged: bool = True) -> int:
+    """Dynamic shared memory of a factor-kernel launch, in bytes — the
+    kernel's ``factor_smem``: two table stages of NP·ndofp·ks floats (plus
+    ks·round4(n0) of M0 for the narrow product) when staged, the tile's
+    ``rows`` × NP samples, and for the narrow product (n0 > 0) the F tile
+    of :data:`NARROW_THREADS` rows (row stride ks + 4) and the (rows, n0)
+    accumulator, whose row stride is an odd number of float4s."""
+    n0p = _round4(n0)
+    stage = NP * ndofp * ks + ks * n0p
+    acc = n0p if (n0p // 4) % 2 else n0p + 4
+    narrow = NARROW_THREADS * (ks + 4) + rows * acc if n0 > 0 else 0
+    return 4 * ((2 * stage if staged else 0) + _round4(rows * NP) + narrow)
+
+
+@dataclass(frozen=True)
+class FactorPlan:
+    """How the factor kernel walks a sweep: ``route`` "staged" (tables
+    through shared memory) or "global" (gathers from L2), slice width
+    ``ks``, sample rows per block ``rows``, dynamic shared memory ``smem``."""
+    route: str
+    ks: int
+    rows: int
+    smem: int
+
+
+def factor_plan(NP: int, ndofp: int, n0: int = 0) -> FactorPlan:
+    """The factor kernel's tiling for NP tables of ndofp rows (n0 > 0: the
+    fused narrow product of that width), chosen by shape alone.
+
+    The widest slice whose two stages leave room, in
+    :data:`SMEM_BYTES`, for a tile of one row per thread at least, with the
+    tallest such tile (up to :data:`TILE_ROWS_MAX`, in steps of one row per
+    thread); else, for tables too wide for two stages even at ks = 4, the
+    global route at ks = 32.  Wide slices come first: they share each
+    locate among more columns, and on an H100 they beat tall tiles
+    (PERF.md 6.1)."""
+    step = NARROW_THREADS if n0 > 0 else FACTOR_THREADS
+
+    def tallest(ks, staged):
+        rows = TILE_ROWS_MAX
+        while rows >= step and factor_smem(NP, ndofp, ks, rows, n0, staged) > SMEM_BYTES:
+            rows -= step
+        return rows
+
+    for ks in SLICE_WIDTHS:
+        rows = tallest(ks, True)
+        if rows >= step:
+            return FactorPlan("staged", ks, rows, factor_smem(NP, ndofp, ks, rows, n0))
+    rows = tallest(32, False)
+    if rows < step:
+        raise ValueError(f"no factor-kernel tile fits {NP} dims of {ndofp} dofs, n0={n0}")
+    return FactorPlan("global", 32, rows, factor_smem(NP, ndofp, 32, rows, n0, False))
+
+
+def slice_tables(tabs: torch.Tensor, ks: int) -> torch.Tensor:
+    """The factor kernel's table layout: (NP, ndofp, K) cut into k-slices,
+    (ceil(K/ks), NP·ndofp, ks), zero past K, so one slice of every table
+    is one contiguous block (one bulk copy)."""
+    NP, ndofp, K = tabs.shape
+    n_sl = -(-K // ks)
+    t = torch.zeros((NP * ndofp, n_sl * ks), dtype=torch.float32, device=tabs.device)
+    t[:, :K] = tabs.reshape(NP * ndofp, K)
+    return t.view(NP * ndofp, n_sl, ks).transpose(0, 1).contiguous()
+
+
+def slice_m0(m0: torch.Tensor, n_modes: int, ks: int) -> torch.Tensor:
+    """The fused narrow product's M0 layout: (K, n0) by k-slices,
+    (ceil(K/ks), ks, round4(n0)), rows k ≥ ``n_modes`` (NaN included) and
+    the padding zero."""
+    K, n0 = m0.shape
+    n_sl = -(-K // ks)
+    t = torch.zeros((n_sl * ks, _round4(n0)), dtype=torch.float32, device=m0.device)
+    keep = torch.arange(K, device=m0.device) < int(n_modes)
+    t[:K, :n0] = torch.where(keep[:, None], m0.to(torch.float32), 0.0)
+    return t.view(n_sl, ks, _round4(n0))
+
+
 # ------------------------------------------------------------ plain version
 
 def fused_sweep_plain(samples, grid, tabs, m0, n_modes, out_dtype=None):
@@ -303,31 +401,49 @@ def _stream(dev):
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
-def factors_stage(samples, grid, tabs, n_modes, out, out_lo=None):
-    """Stage 1 on the card: the masked factors of ``samples`` (B, NP) into
-    ``out`` (B, K), columns k ≥ ``n_modes`` zero — or, with ``out_lo``,
-    their tf32 halves (:func:`split_tf32`) into ``out`` and ``out_lo``
-    (B, ldf), ldf ≥ K, the padding zero.  ``samples``, ``grid`` and
-    ``tabs`` as :func:`fused_sweep` takes them; B ≥ 1."""
+def _launch_factors(samples, grid, tabs, n_modes, plan, sliced, out, out_lo=None,
+                    m0_slices=None):
+    """One factor-kernel launch over checked operands: F, its split or
+    (``m0_slices``) the fused narrow product into ``out``."""
     dev = samples.device
     B, NP = samples.shape
     _, ndofp, K = tabs.shape
+    lib = _library()
+    with torch.cuda.device(dev):
+        rc = lib.pgd_sweep_factors(
+            samples.data_ptr(), grid.data_ptr(), sliced.data_ptr(),
+            None if m0_slices is None else m0_slices.data_ptr(), out.data_ptr(),
+            None if out_lo is None else out_lo.data_ptr(), B, NP, ndofp, K, int(n_modes),
+            int(out.shape[1]), plan.ks, plan.rows, int(plan.route == "staged"),
+            int(out.dtype == torch.bfloat16), _stream(dev),
+        )
+    _raise_on(rc, lib, "sweep factor kernel")
+    key = ("factors_global" if plan.route == "global"
+           else "sensor_fused" if m0_slices is not None else "factors_stage")
+    STAGE_LAUNCHES[key] += 1
+
+
+def factors_stage(samples, grid, tabs, n_modes, out, out_lo=None, plan=None, sliced=None):
+    """The factor kernel on the card: the masked factors of ``samples``
+    (B, NP) into ``out`` (B, K), columns k ≥ ``n_modes`` zero — or, with
+    ``out_lo``, their tf32 halves (:func:`split_tf32`) into ``out`` and
+    ``out_lo`` (B, ldf), ldf ≥ K and a multiple of 4, the padding zero.
+    ``samples``, ``grid`` and ``tabs`` as :func:`fused_sweep` takes them;
+    ``plan`` and ``sliced`` (:func:`factor_plan`, :func:`slice_tables`)
+    are made from ``tabs`` when not given.  B ≥ 1."""
+    dev = samples.device
+    B = samples.shape[0]
+    NP, ndofp, K = tabs.shape
     for name, t in (("out", out), ("out_lo", out_lo)):
         if t is not None:
             _check(t, name, dev, 2)
             if t.shape[0] != B or t.shape[1] < K or (out_lo is None and t.shape[1] != K):
                 raise ValueError(f"{name} {tuple(t.shape)} does not fit ({B}, {K}) factors")
-    if out_lo is not None and out_lo.shape != out.shape:
-        raise ValueError("out and out_lo differ in shape")
-    lib = _library()
-    with torch.cuda.device(dev):
-        rc = lib.pgd_sweep_factors(
-            samples.data_ptr(), grid.data_ptr(), tabs.data_ptr(), out.data_ptr(),
-            None if out_lo is None else out_lo.data_ptr(), B, NP, ndofp, K,
-            int(n_modes), int(out.shape[1]), _stream(dev),
-        )
-    _raise_on(rc, lib, "sweep factor stage")
-    STAGE_LAUNCHES["factors_stage"] += 1
+    if out_lo is not None and (out_lo.shape != out.shape or out.shape[1] % 4):
+        raise ValueError("out and out_lo must share a shape whose rows are a multiple of 4")
+    plan = plan or factor_plan(NP, ndofp)
+    sliced = slice_tables(tabs, plan.ks) if sliced is None else sliced
+    _launch_factors(samples, grid, tabs, n_modes, plan, sliced, out, out_lo)
 
 
 def gemm_stage(f_hi, f_lo, t_hi, t_lo, out):
@@ -361,53 +477,49 @@ def gemm_stage(f_hi, f_lo, t_hi, t_lo, out):
     STAGE_LAUNCHES["gemm"] += 1
 
 
-def _check_operands(samples, grid, tabs, n_modes):
-    """The checks :func:`fused_sweep` makes of a CUDA call's operands."""
-    dev = samples.device
-    if dev.type != "cuda":
-        raise ValueError(f"fused sweep runs on cuda or cpu, not {dev}")
-    _check(samples, "samples", dev, 2)
+def _check_tables(grid, tabs, n_modes):
+    """The checks a bound CUDA sweep makes of its grid and tables."""
+    dev = tabs.device
     _check(grid, "grid", dev, 2)
     _check(tabs, "tabs", dev, 3)
-    NP = samples.shape[1]
-    _, ndofp, K = tabs.shape
-    if grid.shape != (4, NP) or tabs.shape[0] != NP or not 1 <= NP <= _MAX_NP:
-        raise ValueError(
-            f"grid {tuple(grid.shape)} / tabs {tuple(tabs.shape)} do not "
-            f"match {NP} parameter dims (1..{_MAX_NP})"
-        )
+    NP, ndofp, K = tabs.shape
+    if grid.shape != (4, NP) or not 1 <= NP <= _MAX_NP:
+        raise ValueError(f"grid {tuple(grid.shape)} / tabs {tuple(tabs.shape)} do not "
+                         f"match 1..{_MAX_NP} parameter dims")
     if ndofp < 2:
         raise ValueError(f"tables hold {ndofp} dofs per dim, need at least 2")
     if not 0 <= int(n_modes) <= K:
         raise ValueError(f"n_modes={n_modes} outside [0, {K}]")
 
 
-def _product(samples, grid, tabs, n_modes, table, out_dtype):
-    """The product wirings on the card, from checked operands and the split
-    M0 table (:func:`split_table`): both stages over :func:`row_chunks` of
-    the batch, the split factors of each chunk into one scratch pair, then
-    the GEMM into the chunk's rows of the (B, n0) output."""
+def _check_operands(samples, grid, tabs, n_modes):
+    """The checks :func:`fused_sweep` makes of a CUDA call's operands."""
+    if samples.device.type != "cuda":
+        raise ValueError(f"fused sweep runs on cuda or cpu, not {samples.device}")
+    _check(samples, "samples", tabs.device, 2)
+    if samples.shape[1] != tabs.shape[0]:
+        raise ValueError(f"samples have {samples.shape[1]} parameter dims, "
+                         f"tables {tabs.shape[0]}")
+    _check_tables(grid, tabs, n_modes)
+
+
+def _gemm_product(sweep, samples, bf16):
+    """Fields on the card: over :func:`row_chunks` of the batch, the split
+    factors of each chunk into one scratch pair, then the GEMM into the
+    chunk's rows of the (B, n0) output."""
     dev = samples.device
-    B, K = samples.shape[0], tabs.shape[2]
-    t_hi, t_lo = table
-    n0 = int(t_hi.shape[0])
-    if t_hi.shape[1] != padded_k(K):
-        raise ValueError(f"split table {tuple(t_hi.shape)} does not fit K={K}")
-    bf16 = out_dtype == torch.bfloat16
-    out = torch.empty((B, n0), dtype=torch.bfloat16 if bf16 else torch.float32, device=dev)
-    if B == 0:
-        return out
+    B, K = samples.shape[0], sweep.tabs.shape[2]
+    t_hi, t_lo = sweep.table
+    out = torch.empty((B, t_hi.shape[0]), dtype=torch.bfloat16 if bf16 else torch.float32,
+                      device=dev)
     chunks = row_chunks(B, K)
     f_hi = torch.empty((chunks[0][1], padded_k(K)), dtype=torch.float32, device=dev)
     f_lo = torch.empty_like(f_hi)
     for r0, r1 in chunks:
         n = r1 - r0
-        factors_stage(samples[r0:r1], grid, tabs, n_modes, f_hi[:n], f_lo[:n])
+        _launch_factors(samples[r0:r1], sweep.grid, sweep.tabs, sweep.n_modes, sweep.plan,
+                        sweep.sliced, f_hi[:n], f_lo[:n])
         gemm_stage(f_hi[:n], f_lo[:n], t_hi, t_lo, out[r0:r1])
-    if n0 <= SENSORS_MAX:
-        LAUNCHES["sensors"] += 1
-    else:
-        LAUNCHES["fields_bf16" if bf16 else "fields_f32"] += 1
     return out
 
 
@@ -420,52 +532,87 @@ def fused_sweep(samples, grid, tabs, m0, n_modes, out_dtype=None):
     or bfloat16 — only the store narrows.
 
     A CPU ``samples`` takes :func:`fused_sweep_plain`; a CUDA one launches
-    the kernels (building them at first use) and raises on any failure."""
+    the kernels (building them at first use) and raises on any failure.
+    Binds the tables per call: :class:`FusedSweep` binds them once."""
+    _check_dtype(m0, out_dtype)
+    if samples.device.type == "cpu":
+        return fused_sweep_plain(samples, grid, tabs, m0, n_modes, out_dtype)
+    _check_operands(samples, grid, tabs, n_modes)
+    return FusedSweep(grid, tabs, m0, n_modes, out_dtype)._run(samples)
+
+
+def _check_dtype(m0, out_dtype):
     if out_dtype not in (None, torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
     if m0 is None and out_dtype not in (None, torch.float32):
         raise ValueError("the factor output is float32")
-    dev = samples.device
-    if dev.type == "cpu":
-        return fused_sweep_plain(samples, grid, tabs, m0, n_modes, out_dtype)
-    _check_operands(samples, grid, tabs, n_modes)
-    B, K = samples.shape[0], tabs.shape[2]
-    if m0 is None:
-        out = torch.empty((B, K), dtype=torch.float32, device=dev)
-        if B:
-            factors_stage(samples, grid, tabs, n_modes, out)
-            LAUNCHES["factors"] += 1
-        return out
-    _check(m0, "m0", dev, 2)
-    if m0.shape[0] != K:
-        raise ValueError(f"m0 has {m0.shape[0]} rows, tables have K={K}")
-    return _product(samples, grid, tabs, n_modes, split_table(m0, n_modes), out_dtype)
 
 
 class FusedSweep:
     """A sweep bound to one vademecum's tables on one device:
     ``sweep(samples (B, NP)) → (B, n0)`` (or the factors (B, K) when built
-    with no dim-0 table).  The GEMM's split M0 table is made once, here,
-    when the tables are on the card; ``m0`` itself serves the plain
-    version on the CPU."""
+    with no dim-0 table).  On the card the factor kernel's plan and sliced
+    tables are made once, here, with the sliced M0 of a narrow product
+    (n0 ≤ :data:`SENSORS_MAX`) or the GEMM's split M0 table of a wider one;
+    ``m0`` itself serves the plain version on the CPU."""
 
     def __init__(self, grid, tabs, m0, n_modes, out_dtype=None):
+        _check_dtype(m0, out_dtype)
         self.grid, self.tabs, self.m0 = grid, tabs, m0
         self.n_modes = int(n_modes)
-        if out_dtype not in (None, torch.float32, torch.bfloat16):
-            raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
         self.out_dtype = out_dtype
-        self.table = None
-        if m0 is not None and tabs.device.type == "cuda":
+        self.plan = self.sliced = self.m0_slices = self.table = None
+        if tabs.device.type != "cuda":
+            return
+        _check_tables(grid, tabs, n_modes)
+        NP, ndofp, K = tabs.shape
+        n0 = 0
+        if m0 is not None:
+            _check(m0, "m0", tabs.device, 2)
+            if m0.shape[0] != K:
+                raise ValueError(f"m0 has {m0.shape[0]} rows, tables have K={K}")
+            n0 = int(m0.shape[1])
+        narrow = 0 < n0 <= SENSORS_MAX
+        self.plan = factor_plan(NP, ndofp, n0 if narrow else 0)
+        self.sliced = slice_tables(tabs, self.plan.ks)
+        if narrow:
+            self.m0_slices = slice_m0(m0, self.n_modes, self.plan.ks)
+        elif m0 is not None:
             self.table = split_table(m0, self.n_modes)
 
     def __call__(self, samples):
         s = torch.as_tensor(samples).to(self.tabs.device, torch.float32).contiguous()
-        if self.table is None:
-            return fused_sweep(s, self.grid, self.tabs, self.m0, self.n_modes,
-                               self.out_dtype)
+        if self.plan is None:
+            return fused_sweep_plain(s, self.grid, self.tabs, self.m0, self.n_modes,
+                                     self.out_dtype)
         _check_operands(s, self.grid, self.tabs, self.n_modes)
-        return _product(s, self.grid, self.tabs, self.n_modes, self.table, self.out_dtype)
+        return self._run(s)
+
+    def _run(self, s):
+        """The kernels on checked CUDA samples; each wiring call that
+        launches counts in :data:`LAUNCHES`."""
+        B = s.shape[0]
+        bf16 = self.out_dtype == torch.bfloat16
+        if self.m0 is None:
+            out = torch.empty((B, self.tabs.shape[2]), dtype=torch.float32, device=s.device)
+            wiring = "factors"
+        elif self.m0_slices is not None:
+            out = torch.empty((B, self.m0.shape[1]),
+                              dtype=torch.bfloat16 if bf16 else torch.float32, device=s.device)
+            wiring = "sensors"
+        else:
+            if B == 0:
+                return torch.empty((0, self.m0.shape[1]),
+                                   dtype=torch.bfloat16 if bf16 else torch.float32,
+                                   device=s.device)
+            out = _gemm_product(self, s, bf16)
+            LAUNCHES["fields_bf16" if bf16 else "fields_f32"] += 1
+            return out
+        if B:
+            _launch_factors(s, self.grid, self.tabs, self.n_modes, self.plan, self.sliced,
+                            out, m0_slices=self.m0_slices)
+            LAUNCHES[wiring] += 1
+        return out
 
 
 def make_fused_sweep(spaces, modes, n_modes, out_dtype=None, device=None):

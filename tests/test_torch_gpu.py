@@ -1,5 +1,6 @@
-"""The sweep's CUDA kernels (factor stage, tensor-core GEMM) against their
-plain PyTorch version, on the card.
+"""The sweep's CUDA kernels (the factor kernel with its fused narrow
+product, the tensor-core GEMM) against their plain PyTorch version, on the
+card.
 
 These tests need an NVIDIA GPU with ``nvcc`` (sm_90a); without one they
 skip.  They import no JAX, so they run on a machine that has only the
@@ -121,6 +122,9 @@ def test_factors(cuda):
     out, ref = _run(cuda, spaces, modes, 45, samples, factors=True)
     assert out.shape == (300, 50)
     assert bool((out[:, 45:] == 0).all())
+    # the kernel rounds every operation as the plain version does: equal
+    # bit for bit; the rounding bound is kept beside it
+    assert torch.equal(out, ref)
     bound = _gamma_bound(spaces, modes, 45, samples, 16, factors=True)
     assert bool(((out.double() - ref.double()).abs() <= 2 * bound).all())
 
@@ -157,7 +161,10 @@ def test_edge_shapes(cuda, K, n0, B):
     fs.reset_launch_counts()
     out, ref = _run(cuda, spaces, modes, K - 1, samples)
     assert out.shape == (B, n0)
-    assert fs.STAGE_LAUNCHES == {"factors_stage": 1, "gemm": 1}
+    narrow = n0 <= fs.SENSORS_MAX
+    assert fs.STAGE_LAUNCHES == {"factors_stage": 0 if narrow else 1,
+                                 "sensor_fused": 1 if narrow else 0,
+                                 "factors_global": 0, "gemm": 0 if narrow else 1}
     bound = _gamma_bound(spaces, modes, K - 1, samples, K + 20)
     assert bool(((out.double() - ref.double()).abs() <= 2 * bound).all())
 
@@ -206,7 +213,8 @@ def test_row_chunks_bitwise(cuda, monkeypatch):
     fs.reset_launch_counts()
     many = kern(s)
     torch.cuda.synchronize()
-    assert fs.STAGE_LAUNCHES == {"factors_stage": 4, "gemm": 4}
+    assert fs.STAGE_LAUNCHES == {"factors_stage": 4, "sensor_fused": 0, "factors_global": 0,
+                                 "gemm": 4}
     assert fs.LAUNCHES["fields_f32"] == 1
     assert torch.equal(one, many)
 
@@ -219,7 +227,10 @@ def test_large_k(cuda, n0):
     fs.reset_launch_counts()
     out, ref = _run(cuda, spaces, modes, 5993, samples)
     assert out.shape == (70, n0)
-    assert fs.STAGE_LAUNCHES == {"factors_stage": 1, "gemm": 1}
+    narrow = n0 <= fs.SENSORS_MAX
+    assert fs.STAGE_LAUNCHES == {"factors_stage": 0 if narrow else 1,
+                                 "sensor_fused": 1 if narrow else 0,
+                                 "factors_global": 0, "gemm": 0 if narrow else 1}
     bound = _gamma_bound(spaces, modes, 5993, samples, 6000 + 8)
     assert bool(((out.double() - ref.double()).abs() <= 2 * bound).all())
 
@@ -245,3 +256,115 @@ def test_served_d5_fields_vs_fem(cuda):
     rel = [np.linalg.norm(x - u) / np.linalg.norm(u)
            for x, u in zip(served, (fem(p) for p in corners))]
     assert len(rel) == 32 and max(rel) < 1e-6
+
+
+def _plain_on_card(spaces, modes, n_modes, samples, cuda, out_dtype=None, factors=False):
+    """The plain version on the card, on the same inputs as the kernel."""
+    sweep = fs.make_fused_sweep(spaces, [None] + modes[1:] if factors else modes, n_modes,
+                                out_dtype=out_dtype, device=cuda)
+    s = torch.as_tensor(samples, device=cuda)
+    return sweep, s, fs.fused_sweep_plain(s, sweep.grid, sweep.tabs, sweep.m0, n_modes,
+                                          out_dtype)
+
+
+@pytest.mark.parametrize("deg_p,n_cells,NP,K,n_modes,B", [
+    (1, 128, 5, 640, 640, 5000),  # the d=5 widths, B past two 2048-row tiles
+    (2, 8, 3, 77, 70, 777),       # P2 dims, K not a multiple of 4, n_modes < K
+    (1, 8, 16, 130, 129, 300),    # NP = 16
+    (2, 8, 16, 33, 33, 257),      # NP = 16 with P2 dims (a narrow slice)
+    (1, 8, 2, 5, 0, 10),          # no mode at all
+])
+def test_factors_bitwise(cuda, deg_p, n_cells, NP, K, n_modes, B):
+    # every slice width the plan can take, the F store and its split,
+    # equal bit for bit to the plain version on the card
+    spaces, modes = _case(deg_p, n_cells, K, 3, NP, seed=NP * K)
+    samples = np.random.default_rng(B).uniform(0.0, 2.0, size=(B, NP)).astype(np.float32)
+    samples[0], samples[1] = 0.0, 2.0
+    sweep, s, ref = _plain_on_card(spaces, modes, n_modes, samples, cuda, factors=True)
+    NPt, ndofp, _ = sweep.tabs.shape
+    for ks in fs.SLICE_WIDTHS:
+        rows = fs.FACTOR_THREADS
+        plan = fs.FactorPlan("staged", ks, rows, fs.factor_smem(NPt, ndofp, ks, rows))
+        if plan.smem > fs.SMEM_BYTES:
+            continue
+        f = torch.full((B, K), float("nan"), device=cuda)
+        hi = torch.full((B, fs.padded_k(K)), float("nan"), device=cuda)
+        lo = torch.full_like(hi, float("nan"))
+        fs.factors_stage(s, sweep.grid, sweep.tabs, n_modes, f, plan=plan)
+        fs.factors_stage(s, sweep.grid, sweep.tabs, n_modes, hi, lo, plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(f, ref), ks
+        ph, pl = fs.split_tf32(ref)
+        assert torch.equal(hi[:, :K].view(torch.int32), ph.view(torch.int32))
+        assert torch.equal(lo[:, :K].view(torch.int32), pl.view(torch.int32))
+        assert bool((hi[:, K:] == 0).all()) and bool((lo[:, K:] == 0).all())
+
+
+def _hold_narrow(out, ref, bound, bf16):
+    if bf16:
+        big = torch.maximum(out.double().abs(), ref.double().abs())
+        ulp = torch.ldexp(torch.ones_like(big), torch.frexp(big)[1] - 8)
+        bound = 2 * bound + ulp
+    else:
+        bound = 2 * bound
+    assert bool(((out.double() - ref.double()).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("NP,K,n_modes,B,n0,ks", [
+    (5, 640, 637, 3001, 1, 16),   # the d=5 widths, ragged B
+    (5, 640, 637, 3001, 8, 16),
+    (5, 640, 637, 3001, 32, 16),
+    (16, 203, 200, 2049, 8, 8),   # NP = 16 tables take the narrow slices;
+    (16, 203, 200, 2049, 32, 4),  # K not a multiple of 4
+])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_sensor_fused(cuda, NP, K, n_modes, B, n0, ks, out_dtype):
+    # the fused narrow product at the slice width its plan takes, held
+    # within 2γ_c·|F||M0| of the plain version storing the same dtype (plus
+    # one bf16 ulp for the two bf16 roundings); F reaches no HBM buffer
+    spaces, modes = _case(1, 128, K, n0, NP, seed=NP + n0)
+    samples = np.random.default_rng(n0).uniform(0.0, 2.0, size=(B, NP)).astype(np.float32)
+    samples[0], samples[1] = 0.0, 2.0
+    sweep, s, ref = _plain_on_card(spaces, modes, n_modes, samples, cuda, out_dtype)
+    assert (sweep.plan.route, sweep.plan.ks) == ("staged", ks)
+    fs.reset_launch_counts()
+    out = sweep(s)
+    torch.cuda.synchronize()
+    assert fs.STAGE_LAUNCHES == {"factors_stage": 0, "sensor_fused": 1, "factors_global": 0,
+                                 "gemm": 0}
+    assert fs.LAUNCHES["sensors"] == 1 and out.dtype == out_dtype and out.shape == (B, n0)
+    bound = _gamma_bound(spaces, modes, n_modes, samples, K + 4 * NP)
+    _hold_narrow(out.cpu(), ref.cpu(), bound, out_dtype == torch.bfloat16)
+
+
+def test_global_route(cuda):
+    # tables too wide for two shared-memory stages at ks = 4 take the
+    # global-gather route, chosen by shape and counted under its own name,
+    # in every mode: F (bit for bit), fields through the GEMM, sensors
+    spaces, modes = _case(1, 600, 40, 8, 12, seed=21)
+    samples = np.random.default_rng(21).uniform(0.0, 2.0, size=(700, 12)).astype(np.float32)
+    sweep, s, ref = _plain_on_card(spaces, modes, 37, samples, cuda, factors=True)
+    assert sweep.plan.route == "global"
+    fs.reset_launch_counts()
+    f = sweep(s)
+    torch.cuda.synchronize()
+    assert fs.STAGE_LAUNCHES["factors_global"] == 1 and torch.equal(f, ref)
+    for n0 in (8, 300):
+        spaces_n, modes_n = _case(1, 600, 40, n0, 12, seed=21)
+        fs.reset_launch_counts()
+        out, _ = _run(cuda, spaces_n, modes_n, 37, samples)
+        assert fs.STAGE_LAUNCHES["factors_global"] == 1
+        assert fs.STAGE_LAUNCHES["gemm"] == (0 if n0 <= fs.SENSORS_MAX else 1)
+        assert fs.STAGE_LAUNCHES["factors_stage"] == fs.STAGE_LAUNCHES["sensor_fused"] == 0
+        _, _, ref_n = _plain_on_card(spaces_n, modes_n, 37, samples, cuda)
+        bound = _gamma_bound(spaces_n, modes_n, 37, samples, 40 + 48)
+        _hold_narrow(out, ref_n.cpu(), bound, False)
+
+
+def test_smem_formula(cuda):
+    # the plan's shared-memory count is the kernel's own
+    lib = fs._library()
+    for NP, ndofp, ks, rows, n0, staged in [(5, 129, 32, 2048, 0, 1), (5, 129, 16, 1536, 8, 1),
+                                            (16, 2049, 32, 512, 32, 0), (3, 9, 4, 1024, 1, 1)]:
+        assert lib.pgd_factor_smem(NP, ndofp, ks, rows, n0, staged) == fs.factor_smem(
+            NP, ndofp, ks, rows, n0, bool(staged))

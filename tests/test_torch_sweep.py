@@ -351,3 +351,119 @@ def test_large_k_accepted():
     bound = c * u / (1 - c * u) * (fabs @ sweep.m0.double().abs())
     assert out.shape == ref.shape == (5, 21)
     assert bool(((out - torch.as_tensor(ref)).abs() <= 2 * bound).all())
+
+
+# the committed states' parameter widths: (NP, ndofp, K) of frontier_d5,
+# frontier_anova_d5/d7/d10, frontier_d7 and frontier_d10 (5 P1 dims of 129
+# dofs each; rank 189 to 2717), the dual states (6 dims), and the edges
+_STATE_SHAPES = [(5, 129, 640), (5, 129, 189), (5, 129, 669), (5, 129, 2717),
+                 (5, 129, 2304), (5, 129, 2688), (6, 129, 384)]
+
+
+@pytest.mark.parametrize("NP,ndofp,K", _STATE_SHAPES)
+@pytest.mark.parametrize("n0", [0, 1, 8, 32])
+def test_factor_plan_state_shapes(NP, ndofp, K, n0):
+    plan = fs.factor_plan(NP, ndofp, n0)
+    threads = fs.NARROW_THREADS if n0 else fs.FACTOR_THREADS
+    assert plan.route == "staged"
+    assert plan.smem == fs.factor_smem(NP, ndofp, plan.ks, plan.rows, n0) <= fs.SMEM_BYTES
+    assert plan.rows % threads == 0 and threads <= plan.rows <= fs.TILE_ROWS_MAX
+    # the widest slice that fits a tile; the tallest tile at that slice
+    wider = [ks for ks in fs.SLICE_WIDTHS if ks > plan.ks]
+    assert all(fs.factor_smem(NP, ndofp, ks, threads, n0) > fs.SMEM_BYTES for ks in wider)
+    assert (plan.rows == fs.TILE_ROWS_MAX
+            or fs.factor_smem(NP, ndofp, plan.ks, plan.rows + threads, n0) > fs.SMEM_BYTES)
+    # the sliced tables cover K, and a launch covers every sample row
+    assert -(-K // plan.ks) * plan.ks >= K
+
+
+def test_factor_plan_d5():
+    # the d=5 state's plans, in full: F and its split at ks = 32 with two
+    # table stages of 5·129·32·4 bytes and 2048 rows of samples; the fused
+    # 8-point sensor product at ks = 16, 1536 rows
+    assert fs.factor_plan(5, 129) == fs.FactorPlan("staged", 32, 2048,
+                                                   2 * 5 * 129 * 32 * 4 + 2048 * 5 * 4)
+    acc = 12  # 8 outputs rounded to an odd number of float4s
+    smem = 2 * (5 * 129 * 16 + 16 * 8) * 4 + 1536 * 5 * 4 + (512 * 20 + 1536 * acc) * 4
+    assert fs.factor_plan(5, 129, 8) == fs.FactorPlan("staged", 16, 1536, smem)
+
+
+@pytest.mark.parametrize("NP,ndofp,n0,route,ks", [
+    (1, 2, 0, "staged", 32),         # the smallest tables
+    (16, 129, 0, "staged", 8),       # NP = 16
+    (16, 129, 32, "staged", 4),      # NP = 16, the widest narrow output
+    (16, 320, 0, "staged", 4),       # 5120 table rows: two ks = 4 stages still fit
+    (16, 330, 0, "global", 32),      # 5280 rows: too wide for two stages
+    (12, 601, 8, "global", 32),      # the GPU test's global-route shape
+    (16, 5000, 32, "global", 32),
+])
+def test_factor_plan_edges(NP, ndofp, n0, route, ks):
+    plan = fs.factor_plan(NP, ndofp, n0)
+    assert (plan.route, plan.ks) == (route, ks)
+    assert plan.smem == fs.factor_smem(NP, ndofp, ks, plan.rows, n0, route == "staged")
+    assert plan.smem <= fs.SMEM_BYTES
+
+
+def test_slice_layouts():
+    rng = np.random.default_rng(3)
+    NP, ndofp, K, ks = 3, 7, 37, 8
+    tabs = torch.as_tensor(rng.normal(size=(NP, ndofp, K)).astype(np.float32))
+    sl = fs.slice_tables(tabs, ks)
+    assert sl.shape == (5, NP * ndofp, ks) and sl.is_contiguous()
+    for q in range(5):
+        for e in range(ks):
+            k = q * ks + e
+            col = sl[q, :, e].reshape(NP, ndofp)
+            assert torch.equal(col, tabs[:, :, k] if k < K else torch.zeros(NP, ndofp))
+    m0 = rng.normal(size=(K, 5)).astype(np.float32)
+    m0[30:] = np.nan  # rows past n_modes never reach the product
+    ms = fs.slice_m0(torch.as_tensor(m0), 30, ks)
+    assert ms.shape == (5, ks, 8) and ms.is_contiguous()
+    flat = ms.reshape(40, 8)
+    assert torch.equal(flat[:30, :5], torch.as_tensor(m0[:30]))
+    assert bool((flat[30:] == 0).all()) and bool((flat[:, 5:] == 0).all())
+
+
+def _emulate_narrow(fac, m0, n_modes, ks):
+    """The fused narrow product's summation order: per k-slice a partial
+    sum, k ascending, of single-rounded FMAs (emulated in f64: the product
+    of two f32 numbers is exact there), added to an f32 accumulator."""
+    m = fs.slice_m0(m0, n_modes, ks).double()
+    B, K = fac.shape
+    acc = torch.zeros((B, m.shape[2]), dtype=torch.float32)
+    for q in range(-(-n_modes // ks)):
+        part = torch.zeros_like(acc)
+        for e in range(ks):
+            k = q * ks + e
+            if k < K:
+                part = (fac[:, k : k + 1].double() * m[q, e] + part.double()).float()
+        acc = acc + part
+    return acc[:, : m0.shape[1]]
+
+
+def test_narrow_emulation_d5_widths():
+    # the d=5 state's widths (K = 640, 5 P1 dims of 129 dofs, 8 sensor
+    # points), held within γ_c·|F||M0|, c = K + 4·NP, of the JAX package's
+    # f64 sensor sweep on the same modes
+    jV = [JSpace(JMesh(2048, 0.0, 1.0), "P", 1)] + [JSpace(JMesh(128, 0.0, 1.0), "P", 1)] * 5
+    tV = [TSpace(TMesh(2048, 0.0, 1.0), "P", 1)] + [TSpace(TMesh(128, 0.0, 1.0), "P", 1)] * 5
+    rng = np.random.default_rng(640)
+    modes = [rng.normal(size=(640, V.ndofs)).astype(np.float32) for V in tV]
+    pts = np.array([0.05 + 0.9 * i / 7 for i in range(8)])
+    n_modes = 637
+    table = tv.sensor_table(tV[0], torch.as_tensor(modes[0]), pts)
+    sweep = _port(tV, [table] + modes[1:], n_modes)
+    s = torch.as_tensor(_samples(24, 5, seed=5))
+    fac = fs.fused_sweep_plain(s, sweep.grid, sweep.tabs, None, n_modes)
+    ks = fs.factor_plan(5, 129, 8).ks
+    out = _emulate_narrow(fac, sweep.m0, n_modes, ks).double()
+    jm = [jnp.asarray(m.astype(np.float64)) for m in modes]
+    ref = torch.as_tensor(np.array(
+        jv.make_sensor_sweep_fn(jV, jm, n_modes, pts, method="xla")(jnp.asarray(s.double()))))
+    fabs = fs.fused_sweep_plain(s, sweep.grid, sweep.tabs.abs().double(), None, n_modes)
+    c = 640 + 4 * 5
+    u = 2.0 ** -24
+    bound = c * u / (1 - c * u) * (fabs @ torch.as_tensor(table).double().abs())
+    ratio = float(((out - ref).abs() / bound).max())
+    print(f"fused narrow emulation, ks {ks}: max |err| / gamma_c bound = {ratio:.4f}")
+    assert ratio <= 1.0
