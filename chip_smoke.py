@@ -12,9 +12,14 @@ fields (f32, streamed, bf16 store), sensors and Monte-Carlo moments, and
 takes one moment call apart on the device and host clocks.  It then holds
 every kernel wiring against the plain PyTorch version on the same inputs
 (the factors bit for bit), the served fields against per-sample FEM at
-the 32 inset parameter-box corners, and prints the measurements: one line
-per phase, a ``{"kernels": [...]}`` line and, last,
-``{"ok": true, "device": {...}}``.
+the 32 inset parameter-box corners.  Last, phase ``train`` trains the bench
+vademecum with the port alone (``bench.py:806-881`` at its own widths: a
+64-mode f32 greedy stage on the card, two f64 residual restarts of 48
+modes, compression to rank 50 and a Galerkin update on the host), holds
+it under 1e-6 against per-sample FEM over 8 corners + 3 × (64 random +
+16 edge) samples, and serves those samples through the field kernels.  It
+prints the measurements: one line per phase, a ``{"kernels": [...]}`` line
+and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises (non-zero exit, no result line); a watchdog turns a
 hang into a traceback and a non-zero exit.  Without a CUDA device, or run
@@ -54,6 +59,13 @@ BF16_REL = 1.6e-2            # bf16 store vs f32, relative to max |f32|
 MEAN_REL = 1e-6              # |Δmean| ≤ MEAN_REL · max|mean|
 VAR_REL = 1e-5               # |Δvar| ≤ VAR_REL · max(var + mean²)
 MOMENT_REPS = 5              # timed passes of the moment split
+# the train phase: the bench vademecum of bench.py:806-881 at its own widths
+TRAIN_BUILD = dict(n_x=1024, n_p=128, num_params=3, degree_x=2, boundary_boost=(16.0, 6))
+TRAIN_BUDGETS = (64, 48, 48)  # stage 1, then two f64 residual restarts
+TRAIN_DEPLOY = 50            # compressed rank
+RHS_BUCKET = 512             # the restarts' rhs stacks, padded as bench.py pads them
+VERIFY = dict(n_random=64, seeds=(7, 101, 1234), n_edge=16)  # bench.py:215-272's set
+REF_FEM = 7.882e-7           # the JAX reference's max on that set (BENCH_r05.json, a TPU run)
 
 # published dense peaks (NVIDIA data sheets, without sparsity):
 # (f32 CUDA-core FLOP/s, TF32 tensor-core FLOP/s, HBM B/s)
@@ -385,8 +397,6 @@ def main() -> int:
     c_fields = K + 4 * NP
     c_factors = 4 * NP
     gamma = lambda c: c * U32 / (1 - c * U32)  # noqa: E731
-    tabs_abs64 = tabs.abs().double()
-    m0_64 = m0.double()
     kernels = []
 
     def bf16_ulp(x):
@@ -396,21 +406,25 @@ def main() -> int:
         return torch.where(x == 0, torch.full_like(x, 2.0 ** -133),
                            torch.ldexp(torch.ones_like(x), e - 8))
 
-    def hold(kernel_out, samples, table, c, rows=65_536, out_dtype=None):
+    def hold(kernel_out, samples, table, c, rows=65_536, out_dtype=None, sw=None):
         """Max |kernel − plain| (the plain version storing ``out_dtype``) and
         |kernel − plain f64| against the γ_c bound on |F|·|table| (with
-        φ ≥ 0 for P1, |F| is the plain factor of |T|).  A bf16 store adds
+        φ ≥ 0 for P1, |F| is the plain factor of |T|), on the tables of the
+        sweep ``sw`` (default: the d=5 field sweep).  A bf16 store adds
         half a bf16 ulp per rounded value.  Chunked over rows to bound
         memory."""
+        sw = sw or fused
+        grid, tabs, n_modes = sw.grid, sw.tabs, sw.n_modes
+        tabs_abs64 = tabs.abs().double()
         worst = {"vs_plain": 0.0, "vs_f64": 0.0, "ratio": 0.0}
         t64 = None if table is None else table.double()
         for r0 in range(0, samples.shape[0], rows):
             s = samples[r0 : r0 + rows]
             k_out = kernel_out[r0 : r0 + rows].double()
-            fabs = fs.fused_sweep_plain(s, grid, tabs_abs64, None, vd.n_modes)
+            fabs = fs.fused_sweep_plain(s, grid, tabs_abs64, None, n_modes)
             if t64 is None:
-                ref64 = fs.fused_sweep_plain(s, grid, tabs.double(), None, vd.n_modes)
-                plain32 = fs.fused_sweep_plain(s, grid, tabs, None, vd.n_modes)
+                ref64 = fs.fused_sweep_plain(s, grid, tabs.double(), None, n_modes)
+                plain32 = fs.fused_sweep_plain(s, grid, tabs, None, n_modes)
                 # the factor kernel rounds every operation as the plain
                 # version does
                 check(torch.equal(kernel_out[r0 : r0 + rows], plain32),
@@ -419,8 +433,8 @@ def main() -> int:
                 del plain32
                 bound = gamma(c) * fabs
             else:
-                ref64 = fs.fused_sweep_plain(s, grid, tabs.double(), t64, vd.n_modes)
-                plain = fs.fused_sweep_plain(s, grid, tabs, table, vd.n_modes,
+                ref64 = fs.fused_sweep_plain(s, grid, tabs.double(), t64, n_modes)
+                plain = fs.fused_sweep_plain(s, grid, tabs, table, n_modes,
                                              out_dtype).double()
                 bound = gamma(c) * (fabs @ t64.abs())
             # plain f32 is within the same γ-bound of the exact value, so the
@@ -439,14 +453,16 @@ def main() -> int:
             worst["ratio"] = max(worst["ratio"], float((e64 / bound64.clamp_min(1e-300)).max()))
         return worst
 
-    def roofline(B, n_out, out_bytes, product):
+    def roofline(B, n_out, out_bytes, product, sw=None):
         """Least time for a wiring: each input read once, each output written
         once, over HBM's rate; against the factor FLOPs over the f32 peak
         plus the product's over the TF32 tensor peak (each FLOP counted
         once, not per tf32 pass), whatever unit a kernel runs the product
         on.  ``bound_fp32_ms`` prices every FLOP at the f32 CUDA-core peak
         (the bound of the earlier FP32-pipe kernel, and the price of the
-        fused sensor product on the CUDA cores), kept beside it."""
+        fused sensor product on the CUDA cores), kept beside it.  Shapes
+        from the sweep ``sw`` (default: the d=5 field sweep)."""
+        NP, ndofp, K = (sw or fused).tabs.shape
         fac_flops = B * K * 2 * 2 * NP  # P1: 2 mul + 1 add + 1 product mul per dim
         mm_flops = 2 * B * K * n_out if product else 0
         nbytes = (B * NP * 4 + NP * ndofp * K * 4 + 4 * 4 * NP
@@ -614,6 +630,131 @@ def main() -> int:
         check(bool(torch.isfinite(mean).all() and torch.isfinite(var).all()), "finite moments")
         check(d_mean <= MEAN_REL * m_max, "kernel-path mean vs plain-path mean")
         check(d_var <= VAR_REL * m2_max, "kernel-path variance vs plain-path variance")
+
+    # -------------------------------------------------------------- train
+    # the training half of the main path: the port alone trains the bench
+    # vademecum (host f64 build, f32 enrichment on the card, two f64
+    # residual restarts, host compression and Galerkin update), verifies it
+    # densely against per-sample FEM, then serves it through the kernel
+    with Phase("train"):
+        import numpy as np
+
+        from pgdrome_tpu_torch.models.problems import (elliptic_dense_verifier,
+                                                       parametric_elliptic)
+        from pgdrome_tpu_torch.separated import (SeparatedPGD, combine_results,
+                                                 compress_modes, galerkin_update,
+                                                 pad_rhs_bucket, precondition_dim0,
+                                                 residual_problem)
+
+        torch.cuda.synchronize()
+        fs.reset_launch_counts()
+        t0 = time.perf_counter()
+        sep64, Vs = parametric_elliptic(**TRAIN_BUILD)
+        sep_pc, tf = precondition_dim0(sep64, np.float64)
+        del sep64
+        say(f"train build: {time.perf_counter() - t0:.3f} s (host f64), sizes "
+            f"{list(sep_pc.sizes)}, T={sep_pc.num_terms}")
+        check(tuple(sep_pc.sizes) == (2047, 129, 129, 129) and sep_pc.num_terms == 4,
+              "bench widths")
+        res = None
+        for si, budget in enumerate(TRAIN_BUDGETS, start=1):
+            t0 = time.perf_counter()
+            if res is None:
+                prob, s_res, fp_kw = sep_pc, None, dict(tol_fp=1e-7, max_fp_it=40)
+            else:
+                prob, s_res = residual_problem(sep_pc, res)
+                prob = pad_rhs_bucket(prob, RHS_BUCKET)
+                fp_kw = dict(tol_fp=1e-5, max_fp_it=8)
+            t_resid = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            solver = SeparatedPGD(prob, n_max=budget, tol=0.0, solver="cg", cg_iters=25,
+                                  residual_check=False, dtype=np.float32, device=dev, **fp_kw)
+            torch.cuda.synchronize()
+            t_upload = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            delta = solver.solve_fused()
+            torch.cuda.synchronize()
+            t_solve = time.perf_counter() - t0
+            del solver
+            fp = np.asarray(delta.fp_its)
+            say(f"train stage {si}: {t_solve:.3f} s solve ({t_upload:.3f} s upload, "
+                f"{t_resid:.3f} s residual build), {delta.n_modes} modes, rhs rows "
+                f"{prob.num_rhs}, fp sweeps mean {fp.mean():.2f} max {fp.max()} total "
+                f"{fp.sum()}, {fp.sum() / t_solve:.1f} fp sweeps/s, "
+                f"{t_solve / fp.sum() * 1e3:.2f} ms/sweep, final rel amplitude "
+                f"{delta.amplitudes[-1]:.3e}" + ("" if s_res is None else f", s_res {s_res:.6e}"))
+            check(delta.n_modes == budget and np.isfinite(delta.amplitudes).all(),
+                  f"stage {si} kept its {budget} modes")
+            check(delta.modes[0].is_cuda and delta.modes[0].dtype == torch.float32,
+                  "the enrichment ran in f32 on the card")
+            res = delta if res is None else combine_results(res, delta, s_res)
+        t0 = time.perf_counter()
+        n_solved = res.n_modes
+        mass_c = [sep_pc.mass[0]] + [sep_pc.ops[j][0] for j in range(1, sep_pc.num_dims)]
+        res = compress_modes(res, mass_c, TRAIN_DEPLOY, n_iters=20)
+        res = galerkin_update(sep_pc, res)
+        say(f"train post-process (compress {n_solved} -> {res.n_modes}, Galerkin): "
+            f"{time.perf_counter() - t0:.3f} s")
+        check(n_solved == sum(TRAIN_BUDGETS) and res.n_modes == TRAIN_DEPLOY, "trained ranks")
+
+        t0 = time.perf_counter()
+        verify = elliptic_dense_verifier(Vs, tf, **VERIFY)
+        v = verify(res)
+        t_verify = time.perf_counter() - t0
+        per = {str(k): float(verify.sample_errors(res, p).max())
+               for k, p in verify.samples.items()}
+        pts_t = np.concatenate(list(verify.samples.values()))
+        say(f"train verify: {t_verify:.3f} s, f64 reconstruction max rel-L2 vs FEM "
+            f"{v['max']:.6e} (corners+edges {v['corners']:.6e}, interior "
+            f"{v['interior']:.6e}; bound {FEM_BOUND:g}) over {len(pts_t)} samples; "
+            f"per group {json.dumps(per)}; the JAX reference {REF_FEM:g} (TPU)")
+        check(len(pts_t) == 8 + 3 * 80, "the verification set")
+        check(abs(max(per.values()) - v["max"]) <= 1e-12 * v["max"], "per-group maxima")
+        check(v["max"] < FEM_BOUND, "trained f64 reconstruction vs FEM")
+
+        vd_t = Vademecum(Vs, res, dim0_transform=tf, method="fused", device=dev)
+        fused_t = vd_t._sweep()
+        check(isinstance(fused_t, fs.FusedSweep), "the trained vademecum took the kernel")
+        s_train = torch.as_tensor(pts_t, dtype=torch.float32, device=dev)
+        served_t = vd_t.fields(s_train)
+        torch.cuda.synchronize()
+        launches_t = dict(fs.LAUNCHES)
+        stage_launches_t = dict(fs.STAGE_LAUNCHES)
+        say(f"launches on the train path: {json.dumps(launches_t)}; kernels "
+            f"{json.dumps(stage_launches_t)}")
+        check(launches_t["fields_f32"] == 1 and stage_launches_t["gemm"] >= 1
+              and stage_launches_t["factors_stage"] == stage_launches_t["gemm"],
+              "the trained vademecum's fields ran the field wiring's kernels")
+        fem_t = elliptic_fem_solver(Vs[0], TRAIN_BUILD["num_params"])
+        u_t = np.stack([fem_t(p) for p in pts_t])
+
+        def rel_rows(fields, u):
+            """Max relative L2 error of (B, n0) fields against FEM rows."""
+            f = fields.double().cpu().numpy()
+            return float((np.linalg.norm(f - u, axis=1) / np.linalg.norm(u, axis=1)).max())
+
+        e_served = rel_rows(served_t, u_t)
+        g, tb, m0_t, n_t = fused_t.grid, fused_t.tabs, fused_t.m0, fused_t.n_modes
+        c_t = int(tb.shape[2]) + 4 * int(tb.shape[0])
+        w_t = hold(served_t, s_train, m0_t, c_t, sw=fused_t)
+        # where the served fields' gap to the f64 reconstruction comes from:
+        # the f32 tables alone (their exact product) and the plain f32 path
+        e_tables = rel_rows(fs.fused_sweep_plain(s_train, g, tb.double(), m0_t.double(), n_t),
+                            u_t)
+        e_plain = rel_rows(fs.fused_sweep_plain(s_train, g, tb, m0_t, n_t), u_t)
+        say(f"train served: kernel f32 fields max rel-L2 vs FEM {e_served:.6e} "
+            f"(bound {FEM_BOUND:g}); f64 product of the f32 tables {e_tables:.6e}, "
+            f"plain f32 {e_plain:.6e}, f64 reconstruction {v['max']:.6e}")
+        check(e_served < FEM_BOUND, "kernel-served trained fields vs FEM")
+        ms_t = cuda_ms(lambda: fused_t(s_train), 20)
+        plain_t = cuda_ms(lambda: fs.fused_sweep_plain(s_train, g, tb, m0_t, n_t), 20)
+        fac_t = fs.fused_sweep(s_train, g, tb, None, n_t)
+        lib_t = cuda_ms(lambda: torch.matmul(fac_t, m0_t), 20)
+        entry("fused_sweep_fields_f32_trained",
+              kernel_of(fused_t, "split") + " + sweep_gemm_kernel<f32>",
+              "parallel/vademecum.py::make_sweep_fn (trained rank-50 bench vademecum)",
+              served_t.shape, launches_t["fields_f32"], w_t, ms_t, plain_t, lib_t,
+              roofline(len(pts_t), int(m0_t.shape[1]), 4, True, sw=fused_t), c_t)
 
     say(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     say(f"wall seconds: {time.perf_counter() - t_start:.1f}")

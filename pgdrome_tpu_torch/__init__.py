@@ -5,11 +5,15 @@ each module here has its counterpart at the same relative path there.  It
 imports ``torch``, ``numpy`` and ``scipy`` only: never ``jax``, never
 ``h5py`` and nothing of ``pgdrome_tpu``.
 
-What it covers so far is the serving side of a trained vademecum: the host
-f64 build of the parametric-elliptic family (:mod:`.fem`,
-:mod:`.models.problems`, :mod:`.separated`), the weights brought across
-from the JAX package's saved states (:mod:`.convert`), and the batched
-field / sensor / moment sweeps (:mod:`.parallel.vademecum`,
+What it covers so far is the main path of the JAX package's bench, for
+the parametric-elliptic family: the host f64 build (:mod:`.fem`,
+:mod:`.models.problems`, :mod:`.separated`); training — the progressive
+PGD enrichment on the device (:class:`.separated.SeparatedPGD`), f64
+residual restarts, compression and the Galerkin update on the host, as
+one recipe in :mod:`.recipes`; dense verification against per-sample FEM
+(:func:`.models.problems.elliptic_dense_verifier`); the weights brought
+across from the JAX package's saved states (:mod:`.convert`); and the
+batched field / sensor / moment sweeps (:mod:`.parallel.vademecum`,
 :mod:`.serving`) whose hot loop is one hand-written CUDA kernel
 (:mod:`.ops.fused_sweep`, ``csrc/fused_sweep.cu``).
 
@@ -29,11 +33,18 @@ from pgdrome_tpu_torch.fem.assembly import (
 )
 from pgdrome_tpu_torch.separated import (
     SeparatedProblem,
+    SeparatedPGD,
     PGDResult,
     Dim0Transform,
     precondition_dim0,
     precondition_dim,
+    galerkin_update,
+    compress_modes,
+    residual_problem,
+    combine_results,
 )
+from pgdrome_tpu_torch.models.problems import elliptic_dense_verifier
+from pgdrome_tpu_torch.recipes import residual_cascade, two_stage_elliptic
 from pgdrome_tpu_torch.serving import Vademecum
 from pgdrome_tpu_torch.convert import (
     result_from_numpy,
@@ -53,10 +64,18 @@ __all__ = [
     "stiffness_matrix",
     "load_vector",
     "SeparatedProblem",
+    "SeparatedPGD",
     "PGDResult",
     "Dim0Transform",
     "precondition_dim0",
     "precondition_dim",
+    "galerkin_update",
+    "compress_modes",
+    "residual_problem",
+    "combine_results",
+    "elliptic_dense_verifier",
+    "residual_cascade",
+    "two_stage_elliptic",
     "Vademecum",
     "result_from_numpy",
     "load_state_npz",

@@ -1,6 +1,7 @@
 """Predefined separated model problems — the parametric-elliptic family
 (counterpart of ``pgdrome_tpu/models/problems.py``: ``box_corners``,
-``parametric_elliptic``, ``elliptic_fem_solver``).
+``parametric_elliptic``, ``elliptic_fem_solver``,
+``elliptic_dense_verifier``).
 
 Builders return a :class:`~pgdrome_tpu_torch.separated.SeparatedProblem`
 of host arrays plus the per-dim function spaces.
@@ -11,6 +12,7 @@ from __future__ import annotations
 import warnings
 
 import numpy as np
+import torch
 
 from pgdrome_tpu_torch.fem.mesh import IntervalMesh
 from pgdrome_tpu_torch.fem.space import FunctionSpace
@@ -183,3 +185,116 @@ def elliptic_fem_solver(Vx, num_params, rhs_vec=None):
         return u
 
     return solve
+
+
+def elliptic_dense_verifier(Vs, tf=None, n_random: int = 16,
+                            seeds=(7, 101, 1234, 777),
+                            corner_cap: int | None = None,
+                            n_edge: int = 0, rhs_vec=None):
+    """Dense held-out verifier for :func:`parametric_elliptic` results:
+    returns ``verify(result) -> {"corners", "interior", "max",
+    "worst_points", "worst_errors"}`` with the max relative L2 error vs a
+    per-sample banded f64 FEM solve at the 2^d parameter-box corners (inset
+    by one grid cell) plus ``n_random`` on-grid samples per seed, and
+    ``n_edge`` edge/face samples per seed (a random 1..d−1 dims pinned at
+    the box extremes; their errors count toward "corners").  The points are
+    drawn as the JAX package draws them, in the same order.
+
+    Vs: the builder's spaces; tf: the dim-0 transform when the result's
+    space modes live in the ``precondition_dim0`` basis, else None.
+    corner_cap: a fixed-seed corner subset plus both all-lo/all-hi
+    extremes instead of all 2^d.  rhs_vec: verify against FEM solves of
+    this fixed rhs instead of the unit load (adjoint vademecums).
+
+    The result's modes may be tensors on any device or arrays; they are
+    evaluated on the host in their own dtype, the reconstruction in f64.
+    Beside the JAX package's attributes ``verify.sample_errors(result,
+    points)`` and ``verify.corners``, ``verify.samples`` holds the
+    held-out set: ``{"corners": (n_c, d)}`` and, per seed, its random and
+    edge points concatenated, in draw order."""
+    from pgdrome_tpu_torch.separated import evaluate_modes_1d, host_f64
+
+    Vx = Vs[0]
+    num_params = len(Vs) - 1
+    fem_solve = elliptic_fem_solver(Vx, num_params, rhs_vec=rhs_vec)
+    grid = Vs[1].tabulate_dof_coordinates()[:, 0]
+    lo, hi = grid[1], grid[-2]
+    n_c = 2 ** num_params
+    idx = np.arange(n_c)
+    if corner_cap and n_c > corner_cap:
+        rng_c = np.random.default_rng(0)
+        idx = np.concatenate(
+            [[0, n_c - 1],
+             rng_c.choice(n_c - 2, size=corner_cap - 2, replace=False) + 1]
+        )
+    corners = box_corners(lo, hi, num_params, idx)
+
+    draws = []  # (seed, randoms or None, edges or None)
+    for seed in seeds:
+        rng = np.random.default_rng(seed)
+        randoms = edges = None
+        if n_random:
+            randoms = grid[rng.integers(1, len(grid) - 1, size=(n_random, num_params))]
+        if n_edge:
+            edges = grid[rng.integers(1, len(grid) - 1, size=(n_edge, num_params))]
+            for r in range(n_edge):
+                k = int(rng.integers(1, num_params)) if num_params > 1 else 1
+                dims = rng.choice(num_params, size=k, replace=False)
+                edges[r, dims] = np.where(rng.integers(0, 2, size=k) == 0, lo, hi)
+        draws.append((seed, randoms, edges))
+
+    def _full0(res):
+        m0 = res.modes[0]
+        return host_f64(tf.modes_to_full(m0) if tf is not None else m0)
+
+    def _errors(res, full0, samples):
+        samples = np.asarray(samples, dtype=np.float64)
+        fac = np.ones((len(samples), res.n_modes))
+        for j in range(num_params):
+            m = torch.as_tensor(res.modes[1 + j]).detach().cpu()
+            vals = evaluate_modes_1d(Vs[1 + j], m, torch.as_tensor(samples[:, j]))
+            fac *= host_f64(vals)[:, : res.n_modes]
+        errs = []
+        for p, f in zip(samples, fac):
+            u_ref = fem_solve(p)
+            u = f @ full0[: res.n_modes]
+            errs.append(np.linalg.norm(u - u_ref) / np.linalg.norm(u_ref))
+        return np.asarray(errs)
+
+    def sample_errors(res, samples):
+        """Per-sample relative L2 errors vs f64 FEM at arbitrary parameter
+        points (the feedback channel for corner-seeded stages)."""
+        return _errors(res, _full0(res), samples)
+
+    def verify(res):
+        full0 = _full0(res)
+        b_pts = [corners]
+        b_errs = [_errors(res, full0, corners)]
+        mc = float(b_errs[0].max())
+        mi = 0.0
+        for _, randoms, edges in draws:
+            if randoms is not None:
+                mi = max(mi, float(_errors(res, full0, randoms).max()))
+            if edges is not None:
+                e = _errors(res, full0, edges)
+                b_pts.append(edges)
+                b_errs.append(e)
+                mc = max(mc, float(e.max()))
+        # worst boundary points, worst first
+        bp = np.concatenate(b_pts)
+        be = np.concatenate(b_errs)
+        order = np.argsort(be)[::-1][:128]
+        return {
+            "corners": mc, "interior": mi, "max": max(mc, mi),
+            "worst_points": bp[order], "worst_errors": be[order],
+        }
+
+    verify.sample_errors = sample_errors
+    verify.corners = corners
+    verify.samples = {"corners": corners}
+    for seed, randoms, edges in draws:
+        verify.samples[seed] = np.concatenate(
+            [a for a in (randoms, edges) if a is not None]
+            or [np.zeros((0, num_params))]
+        )
+    return verify

@@ -1,11 +1,27 @@
-"""Separated-problem containers, the dim-0 energy-basis transform and 1D
-mode evaluation — the serving part of ``pgdrome_tpu/separated.py``.
+"""Progressive PGD on a separated-term IR (counterpart of
+``pgdrome_tpu/separated.py``).
 
-* :class:`SeparatedProblem` and :class:`PGDResult` are plain containers.
+* :class:`SeparatedProblem` and :class:`PGDResult` are plain containers;
+  :meth:`SeparatedProblem.as_device` casts a host problem to tensors of
+  one dtype on one device.
 * :func:`precondition_dim` / :func:`precondition_dim0` congruence-transform
   one dimension by the banded Cholesky factor of its first operator (host
   f64, scipy), and :class:`Dim0Transform` maps modes solved in that basis
-  back to full dofs — what a trained state needs in order to be served.
+  back to full dofs.
+* :class:`SeparatedPGD` runs the enrichment on the device: the alternating
+  fixed point of :func:`make_enrich_step` (per-dim Gram contractions and a
+  linear solve: LU, fixed-iteration CG or Cholesky), the reference's
+  'norm' stop and 'stiff' normalisation, host-looped (:meth:`solve`) or
+  with a fixed budget and a device keep-mask (:meth:`solve_fused`).  Eager
+  PyTorch has no compiled program to share between problems, so the
+  problem's own tensors are the step's data (the JAX package's
+  ``_ProblemArrays`` / ``problem_data`` have no counterpart).  The fixed
+  point's stop is one host sync per sweep; nothing else in a sweep syncs.
+* The host f64 post-process: :func:`residual_problem` (the f64-exact
+  residual restart), :func:`pad_rhs_bucket`, :func:`combine_results`,
+  :func:`compress_modes` (CP-ALS) and :func:`galerkin_update`.  Each takes
+  modes as tensors (any device) or arrays and returns them in the kind
+  and dtype it was given.
 * :func:`evaluate_modes_1d` evaluates all buffered modes of a 1D space at
   a batch of points.  Only the gather form is carried over: the JAX
   package's two-hot matmul form exists to dodge slow TPU gathers
@@ -17,8 +33,38 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Sequence
 
+import math
+
 import numpy as np
 import torch
+
+from pgdrome_tpu_torch.config import get_device, use_full_f32_matmul
+
+# every einsum/matmul of the enrichment must be true f32 (TF32 would cost
+# about three digits and floor the greedy far above the 1e-6 gate)
+use_full_f32_matmul()
+
+
+def host_f64(a) -> np.ndarray:
+    """A tensor (any device) or array as a host float64 array."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().double().numpy()
+    return np.asarray(a, dtype=np.float64)
+
+
+def _like(buf: np.ndarray, ref):
+    """Host f64 ``buf`` in the kind and dtype of ``ref``: a tensor on
+    ``ref``'s device, or a host array."""
+    if isinstance(ref, torch.Tensor):
+        return torch.as_tensor(buf).to(dtype=ref.dtype).to(ref.device)
+    return buf.astype(np.asarray(ref).dtype, copy=False)
+
+
+def _torch_dtype(dtype):
+    """The torch dtype of a numpy or torch dtype (None stays None)."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.empty(0, dtype=dtype)).dtype
 
 
 @dataclass
@@ -41,13 +87,36 @@ class SeparatedProblem:
         self.num_terms = self.ops[0].shape[0]
         self.num_rhs = self.rhs[0].shape[0]
         self.sizes = tuple(o.shape[1] for o in self.ops)
-        # bc masks: 1 interior, 0 constrained
+        # bc masks: 1 interior, 0 constrained; host arrays for host
+        # problems, tensors on the ops' device for device problems
         self.bc_masks = []
         for d in range(self.num_dims):
-            m = np.ones(self.sizes[d], dtype=np.asarray(self.ops[d]).dtype)
+            o = self.ops[d]
+            if isinstance(o, torch.Tensor):
+                m = torch.ones(self.sizes[d], dtype=o.dtype, device=o.device)
+            else:
+                m = np.ones(self.sizes[d], dtype=np.asarray(o).dtype)
             if self.bc_dofs[d] is not None and len(self.bc_dofs[d]):
                 m[np.asarray(self.bc_dofs[d])] = 0.0
             self.bc_masks.append(m)
+
+    def as_device(self, dtype=None, device="cuda") -> "SeparatedProblem":
+        """Copy with every array a tensor of ``dtype`` (numpy or torch;
+        None keeps each array's own) on ``device``.  Host arrays are cast
+        on the host, then copied once: build and precondition in host f64
+        and cast here — casting the raw ill-conditioned operators to f32
+        costs cond(K)·eps, casting the preconditioned ones is benign."""
+        dev = get_device(device)
+        dt = _torch_dtype(dtype)
+
+        def put(a):
+            t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+            return t.to(dtype=dt or t.dtype).to(dev).contiguous()
+
+        return SeparatedProblem(
+            ops=[put(o) for o in self.ops], rhs=[put(r) for r in self.rhs],
+            mass=[put(m) for m in self.mass], bc_dofs=list(self.bc_dofs),
+        )
 
 
 @dataclass
@@ -96,8 +165,9 @@ class Dim0Transform:
         return solve_triangular(self.dense_L.T, B, lower=False)
 
     def modes_to_full(self, modes0):
-        """(n_max, n_int) transformed modes → (n_max, n_full) dof modes."""
-        y = np.asarray(modes0, dtype=np.float64)
+        """(n_max, n_int) transformed modes (a tensor or an array) →
+        (n_max, n_full) host f64 dof modes."""
+        y = host_f64(modes0)
         u_int = self.apply_LinvT(y.T).T  # rows: Linv.T @ y_k
         out = np.zeros((y.shape[0], self.n_full), dtype=u_int.dtype)
         out[:, self.interior] = u_int
@@ -179,6 +249,556 @@ def precondition_dim(sep: SeparatedProblem, dim: int = 0, dtype=None,
     new = SeparatedProblem(ops=new_ops, rhs=new_rhs, mass=new_mass,
                            bc_dofs=new_bc)
     return new, tf
+
+
+# --------------------------------------------------------------------- core
+
+def _term_weights(A_d, F_d):
+    """w_t = F_dᵀ O_td F_d for all terms (T,)."""
+    return torch.matmul(A_d, F_d) @ F_d
+
+
+def _rhs_weights(R_d, F_d):
+    """c_r = F_d · g_rd for all rhs terms (R,)."""
+    return R_d @ F_d
+
+
+def _contract_rhs(rhs, Fs, k, nd):
+    """Per-dim rhs assembly b_i = Σ_r (Π_{j≠k} F_j·g_rj) g_rki of the plain
+    (R, n) stacks, in the stacks' dtype."""
+    rcoef = torch.ones(rhs[0].shape[0], dtype=rhs[0].dtype, device=rhs[0].device)
+    for j in range(nd):
+        if j != k:
+            rcoef = rcoef * _rhs_weights(rhs[j], Fs[j])
+    return rcoef @ rhs[k]
+
+
+def _apply_bc_system(A, b, mask):
+    """Homogeneous Dirichlet: zero rows/cols, 1 on diag, zero rhs entries.
+    ``A`` is the caller's fresh assembly and is overwritten."""
+    A.mul_(mask[:, None]).mul_(mask[None, :])
+    A.diagonal().add_(1.0 - mask)
+    return A, b * mask
+
+
+def _cg_solve(A, b, iters):
+    """Fixed-iteration CG (SPD A), scale-normalised (Â = A/s_A,
+    b̂ = b/‖b‖) so every internal quantity is O(1): late PGD modes have
+    tiny right-hand sides whose squared norms would otherwise underflow in
+    f32.  For the energy-basis systems cond(A) = O(1), so ~20 iterations
+    reach f32 accuracy.  The guards are ``torch.where`` on 0-d tensors:
+    nothing here waits for the device."""
+    s_A = A.diagonal().abs().mean() + 1e-30
+    nb = torch.sqrt(b @ b)
+    safe_nb = torch.where(nb > 0, nb, 1.0)
+    Ah = A / s_A
+    bh = b / safe_nb
+    x = torch.zeros_like(bh)
+    r, p = bh, bh
+    rs = bh @ bh
+    for _ in range(iters):
+        Ap = Ah @ p
+        pAp = p @ Ap
+        alpha = torch.where(pAp > 0, rs / (pAp + 1e-30), 0.0)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        rs_new = r @ r
+        beta = torch.where(rs > 0, rs_new / (rs + 1e-30), 0.0)
+        p = r + beta * p
+        rs = rs_new
+    return x * (nb / s_A)
+
+
+def _chol_solve(A, b):
+    """Exact SPD solve by Cholesky and two triangular solves,
+    scale-normalised like :func:`_cg_solve`."""
+    s_A = A.diagonal().abs().mean() + 1e-30
+    nb = torch.sqrt(b @ b)
+    safe_nb = torch.where(nb > 0, nb, 1.0)
+    # no error check (it would wait for the device): a failed factorisation
+    # gives NaN, as the JAX package's does
+    L, info = torch.linalg.cholesky_ex(A / s_A)
+    L = torch.where(info == 0, L, torch.nan)
+    y = torch.linalg.solve_triangular(L, (b / safe_nb)[:, None], upper=False)
+    x = torch.linalg.solve_triangular(L.T, y, upper=True)[:, 0]
+    return x * (nb / s_A)
+
+
+def _previous_modes(problem, k, Fs, modes, mode_mask):
+    """Σ_t O_tk W_t with W = Σ_m (Π_{j≠k} F_jᵀ O_tj G_jm) G_km: the
+    previous modes' share of dim k's rhs.  F on the TEST index
+    (``F_j @ O_tj``): the trial index would transpose non-symmetric
+    operators (e.g. an upwind time stencil) and corrupt the rhs."""
+    P = mode_mask[:, None].expand(-1, problem.num_terms)
+    for j in range(problem.num_dims):
+        if j != k:
+            FAj = torch.matmul(Fs[j], problem.ops[j])  # (T, n_j)
+            P = P * (modes[j] @ FAj.T)  # (M, T)
+    W = P.T @ modes[k]  # (T, n_k)
+    return torch.bmm(problem.ops[k], W[:, :, None]).sum(0)[:, 0]
+
+
+def _solve_dim(problem, k, Fs, modes, mode_mask, solver="lu", cg_iters=30):
+    """One alternating-direction solve for dim k given the current factors
+    ``Fs`` and the padded previous-mode buffers."""
+    nd = problem.num_dims
+    coef = torch.ones(problem.num_terms, dtype=Fs[k].dtype, device=Fs[k].device)
+    for j in range(nd):
+        if j != k:
+            coef = coef * _term_weights(problem.ops[j], Fs[j])
+    A_k = torch.tensordot(coef, problem.ops[k], dims=1)  # Σ_t coef_t O_tk
+    b = _contract_rhs(problem.rhs, Fs, k, nd) - _previous_modes(problem, k, Fs, modes, mode_mask)
+    A_k, b = _apply_bc_system(A_k, b, problem.bc_masks[k])
+    if solver == "cg":
+        return _cg_solve(A_k, b, cg_iters)
+    if solver == "chol":
+        return _chol_solve(A_k, b)
+    # unchecked, as the JAX package's: a singular system gives inf/NaN (the
+    # caller's stall handling sees it), and no check waits for the device
+    return torch.linalg.solve_ex(A_k, b)[0]
+
+
+def _norm_d(problem, d, v):
+    return torch.sqrt(torch.abs(_inner_d(problem, d, v, v)))
+
+
+def _inner_d(problem, d, u, v):
+    return u @ (problem.mass[d] @ v)
+
+
+def make_enrich_step(problem: SeparatedProblem, max_fp_it=50, tol_fp=1e-5,
+                     solver="lu", cg_iters=30, residual_check=True):
+    """The enrichment step on a device problem: ``enrich(modes, n_modes,
+    init=None) → (new_modes, normU, alpha, fp_its, res)`` — the reference's
+    FP_solve with the 'norm' stop and 'stiff' normalisation
+    (solver.py:306-506).  ``new_modes`` are fresh buffers with the new mode
+    at row ``n_modes``; ``normU``, ``alpha`` and ``res`` are 0-d tensors on
+    the device, ``fp_its`` a Python int.  ``init``: optional per-dim
+    fixed-point seeds (masked and mass-normalised like the ones init)."""
+    nd = problem.num_dims
+    P = problem
+
+    def init_modes():
+        Fs = []
+        for d in range(nd):
+            f = torch.ones(P.sizes[d], dtype=P.ops[d].dtype, device=P.ops[d].device)
+            f = f * P.bc_masks[d]
+            Fs.append(f / _norm_d(P, d, f))
+        return Fs
+
+    def residual_norm(Fs, modes, mode_mask):
+        # reference residual check (solver.py:345-395): per-dim rhs with
+        # the init modes, bc entries zeroed, res = sqrt(Σ_d ||b_d||²)
+        res = 0.0
+        for d in range(nd):
+            b = _contract_rhs(P.rhs, Fs, d, nd) - _previous_modes(P, d, Fs, modes, mode_mask)
+            b = b * P.bc_masks[d]
+            res = res + b @ b
+        return torch.sqrt(res)
+
+    def fp_sweep(Fs, modes, mode_mask):
+        Fs = list(Fs)
+        for k in range(nd):
+            Fs[k] = _solve_dim(P, k, Fs, modes, mode_mask, solver=solver,
+                               cg_iters=cg_iters)
+        return Fs
+
+    def enrich(modes, n_modes, init=None):
+        dt, dev = P.ops[0].dtype, P.ops[0].device
+        mode_mask = (torch.arange(modes[0].shape[0], device=dev) < n_modes).to(dt)
+        if init is None:
+            Fs = init_modes()
+        else:
+            Fs = []
+            for d in range(nd):
+                f = torch.as_tensor(np.asarray(init[d])).to(dtype=dt).to(dev)
+                f = f * P.bc_masks[d]
+                Fs.append(f / _norm_d(P, d, f))
+        if residual_check:
+            res = residual_norm(Fs, modes, mode_mask)
+        else:
+            # skip the residual; its semantics only matter for degenerate
+            # zero-residual problems (solver.py:391-395)
+            res = torch.ones((), dtype=dt, device=dev)
+
+        err, fp_its = math.inf, 0
+        while err >= tol_fp and fp_its < max_fp_it:  # NaN stops, as in JAX
+            Fs_new = fp_sweep(Fs, modes, mode_mask)
+            # 'norm' stop (solver.py:812-871): product inner products
+            newnew = newold = oldold = 1.0
+            for d in range(nd):
+                newnew = newnew * _inner_d(P, d, Fs_new[d], Fs_new[d])
+                newold = newold * _inner_d(P, d, Fs_new[d], Fs[d])
+                oldold = oldold * _inner_d(P, d, Fs[d], Fs[d])
+            Fs = Fs_new
+            fp_its += 1
+            err = torch.sqrt(torch.abs(newnew + oldold - 2 * newold)).item()  # the sync
+
+        norm_Fs = torch.stack([_norm_d(P, d, Fs[d]) for d in range(nd)])
+        normU = torch.prod(norm_Fs)
+        # 'stiff' (solver.py:413-456): the full lhs Gram on L2-normalised
+        # factors; it redistributes scale only (Π_d F_d is invariant)
+        Fn = [Fs[d] / norm_Fs[d] for d in range(nd)]
+        wprod = torch.ones(P.num_terms, dtype=dt, device=dev)
+        for d in range(nd):
+            wprod = wprod * _term_weights(P.ops[d], Fn[d])
+        norm_fac = torch.sqrt(torch.abs(wprod.sum())) ** (1.0 / nd)
+        alpha = normU * norm_fac ** nd
+        # a vanishing mode must not poison the buffers with NaN (0/0)
+        scale = torch.where(norm_fac > 0, alpha ** (1.0 / nd) / norm_fac, 0.0)
+        row = torch.full((1,), n_modes, device=dev)  # no host copy, no sync
+        new_modes = tuple(
+            modes[d].index_copy(0, row, (Fn[d] * scale)[None]) for d in range(nd)
+        )
+        return new_modes, normU, alpha, fp_its, res
+
+    return enrich
+
+
+class SeparatedPGD:
+    """Progressive PGD driver over a :class:`SeparatedProblem`.
+
+    ``solve()`` keeps the enrichment loop on the host, matching the
+    reference's control flow: residual check → fixed point → 'stiff'
+    norming → amplitude convergence (solver.py:306-506).
+    ``solve_fused()`` runs a fixed budget of enrichments with the keep
+    decision on the device and truncates at ``tol`` on the host.
+
+    ``solver``: the per-dim linear solve — ``"lu"`` (unchecked
+    ``torch.linalg.solve_ex``), ``"cg"`` (fixed-iteration scale-normalised
+    CG, for energy-preconditioned systems) or ``"chol"`` (exact SPD
+    Cholesky).  ``dtype``: the device dtype (numpy or torch; None keeps the
+    problem's).  ``fp_init``: ``"ones"``, ``"randomized"`` (the reference's
+    get_Fsinit, seeded per mode) or ``fn(mode, sizes) → per-dim vectors``.
+    A mode whose fixed point collapses (normU → 0/NaN) is retried
+    ``stall_retries`` times from a randomized init.  ``device``: CUDA by
+    default; without it this raises unless ``device="cpu"`` is asked for."""
+
+    def __init__(self, problem: SeparatedProblem, n_max: int = 20,
+                 tol: float = 1e-10, tol_fp: float = 1e-5, max_fp_it: int = 50,
+                 dtype=None, solver: str = "lu", cg_iters: int = 30,
+                 residual_check: bool = True, fp_init="ones",
+                 stall_retries: int = 1, device="cuda"):
+        if solver not in ("lu", "cg", "chol"):
+            raise ValueError(
+                f"unknown solver {solver!r}: expected 'lu', 'cg' or 'chol'"
+            )
+        if not callable(fp_init) and fp_init not in ("ones", "randomized"):
+            raise ValueError(
+                f"unknown fp_init {fp_init!r}: expected 'ones', 'randomized' "
+                "or a callable"
+            )
+        self.device = get_device(device)
+        self.problem = problem.as_device(dtype, self.device)
+        self.dtype = self.problem.ops[0].dtype
+        self.n_max = n_max
+        self.tol = tol
+        self._fp_init = fp_init
+        self._stall_retries = stall_retries
+        self._enrich = make_enrich_step(
+            self.problem, max_fp_it=max_fp_it, tol_fp=tol_fp, solver=solver,
+            cg_iters=cg_iters, residual_check=residual_check,
+        )
+
+    def _random_init(self, n, attempt):
+        rng = np.random.default_rng(3452 + 7919 * n + attempt)
+        np_dt = torch.empty(0, dtype=self.dtype).numpy().dtype
+        return tuple(
+            rng.uniform(-1.0, 1.0, size=s).astype(np_dt) for s in self.problem.sizes
+        )
+
+    def init_buffers(self):
+        return tuple(
+            torch.zeros((self.n_max, n), dtype=self.dtype, device=self.device)
+            for n in self.problem.sizes
+        )
+
+    def solve(self, verbose: bool = False) -> PGDResult:
+        """Progressive enrichment, one mode per host iteration; stops at
+        ``n_max`` modes, a residual under 1e-10, a mode that stays stalled
+        after its retries, or a relative amplitude under ``tol``.  Per-mode
+        wall times land in ``self.metrics``."""
+        from pgdrome_tpu_torch.utils.profiling import EnrichmentMetrics
+
+        modes = self.init_buffers()
+        normConv, alphas, fps = [], [], []
+        n = 0
+        self.metrics = EnrichmentMetrics(self.device)
+        while n < self.n_max:
+            attempt = 0
+            while True:
+                if callable(self._fp_init) and attempt == 0:
+                    init = self._fp_init(n, self.problem.sizes)
+                elif self._fp_init == "randomized" or attempt > 0:
+                    init = self._random_init(n, attempt)
+                else:
+                    init = None
+                with self.metrics.step():
+                    modes_new, normU, alpha, fp_its, res = self._enrich(modes, n, init=init)
+                res, normU = float(res), float(normU)
+                stalled = not np.isfinite(normU) or normU <= 0
+                if not stalled or attempt >= self._stall_retries:
+                    break
+                attempt += 1
+                if verbose:
+                    print(f"mode {n} stalled: randomized retry {attempt}")
+            if res < 1e-10:
+                if verbose:
+                    print(f"residual {res:.3e} < 1e-10 at mode {n}: stop")
+                break
+            if stalled:
+                if verbose:
+                    print(f"mode {n} hit the fp noise floor: stop")
+                break
+            modes = modes_new
+            normConv.append(normU)
+            alphas.append(float(alpha))
+            fps.append(fp_its)
+            n += 1
+            rel = normConv[-1] / normConv[0]
+            self.metrics.record(mode=n - 1, amplitude=rel, fp_its=fp_its)
+            if verbose:
+                print(f"mode {n}: relConv={rel:.3e} fp_its={fp_its}")
+            if rel < self.tol:
+                break
+        rel = np.asarray(normConv) / (normConv[0] if normConv else 1.0)
+        return PGDResult(
+            modes=list(modes), n_modes=n, amplitudes=rel,
+            alpha=np.asarray(alphas), fp_its=np.asarray(fps),
+            normU0=float(normConv[0]) if normConv else 1.0,
+        )
+
+    def solve_fused(self, n_enrich: int | None = None) -> PGDResult:
+        """A fixed budget of ``n_enrich`` (default ``n_max``) enrichments,
+        the JAX package's one-program loop as a Python loop over modes.  A
+        mode is kept on the device — no host round trip — when its residual
+        is ≥ 1e-10 and its normU finite and positive; a dropped mode leaves
+        its buffers and a zero normU.  Amplitude convergence is evaluated on
+        the host afterwards: trailing modes past ``tol`` are truncated."""
+        n_enrich = n_enrich or self.n_max
+        if n_enrich > self.n_max:
+            raise ValueError(f"n_enrich={n_enrich} exceeds the buffers' n_max={self.n_max}")
+        modes = self.init_buffers()
+        normUs = torch.zeros(n_enrich, dtype=self.dtype, device=self.device)
+        alphas = torch.zeros_like(normUs)
+        fps = np.zeros(n_enrich, dtype=np.int32)
+        for i in range(n_enrich):
+            modes_new, normU, alpha, fps[i], res = self._enrich(modes, i)
+            keep = (res >= 1e-10) & torch.isfinite(normU) & (normU > 0)
+            modes = tuple(torch.where(keep, mn, mo) for mn, mo in zip(modes_new, modes))
+            normUs[i] = torch.where(keep, normU, 0.0)
+            alphas[i] = torch.where(keep, alpha, 0.0)
+        normUs = normUs.cpu().numpy()
+        nrun = int((normUs > 0).sum())
+        rel = normUs[:nrun] / (normUs[0] if nrun else 1.0)
+        below = np.where(rel < self.tol)[0]
+        n = int(below[0]) + 1 if len(below) else nrun
+        return PGDResult(
+            modes=list(modes), n_modes=n, amplitudes=rel[:n],
+            alpha=alphas.cpu().numpy()[:n], fp_its=fps[:n],
+            normU0=float(normUs[0]) if nrun else 1.0,
+        )
+
+
+# ------------------------------------------------- host f64 post-process
+
+def galerkin_update(problem: SeparatedProblem, result: PGDResult,
+                    rcond: float | None = None) -> PGDResult:
+    """Galerkin update ("PGD with update"): re-solve the coefficients of the
+    computed rank-1 terms by projecting the full problem onto their span,
+
+        Σ_j ⟨⊗F^i, A ⊗F^j⟩ α_j = ⟨⊗F^i, f⟩,
+
+    with separated contractions in host f64, and fold α into the dim-0
+    modes.  ``rcond``: solve the K×K system by SVD-truncated least squares
+    instead (a safety valve for singular Grams; measured worse on the
+    5-parameter cascade, see the JAX package)."""
+    K = result.n_modes
+    nd = problem.num_dims
+    ops = [host_f64(o) for o in problem.ops]
+    rhs = [host_f64(r) for r in problem.rhs]
+    modes = [host_f64(m)[:K] for m in result.modes]
+
+    # G[i,j] = Σ_t Π_d (F_d^i · O_td · F_d^j), as batched matmuls
+    G = np.ones((ops[0].shape[0], K, K))
+    for d in range(nd):
+        tmp = np.matmul(modes[d][None, :, :], ops[d])  # (T, K, n_d)
+        G = G * np.matmul(tmp, modes[d].T[None, :, :])  # (T, K, K)
+    Gmat = G.sum(axis=0)
+
+    # b[i] = Σ_r Π_d (F_d^i · g_rd)
+    B = np.ones((rhs[0].shape[0], K))
+    for d in range(nd):
+        B = B * (rhs[d] @ modes[d].T)
+    bvec = B.sum(axis=0)
+
+    if rcond is None:
+        alpha = np.linalg.solve(Gmat, bvec)
+    else:
+        alpha = np.linalg.lstsq(Gmat, bvec, rcond=rcond)[0]
+    new_modes0 = host_f64(result.modes[0]).copy()
+    new_modes0[:K] = alpha[:, None] * modes[0]
+    return PGDResult(
+        modes=[_like(new_modes0, result.modes[0])] + list(result.modes[1:]),
+        n_modes=K, amplitudes=result.amplitudes, alpha=result.alpha,
+        fp_its=result.fp_its, normU0=result.normU0,
+    )
+
+
+def compress_modes(result: PGDResult, mass, n_to: int, n_iters: int = 40,
+                   tol: float = 1e-12) -> PGDResult:
+    """PGD compression: replace the rank-K greedy separated solution by the
+    optimal rank-R (R < K) one, by CP-ALS in the mass-weighted inner
+    product (host f64).  Greedy enrichment is not rank-optimal, so a few
+    extra greedy modes compressed back beat the greedy rank-R solve.
+    ``mass``: per-dim mass matrices of the inner product.  Each ALS
+    half-step solves (⊙_{d≠j} B_d M_d B_dᵀ) B_j = (⊙_{d≠j} B_d M_d A_dᵀ) A_j."""
+    K = result.n_modes
+    if not (0 < n_to < K):
+        raise ValueError(f"n_to must be in (0, {K}); got {n_to}")
+    nd = len(result.modes)
+    A = [host_f64(m)[:K] for m in result.modes]
+    M = [host_f64(m) for m in mass]
+    MA = [M[d] @ A[d].T for d in range(nd)]  # (n_d, K)
+
+    # init with the first n_to greedy modes (they are roughly ordered)
+    B = [A[d][:n_to].copy() for d in range(nd)]
+    MB = [M[d] @ B[d].T for d in range(nd)]  # (n_d, R)
+
+    # ||T||^2 is constant: Hadamard product of per-dim A-Grams
+    GA = np.ones((K, K))
+    for d in range(nd):
+        GA = GA * (A[d] @ MA[d])
+    normT2 = GA.sum()
+
+    prev_err2 = np.inf
+    for _ in range(n_iters):
+        for j in range(nd):
+            G = np.ones((n_to, n_to))
+            H = np.ones((n_to, K))
+            for d in range(nd):
+                if d != j:
+                    G = G * (B[d] @ MB[d])
+                    H = H * (B[d] @ MA[d])
+            # regularise: ALS factors can become collinear mid-iteration
+            G = G + 1e-14 * np.trace(G) / n_to * np.eye(n_to)
+            B[j] = np.linalg.solve(G, H @ A[j])
+            MB[j] = M[j] @ B[j].T
+        GS = np.ones((n_to, n_to))
+        TS = np.ones((n_to, K))
+        for d in range(nd):
+            GS = GS * (B[d] @ MB[d])
+            TS = TS * (B[d] @ MA[d])
+        err2 = normT2 - 2.0 * TS.sum() + GS.sum()
+        if abs(prev_err2 - err2) <= tol * abs(normT2):
+            break
+        prev_err2 = err2
+
+    buf_n = result.modes[0].shape[0]
+    new_modes = []
+    for d in range(nd):
+        buf = np.zeros((buf_n, B[d].shape[1]), dtype=np.float64)
+        buf[:n_to] = B[d]
+        new_modes.append(_like(buf, result.modes[0]))
+    return PGDResult(
+        modes=new_modes, n_modes=n_to,
+        amplitudes=np.asarray(result.amplitudes)[:n_to],
+        alpha=np.asarray(result.alpha)[:n_to],
+        fp_its=np.asarray(result.fp_its)[:n_to], normU0=result.normU0,
+    )
+
+
+def residual_problem(sep: SeparatedProblem, result: PGDResult):
+    """Floor restart: the separated problem of the correction δ* with
+    A (s·δ*) = f − A u_K, rescaled to O(1).  The residual rhs is formed once
+    on the host in f64 (exact), so solving it in f32 restarts the f32
+    amplitude floor at the residual's scale; deploy u = u_K + s·δ*
+    (:func:`combine_results`).  Each lhs term t × mode k adds a rank-1 rhs
+    term −⊗_d (O_td u_kd), so the rhs stack has R + T·K rows; the operators
+    are unchanged.  Returns ``(sep_res, s)``, s = ‖f − A u_K‖₂ by
+    separated Gram algebra (no full tensor)."""
+    K = result.n_modes
+    nd = sep.num_dims
+    ops = [host_f64(o) for o in sep.ops]
+    modes = [host_f64(m)[:K] for m in result.modes]
+    T = sep.num_terms
+
+    new_rhs = []
+    for d in range(nd):
+        # the residual of the MASKED (homogenised) system: mask the modes,
+        # the rhs and the output rows, not the O(T·n²) operator stack
+        m = host_f64(sep.bc_masks[d])
+        rhs_m = host_f64(sep.rhs[d]) * m[None, :]
+        W = np.matmul(ops[d], (modes[d] * m[None, :]).T)  # (T, n, K)
+        W = W * m[None, :, None]
+        W = W.transpose(0, 2, 1).reshape(T * K, ops[d].shape[1])  # (T·K, n)
+        if d == 0:
+            W = -W  # the minus sign of f − A·u_K, folded into dim 0
+        new_rhs.append(np.concatenate([rhs_m, W], axis=0))
+
+    # s = ‖r‖: Σ_{a,b} Π_d (g_ad · g_bd) via per-dim Grams
+    G = np.ones((new_rhs[0].shape[0],) * 2)
+    for d in range(nd):
+        G = G * (new_rhs[d] @ new_rhs[d].T)
+    s = float(np.sqrt(max(G.sum(), 0.0)))
+    if s > 0:
+        new_rhs[0] = new_rhs[0] / s
+
+    sep_res = SeparatedProblem(
+        ops=ops, rhs=new_rhs, mass=[host_f64(m) for m in sep.mass],
+        bc_dofs=list(sep.bc_dofs),
+    )
+    return sep_res, s
+
+
+def pad_rhs_bucket(sep: SeparatedProblem, bucket: int) -> SeparatedProblem:
+    """Pad every dim's rhs stack of a host problem with zero rows up to a
+    ``bucket`` multiple.  Zero rows add nothing to the load contractions or
+    to normU0; they keep the stack's shape fixed across cascade stages
+    (each :func:`residual_problem` restart grows it by T·K rows)."""
+    R = sep.rhs[0].shape[0]
+    Rpad = int(-(-R // bucket) * bucket)
+    if Rpad == R:
+        return sep
+    rhs = [
+        np.concatenate([r, np.zeros((Rpad - R, r.shape[1]), dtype=r.dtype)])
+        for r in (np.asarray(r) for r in sep.rhs)
+    ]
+    return SeparatedProblem(
+        ops=list(sep.ops), rhs=rhs, mass=list(sep.mass),
+        bc_dofs=[np.flatnonzero(np.asarray(m) == 0.0) for m in sep.bc_masks],
+    )
+
+
+def combine_results(base: PGDResult, delta: PGDResult, scale: float) -> PGDResult:
+    """Concatenate a base PGD and a rescaled correction PGD:
+    u = u_base + scale·u_delta (the deployment step of
+    :func:`residual_problem`).  The scale folds into the dim-0 factors;
+    the modes come back in the base's kind and dtype."""
+    K1, K2 = base.n_modes, delta.n_modes
+    new_modes = []
+    for d in range(len(base.modes)):
+        b = host_f64(base.modes[d])[:K1]
+        e = host_f64(delta.modes[d])[:K2]
+        if d == 0:
+            e = e * scale
+        new_modes.append(_like(np.concatenate([b, e], axis=0), base.modes[0]))
+    return PGDResult(
+        modes=new_modes,
+        n_modes=K1 + K2,
+        amplitudes=np.concatenate(
+            [np.asarray(base.amplitudes)[:K1],
+             np.asarray(delta.amplitudes)[:K2]
+             * (scale * delta.normU0 / base.normU0 if base.normU0 else 1.0)]
+        ),
+        alpha=np.concatenate(
+            [np.asarray(base.alpha)[:K1], np.asarray(delta.alpha)[:K2]]
+        ),
+        fp_its=np.concatenate(
+            [np.asarray(base.fp_its)[:K1], np.asarray(delta.fp_its)[:K2]]
+        ),
+        normU0=base.normU0,
+    )
 
 
 def evaluate_modes_1d(V, modes_buf: torch.Tensor, points: torch.Tensor):

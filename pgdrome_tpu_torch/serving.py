@@ -26,15 +26,9 @@ import numpy as np
 import torch
 
 from pgdrome_tpu_torch.config import get_device, use_full_f32_matmul
-from pgdrome_tpu_torch.separated import PGDResult
+from pgdrome_tpu_torch.separated import PGDResult, host_f64
 
 use_full_f32_matmul()
-
-
-def _host_f64(a) -> np.ndarray:
-    if isinstance(a, torch.Tensor):
-        return a.detach().cpu().double().numpy()
-    return np.asarray(a, dtype=np.float64)
 
 
 def _to_host(y, copy_stream):
@@ -122,10 +116,10 @@ class Vademecum:
         self.spaces = list(spaces)
         self.n_modes = int(result.n_modes)
         self._method = method
-        dim0 = _host_f64(result.modes[0])[: self.n_modes]
+        dim0 = host_f64(result.modes[0])[: self.n_modes]
         if dim0_transform is not None:
             dim0 = dim0_transform.modes_to_full(dim0)
-        host = [dim0] + [_host_f64(m)[: self.n_modes] for m in result.modes[1:]]
+        host = [dim0] + [host_f64(m)[: self.n_modes] for m in result.modes[1:]]
         # host f64 → dtype on the host, then one copy to the device
         self._modes = [torch.as_tensor(m).to(dtype).to(self.device).contiguous()
                        for m in host]

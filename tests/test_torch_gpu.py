@@ -368,3 +368,85 @@ def test_smem_formula(cuda):
                                             (16, 2049, 32, 512, 32, 0), (3, 9, 4, 1024, 1, 1)]:
         assert lib.pgd_factor_smem(NP, ndofp, ks, rows, n0, staged) == fs.factor_smem(
             NP, ndofp, ks, rows, n0, bool(staged))
+
+
+# ------------------------------------------------------------- the solver
+
+def _elliptic(num_params, **kw):
+    from pgdrome_tpu_torch.models.problems import parametric_elliptic
+    from pgdrome_tpu_torch.separated import precondition_dim0
+
+    sep, Vs = parametric_elliptic(n_x=32, n_p=8, num_params=num_params, **kw)
+    pc, tf = precondition_dim0(sep, np.float64)
+    return sep, Vs, pc, tf
+
+
+def _fields64(Vs, res, tf, samples):
+    from pgdrome_tpu_torch.serving import Vademecum
+
+    vd = Vademecum(Vs, res, dim0_transform=tf, method="torch", dtype=torch.float64,
+                   device="cpu")
+    return vd.fields(samples).numpy()
+
+
+def test_f32_solve_matches_f64(cuda):
+    # ROADMAP A5 gate (ii): an f32 solve on the card reconstructs within
+    # 2.5e-7 of the port's f64 CPU solve (the CPU's own f32 solve measures
+    # 4.3e-8), and TF32 stays off while it runs
+    from pgdrome_tpu_torch.separated import SeparatedPGD
+
+    _, Vs, pc, tf = _elliptic(1)
+    kw = dict(n_max=12, tol=0.0, tol_fp=1e-7, max_fp_it=40, solver="cg", cg_iters=25,
+              residual_check=False)
+    r32 = SeparatedPGD(pc, dtype=np.float32, device=cuda, **kw).solve_fused()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert r32.modes[0].is_cuda and r32.modes[0].dtype == torch.float32
+    r64 = SeparatedPGD(pc, dtype=np.float64, device="cpu", **kw).solve_fused()
+    assert r32.n_modes == r64.n_modes == 12
+    samples = np.random.default_rng(0).uniform(0.0, 1.0, size=(64, 1))
+    f64, f32 = (_fields64(Vs, r, tf, samples) for r in (r64, r32))
+    err = np.linalg.norm(f32 - f64, axis=1) / np.linalg.norm(f64, axis=1)
+    assert err.max() <= 2.5e-7
+
+
+def test_zero_residual_keep_mask(cuda):
+    # every enrichment of a zero rhs has residual 0 < 1e-10: the device
+    # keep-mask drops each mode, no buffer changes, the result is empty
+    from pgdrome_tpu_torch.separated import SeparatedPGD, SeparatedProblem
+
+    _, _, pc, _ = _elliptic(2)
+    zero = SeparatedProblem(ops=pc.ops, rhs=[0.0 * r for r in pc.rhs], mass=pc.mass,
+                            bc_dofs=pc.bc_dofs)
+    res = SeparatedPGD(zero, n_max=3, tol_fp=1e-7, dtype=np.float32,
+                       device=cuda).solve_fused()
+    assert res.n_modes == 0 and res.normU0 == 1.0 and len(res.amplitudes) == 0
+    assert all(m.is_cuda and not bool(m.any()) for m in res.modes)
+
+
+def test_two_stage_elliptic_served_by_kernel(cuda):
+    # the recipe trained on the card (bucketed restarts), its vademecum
+    # served through the fused field wiring and held within 2γ_c of the
+    # plain version, c = K + 4·NP, and close to the f64 reconstruction
+    from pgdrome_tpu_torch.recipes import two_stage_elliptic
+    from pgdrome_tpu_torch.serving import Vademecum
+
+    sep, Vs, _, _ = _elliptic(2, boundary_boost=(16.0, 6))
+    res, tf = two_stage_elliptic(sep, n_stage1=10, n_stage2=6, n_deploy=8,
+                                 extra_stages=(6,), rhs_bucket=16, device=cuda)
+    assert res.n_modes == 8 and res.modes[1].is_cuda
+    vd = Vademecum(Vs, res, dim0_transform=tf, method="fused", device=cuda)
+    samples = np.random.default_rng(5).uniform(0.0, 1.0, size=(300, 2)).astype(np.float32)
+    samples[0], samples[1] = 0.0, 1.0
+    fs.reset_launch_counts()
+    out = vd.fields(torch.as_tensor(samples, device=cuda))
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES["fields_f32"] == 1 and fs.STAGE_LAUNCHES["gemm"] >= 1
+    modes = [m.cpu().numpy() for m in vd._modes]
+    plain = fs.make_fused_sweep(Vs, modes, vd.n_modes, device="cpu")(torch.as_tensor(samples))
+    bound = _gamma_bound(Vs, modes, vd.n_modes, samples, 8 + 4 * 2)
+    assert bool(((out.cpu().double() - plain.double()).abs() <= 2 * bound).all())
+    f64 = _fields64(Vs, res, tf, samples.astype(np.float64))
+    err = np.linalg.norm(out.cpu().double().numpy() - f64, axis=1) / np.linalg.norm(f64, axis=1)
+    assert err.max() < 1e-6
