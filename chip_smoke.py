@@ -17,7 +17,14 @@ vademecum with the port alone (``bench.py:806-881`` at its own widths: a
 64-mode f32 greedy stage on the card, two f64 residual restarts of 48
 modes, compression to rank 50 and a Galerkin update on the host), holds
 it under 1e-6 against per-sample FEM over 8 corners + 3 × (64 random +
-16 edge) samples, and serves those samples through the field kernels.  It
+16 edge) samples, and serves those samples through the field kernels.
+Phase ``frontier`` trains the d=5 vademecum with the port's
+``highd_frontier(5)`` at full width (2047 × 129^5, T = 6), cut to 3 of its
+stages: a plain f32 stage, a boosted, corner-seeded stage with the
+compensated dd rhs, a dd stage.  It checks each stage's flags and its
+verified error against the JAX record (``FRONTIER_d5.json``), holds the dd
+contraction on the card against the CPU bit for bit, reloads the
+checkpoint exactly, and serves the result through the field kernels.  It
 prints the measurements: one line per phase, a ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``.
 
@@ -66,6 +73,17 @@ TRAIN_DEPLOY = 50            # compressed rank
 RHS_BUCKET = 512             # the restarts' rhs stacks, padded as bench.py pads them
 VERIFY = dict(n_random=64, seeds=(7, 101, 1234), n_edge=16)  # bench.py:215-272's set
 REF_FEM = 7.882e-7           # the JAX reference's max on that set (BENCH_r05.json, a TPU run)
+# the frontier phase: highd_frontier(5) at full width, cut to 3 of its stages
+FRONTIER = dict(max_stages=3, base_boost=(8.0, 6), window_boost=(16.0, 6))
+# the JAX record (FRONTIER_d5.json, a TPU run): verified max and the stage
+# flags (boosted, seeded, rhs_comp) at ranks 128, 256, 384
+FRONTIER_REF = {128: 4.465731509726485e-05, 256: 7.022583271541588e-06,
+                384: 3.7580391580915298e-06}
+FRONTIER_FLAGS = [(False, False, False), (True, True, True), (False, False, True)]
+# served f32 fields vs the f64 reconstruction's verified max: the d=5 state
+# served at K = 640 sits 1.3e-7 (19 %) above its f64 reconstruction at the
+# corners (PERF.md §6.1); at rank 384 and ~4e-6 that is a few per cent
+FRONTIER_SERVE_SLACK = 1.1
 
 # published dense peaks (NVIDIA data sheets, without sparsity):
 # (f32 CUDA-core FLOP/s, TF32 tensor-core FLOP/s, HBM B/s)
@@ -475,6 +493,15 @@ def main() -> int:
                 "bound_fp32_ms": max(t_fp32, t_bytes), "flops": fac_flops + mm_flops,
                 "bytes": nbytes}
 
+    def stage1_bound(B, sw=None):
+        """Least time of a field wiring's factor kernel alone: its inputs read
+        once and its split F halves written once over HBM's rate, against
+        its factor FLOPs over the f32 peak.  Shapes from the sweep ``sw``
+        (default: the d=5 field sweep)."""
+        NP_, ndofp_, K_ = (sw or fused).tabs.shape
+        nbytes = B * NP_ * 4 + NP_ * ndofp_ * K_ * 4 + 2 * B * fs.padded_k(K_) * 4
+        return max(nbytes / peak_bw, B * K_ * 4 * NP_ / peak_flops) * 1e3
+
     def stage_ms(samples, sweep, n_out, out_dtype=torch.float32):
         """Device time of the two kernels of a field wiring over the
         wrapper's row chunks, timed apart: all factor-kernel launches, then
@@ -496,10 +523,8 @@ def main() -> int:
             for r0, r1 in chunks:
                 fs.gemm_stage(hi[: r1 - r0], lo[: r1 - r0], *sweep.table, dst[r0:r1])
 
-        s1_bytes = B * NP * 4 + NP * ndofp * K * 4 + 2 * B * fs.padded_k(K) * 4
-        s1_bound = max(s1_bytes / peak_bw, B * K * 4 * NP / peak_flops) * 1e3
         return {"factor_stage_ms": cuda_ms(stage1, 3), "gemm_ms": cuda_ms(stage2, 3),
-                "factor_stage_bound_ms": s1_bound, "row_chunks": len(chunks)}
+                "factor_stage_bound_ms": stage1_bound(B), "row_chunks": len(chunks)}
 
     def kernel_of(sweep, mode):
         p = sweep.plan
@@ -641,7 +666,7 @@ def main() -> int:
 
         from pgdrome_tpu_torch.models.problems import (elliptic_dense_verifier,
                                                        parametric_elliptic)
-        from pgdrome_tpu_torch.separated import (SeparatedPGD, combine_results,
+        from pgdrome_tpu_torch.separated import (PGDResult, SeparatedPGD, combine_results,
                                                  compress_modes, galerkin_update,
                                                  pad_rhs_bucket, precondition_dim0,
                                                  residual_problem)
@@ -754,7 +779,195 @@ def main() -> int:
               kernel_of(fused_t, "split") + " + sweep_gemm_kernel<f32>",
               "parallel/vademecum.py::make_sweep_fn (trained rank-50 bench vademecum)",
               served_t.shape, launches_t["fields_f32"], w_t, ms_t, plain_t, lib_t,
-              roofline(len(pts_t), int(m0_t.shape[1]), 4, True, sw=fused_t), c_t)
+              roofline(len(pts_t), int(m0_t.shape[1]), 4, True, sw=fused_t), c_t,
+              factor_stage_bound_ms=stage1_bound(len(pts_t), fused_t))
+
+    # ----------------------------------------------------------- frontier
+    # the frontier's training path: the port's highd_frontier(5) trains the
+    # d=5 vademecum (plain f32, boosted corner-seeded dd, plain dd stages),
+    # verifies it per stage against per-sample f64 FEM, and the best result
+    # is served through the field kernels
+    with Phase("frontier"):
+        import os
+        import tempfile
+
+        from pgdrome_tpu_torch.convert import load_state_npz
+        from pgdrome_tpu_torch.ops import ddf32
+        from pgdrome_tpu_torch.recipes import frontier_setup, frontier_spaces, highd_frontier
+        from pgdrome_tpu_torch.separated import _contract_rhs, _DDWeights, host_f64
+        from pgdrome_tpu_torch.utils.profiling import StageMetrics
+
+        # the phase's builds and the recipe's share one setup cache in the
+        # phase's temp dir: the phase builds (misses), the recipe loads (hits)
+        with tempfile.TemporaryDirectory() as tmp:
+            cache_env = os.environ.get("PGDROME_SETUP_CACHE")
+            os.environ["PGDROME_SETUP_CACHE"] = str(Path(tmp) / "setup_cache")
+            try:
+                t0 = time.perf_counter()
+                builds = []
+                for boost in (FRONTIER["base_boost"], FRONTIER["window_boost"]):
+                    build, status = frontier_setup(NUM_PARAMS, boost)
+                    check(status == "miss", f"the phase's build (boost {boost}) fills the cache")
+                    builds.append(build)
+                (sep_base, tf_f), (sep_boost, _) = builds
+                Vs_f = frontier_spaces(NUM_PARAMS)
+                say(f"frontier build: {time.perf_counter() - t0:.3f} s (host f64, both "
+                    f"measures, stored in the setup cache), sizes {list(sep_base.sizes)}, "
+                    f"T={sep_base.num_terms}, R={sep_base.num_rhs}")
+                check(tuple(sep_base.sizes) == (2047,) + (129,) * NUM_PARAMS
+                      and sep_base.num_terms == NUM_PARAMS + 1
+                      and sep_boost.sizes == sep_base.sizes,
+                      "the d=5 frontier build: 2047 x 129^5, T = 6")
+
+                torch.cuda.synchronize()
+                fs.reset_launch_counts()
+                metrics = StageMetrics(dev)
+                lines = []
+
+                def log_f(*a):
+                    lines.append(" ".join(map(str, a)))
+                    say(*a)
+
+                state_npz = Path(tmp) / "frontier_d5_torch_state.npz"
+                t0 = time.perf_counter()
+                best, report = highd_frontier(
+                    NUM_PARAMS, max_stages=FRONTIER["max_stages"], state_path=str(state_npz),
+                    artifact_path=str(Path(tmp) / "frontier_d5_torch.json"), log=log_f,
+                    metrics=metrics, device=dev)
+                t_frontier = time.perf_counter() - t0
+                check(sum(ln.startswith("setup cache hit") for ln in lines) == 2,
+                      "the recipe loaded both builds from the phase's setup cache")
+                raw = load_state_npz(state_npz)
+                with np.load(state_npz) as z:
+                    raw_arrays = {k: z[k] for k in z.files}
+            finally:
+                if cache_env is None:
+                    os.environ.pop("PGDROME_SETUP_CACHE", None)
+                else:
+                    os.environ["PGDROME_SETUP_CACHE"] = cache_env
+        hist = report["history"]
+        say(f"frontier: {t_frontier:.3f} s for {len(hist)} stages, rank {report['rank']}, "
+            f"verified max {report['verified']['max']:.6e} "
+            f"(corners {report['verified']['corners_fem_max']:.6e} over "
+            f"{report['verified']['corners_fem_n']}, interior "
+            f"{report['verified']['interior_fem_max']:.6e}); the JAX record at these ranks "
+            f"(TPU): {json.dumps(FRONTIER_REF)}")
+        flags = [tuple(bool(h[f]) for f in ("boosted", "seeded", "rhs_comp")) for h in hist]
+        for h, row, fl in zip(hist, metrics.rows, flags):
+            fp = np.asarray(row["fp_its"])
+            say(f"frontier stage {int(h['stage'])}: rank {int(h['rank'])}, corners "
+                f"{h['corners']:.6e}, interior {h['interior']:.6e}, (boosted, seeded, rhs_comp) "
+                f"{fl}, stage {h['stage_s']:.2f} s, solve {row['solve_s']:.3f} s, fp sweeps "
+                f"mean {fp.mean():.2f} max {fp.max()} total {fp.sum()}, "
+                f"{fp.sum() / row['solve_s']:.1f} fp sweeps/s, "
+                f"{row['solve_s'] / fp.sum() * 1e3:.2f} ms/sweep, residual build "
+                f"{row.get('residual_s', 0.0):.3f} s (rhs rows {row.get('rhs_rows', sep_base.num_rhs)}), "
+                f"Galerkin {row['galerkin_s']:.3f} s, verification {row['verify_s']:.3f} s")
+        ranks = [int(h["rank"]) for h in hist]
+        check(ranks == [128 * (i + 1) for i in range(FRONTIER["max_stages"])],
+              "frontier ranks 128 / 256 / 384")
+        check(flags[:2] == FRONTIER_FLAGS[:2], "stage 1 plain f32, stage 2 boosted, seeded, dd")
+        c2, i2 = hist[1]["corners"], hist[1]["interior"]
+        boost3 = c2 > 1e-6 and c2 > 1.2 * i2
+        say(f"frontier stage 3 flags {flags[2]}: the recipe's rule on stage 2's errors gives "
+            f"{(boost3, boost3, True)}; the JAX record's {FRONTIER_FLAGS[2]}: "
+            f"{'equal' if flags[2] == FRONTIER_FLAGS[2] else 'different'}")
+        check(flags[2] == (boost3, boost3, True), "stage 3 flags follow the recipe's rule")
+        maxes = [h["max"] for h in hist]
+        for r, m in zip(ranks, maxes):
+            check(m <= 2 * FRONTIER_REF[r], f"rank {r}: verified max within 2x the JAX record")
+        check(all(b < a for a, b in zip(maxes, maxes[1:])), "the verified max falls every stage")
+        check(report["verified"]["max"] == maxes[-1] and best.n_modes == ranks[-1],
+              "the best result is the last stage's")
+
+        # the checkpoint holds the raw combination: its Galerkin update on the
+        # base measure is the returned best result, bit for bit
+        check(raw.n_modes == best.n_modes and int(raw_arrays["stage"]) == len(hist),
+              "checkpoint rank and stage")
+        for d, m in enumerate(raw.modes):
+            check(np.array_equal(m.numpy(), raw_arrays[f"m{d}"]), "load_state_npz reads the npz")
+        again = galerkin_update(sep_base, raw)  # f64 host modes; best's are f32
+        check(all(np.array_equal(host_f64(a)[: best.n_modes].astype(np.float32),
+                                 b[: best.n_modes].cpu().numpy())
+                  for a, b in zip(again.modes, best.modes)),
+              "the checkpoint reloads the raw combination exactly")
+        say("frontier checkpoint: reloads exactly (its Galerkin update equals the best "
+            "result bit for bit)")
+
+        # the dd contraction on the card against the CPU, on the stage-2
+        # residual stack (stage 1's modes lead the raw combination)
+        n1 = int(hist[0]["rank"])
+        stage1 = PGDResult(modes=[m[:n1] for m in raw.modes], n_modes=n1,
+                           amplitudes=raw.amplitudes[:n1], alpha=raw.alpha[:n1],
+                           fp_its=raw.fp_its[:n1], normU0=raw.normU0)
+        sep_res, _ = residual_problem(sep_boost, stage1)
+        sep_res = pad_rhs_bucket(sep_res, 4096)
+        check(sep_res.num_rhs == 4096, "the stage-2 stack is one 4096-row bucket")
+        rng_f = np.random.default_rng(SEED)
+        Fs = [rng_f.uniform(-1.0, 1.0, size=n).astype(np.float32) for n in sep_res.sizes]
+        dd_cpu = [torch.from_numpy(ddf32.dd_from_f64(r)) for r in sep_res.rhs]
+        dd_gpu = [r.to(dev) for r in dd_cpu]
+        F_cpu = [torch.from_numpy(f) for f in Fs]
+        F_gpu = [f.to(dev) for f in F_cpu]
+        r64 = [torch.from_numpy(np.asarray(r, dtype=np.float64)) for r in sep_res.rhs]
+        r32 = [r.float() for r in r64]
+        w_gpu, w_cpu = _DDWeights(dd_gpu), _DDWeights(dd_cpu)
+        errs = []
+        for k in range(len(Fs)):
+            b_gpu = _contract_rhs(dd_gpu, F_gpu, k, len(Fs), w_gpu)
+            b_cpu = _contract_rhs(dd_cpu, F_cpu, k, len(Fs), w_cpu)
+            check(b_gpu.is_cuda and torch.equal(b_gpu.cpu().view(torch.int32),
+                                                 b_cpu.view(torch.int32)),
+                  f"dim {k}: the dd contraction on the card equals the CPU's bit for bit")
+            b64 = _contract_rhs(r64, F_cpu, k, len(Fs))
+            b32 = _contract_rhs(r32, F_cpu, k, len(Fs))
+            n64 = float(b64.norm())
+            errs.append((float((b_cpu.double() - b64).norm()) / n64,
+                         float((b32.double() - b64).norm()) / n64))
+        say(f"frontier dd contraction (4096 x {list(sep_res.sizes)} stage-2 stack, seeded "
+            f"factors): card equals CPU bit for bit in all {len(Fs)} dims; rel-L2 vs f64 per "
+            f"dim, dd {[f'{e[0]:.3e}' for e in errs]}, plain f32 {[f'{e[1]:.3e}' for e in errs]}")
+        del dd_cpu, dd_gpu, r64, r32, w_gpu, w_cpu
+
+        # the best result served through the field wiring
+        verify_f = elliptic_dense_verifier(Vs_f, tf_f, n_random=16, seeds=(7, 101, 1234, 777),
+                                           n_edge=16)
+        pts_f = np.concatenate(list(verify_f.samples.values()))
+        check(len(pts_f) == 32 + 4 * 32, "the 32 inset corners and the verifier's samples")
+        vd_f = Vademecum(Vs_f, best, dim0_transform=tf_f, method="fused", device=dev)
+        fused_f = vd_f._sweep()
+        check(isinstance(fused_f, fs.FusedSweep), "the frontier vademecum took the kernel")
+        s_f = torch.as_tensor(pts_f, dtype=torch.float32, device=dev)
+        served_f = vd_f.fields(s_f)
+        torch.cuda.synchronize()
+        launches_f = dict(fs.LAUNCHES)
+        stage_launches_f = dict(fs.STAGE_LAUNCHES)
+        say(f"launches on the frontier path: {json.dumps(launches_f)}; kernels "
+            f"{json.dumps(stage_launches_f)}")
+        check(launches_f["fields_f32"] == 1 and stage_launches_f["gemm"] >= 1
+              and stage_launches_f["factors_stage"] == stage_launches_f["gemm"],
+              "the frontier vademecum's fields ran the field wiring's kernels")
+        fem_f = elliptic_fem_solver(Vs_f[0], NUM_PARAMS)
+        u_f = np.stack([fem_f(p) for p in pts_f])
+        e_served_f = rel_rows(served_f, u_f)
+        v_max = report["verified"]["max"]
+        g, tb, m0_f, n_f = fused_f.grid, fused_f.tabs, fused_f.m0, fused_f.n_modes
+        c_f = int(tb.shape[2]) + 4 * int(tb.shape[0])
+        w_f = hold(served_f, s_f, m0_f, c_f, sw=fused_f)
+        say(f"frontier served: kernel f32 fields max rel-L2 vs FEM {e_served_f:.6e} over "
+            f"{len(pts_f)} samples, the f64 reconstruction's verified max {v_max:.6e}, gap "
+            f"{e_served_f - v_max:+.3e} (bound {FRONTIER_SERVE_SLACK:g} x verified)")
+        check(e_served_f <= FRONTIER_SERVE_SLACK * v_max, "kernel-served frontier fields vs FEM")
+        ms_f = cuda_ms(lambda: fused_f(s_f), 20)
+        plain_f = cuda_ms(lambda: fs.fused_sweep_plain(s_f, g, tb, m0_f, n_f), 20)
+        fac_f = fs.fused_sweep(s_f, g, tb, None, n_f)
+        lib_f = cuda_ms(lambda: torch.matmul(fac_f, m0_f), 20)
+        entry("fused_sweep_fields_f32_frontier",
+              kernel_of(fused_f, "split") + " + sweep_gemm_kernel<f32>",
+              "parallel/vademecum.py::make_sweep_fn (frontier-trained rank-384 d=5 vademecum)",
+              served_f.shape, launches_f["fields_f32"], w_f, ms_f, plain_f, lib_f,
+              roofline(len(pts_f), int(m0_f.shape[1]), 4, True, sw=fused_f), c_f,
+              factor_stage_bound_ms=stage1_bound(len(pts_f), fused_f))
 
     say(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     say(f"wall seconds: {time.perf_counter() - t_start:.1f}")

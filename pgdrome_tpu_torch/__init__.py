@@ -10,7 +10,11 @@ the parametric-elliptic family: the host f64 build (:mod:`.fem`,
 :mod:`.models.problems`, :mod:`.separated`); training — the progressive
 PGD enrichment on the device (:class:`.separated.SeparatedPGD`), f64
 residual restarts, compression and the Galerkin update on the host, as
-one recipe in :mod:`.recipes`; dense verification against per-sample FEM
+one recipe in :mod:`.recipes`; the error-driven cascade and the d-parameter
+frontier drive (:func:`.recipes.adaptive_cascade`,
+:func:`.recipes.highd_frontier`: corner-boosted and corner-seeded stages,
+rhs stacks kept in f64 or compensated double-f32, :mod:`.ops.ddf32`);
+dense verification against per-sample FEM
 (:func:`.models.problems.elliptic_dense_verifier`); the weights brought
 across from the JAX package's saved states (:mod:`.convert`); and the
 batched field / sensor / moment sweeps (:mod:`.parallel.vademecum`,
@@ -43,8 +47,16 @@ from pgdrome_tpu_torch.separated import (
     residual_problem,
     combine_results,
 )
-from pgdrome_tpu_torch.models.problems import elliptic_dense_verifier
-from pgdrome_tpu_torch.recipes import residual_cascade, two_stage_elliptic
+from pgdrome_tpu_torch.models.problems import (
+    corner_seeded_init,
+    elliptic_dense_verifier,
+)
+from pgdrome_tpu_torch.recipes import (
+    adaptive_cascade,
+    highd_frontier,
+    residual_cascade,
+    two_stage_elliptic,
+)
 from pgdrome_tpu_torch.serving import Vademecum
 from pgdrome_tpu_torch.convert import (
     result_from_numpy,
@@ -74,8 +86,11 @@ __all__ = [
     "residual_problem",
     "combine_results",
     "elliptic_dense_verifier",
+    "corner_seeded_init",
     "residual_cascade",
+    "adaptive_cascade",
     "two_stage_elliptic",
+    "highd_frontier",
     "Vademecum",
     "result_from_numpy",
     "load_state_npz",

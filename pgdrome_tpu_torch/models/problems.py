@@ -1,7 +1,7 @@
 """Predefined separated model problems — the parametric-elliptic family
 (counterpart of ``pgdrome_tpu/models/problems.py``: ``box_corners``,
 ``parametric_elliptic``, ``elliptic_fem_solver``,
-``elliptic_dense_verifier``).
+``elliptic_dense_verifier``, ``corner_seeded_init``).
 
 Builders return a :class:`~pgdrome_tpu_torch.separated.SeparatedProblem`
 of host arrays plus the per-dim function spaces.
@@ -298,3 +298,32 @@ def elliptic_dense_verifier(Vs, tf=None, n_random: int = 16,
             or [np.zeros((0, num_params))]
         )
     return verify
+
+
+def corner_seeded_init(target_corners, p_lo, p_hi, q: int = 6,
+                       bg: float = 0.02, seed: int = 500):
+    """Fixed-point seed factory for corner-targeted enrichment stages
+    (``SeparatedPGD(fp_init=...)``).
+
+    An end-localized rank-1 target has ~(1/n_p)^(d-1) overlap with the
+    default ones init, so at high d the alternating sweeps never find it.
+    Mode ``n`` is seeded at ``target_corners[n % len(target_corners)]``:
+    each parameter factor starts as an end bump (s^q toward that corner's
+    side) over a small random background, the space factor random, all
+    drawn from ``default_rng(seed + n)`` as the JAX package draws them.
+    Feed the verifier's measured worst points, re-ranked every stage."""
+    target_corners = np.asarray(target_corners, dtype=np.float64)
+    mid = 0.5 * (p_lo + p_hi)
+
+    def init(nmode, sizes):
+        rng = np.random.default_rng(seed + nmode)
+        c = target_corners[nmode % len(target_corners)]
+        out = [rng.uniform(-1.0, 1.0, size=sizes[0])]
+        for j in range(1, len(sizes)):
+            s = np.linspace(-1.0, 1.0, sizes[j])
+            side_hi = c[j - 1] > mid
+            bump = np.clip(s if side_hi else -s, 0.0, None) ** q
+            out.append(bump + bg * rng.uniform(-1.0, 1.0, size=sizes[j]))
+        return tuple(out)
+
+    return init

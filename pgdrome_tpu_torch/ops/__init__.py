@@ -1,2 +1,4 @@
 """Numerical kernels (counterpart of ``pgdrome_tpu/ops``): the fused sweep,
-hand-written in CUDA for Hopper, with its plain PyTorch version."""
+hand-written in CUDA for Hopper, with its plain PyTorch version; and the
+double-f32 compensated arithmetic of the rhs contraction (:mod:`.ddf32`,
+plain elementwise ``torch``)."""

@@ -1,13 +1,22 @@
 """End-to-end solver recipes (counterpart of ``pgdrome_tpu/recipes.py``:
-``_to_nodal``, ``residual_cascade``, ``two_stage_elliptic``).
+``_to_nodal``, ``residual_cascade``, ``adaptive_cascade``,
+``two_stage_elliptic``, ``highd_frontier``).
 
 :func:`two_stage_elliptic` is the north-star vademecum pipeline: an
 energy-basis f32 greedy stage on the device, f64-exact residual restarts
 formed on the host and re-solved on the device, CP-ALS compression to the
 deployed rank and a Galerkin update, both in host f64.
+:func:`adaptive_cascade` drives residual restarts until a verified bound
+(boosted, corner-seeded and compensated stages where the errors ask for
+them), and :func:`highd_frontier` packages it for the d-parameter elliptic
+vademecum with dense FEM verification.
 """
 
 from __future__ import annotations
+
+import json
+import os
+import time
 
 import numpy as np
 
@@ -22,6 +31,7 @@ from pgdrome_tpu_torch.separated import (
     host_f64,
     pad_rhs_bucket,
     precondition_dim,
+    precondition_dim0,
     residual_problem,
 )
 
@@ -73,6 +83,185 @@ def residual_cascade(problem_pc: SeparatedProblem, budgets,
     return res
 
 
+def adaptive_cascade(problem_pc: SeparatedProblem, verify, *,
+                     bound: float = 1e-6, n_stage1: int = 128,
+                     stage_budget: int = 128, max_stages: int = 12,
+                     boost_problem: SeparatedProblem | None = None,
+                     boost_margin: float = 2.0,
+                     rhs_comp="auto", rhs_comp_below: float = 1e-5,
+                     stall_stages: int = 3,
+                     tol_fp: float = 1e-7, solver: str = "cg",
+                     cg_iters: int = 25, dtype=np.float32, log=None,
+                     init_result: PGDResult | None = None,
+                     checkpoint=None,
+                     corner_seed_range=None, seed_max_fp_it: int = 20,
+                     seed_always: bool = False,
+                     rhs_bucket: int | None = None,
+                     minutes: float | None = None, metrics=None,
+                     device="cuda"):
+    """Error-driven residual cascade: solve until a verified bound, not a
+    fixed stage list.
+
+    * After every stage the Galerkin-updated result is verified through
+      ``verify``; the cascade itself continues from the raw combination.
+    * While the corners bind (corner error above ``bound`` and more than
+      ``boost_margin`` × the interior error) and a ``boost_problem`` is
+      given, the next stage's residual targets that corner-boosted
+      measure, and reverts to the plain one as soon as the corners clear.
+    * ``rhs_comp``: True/False forces the compensated double-f32 rhs
+      contraction of the stages after the first; ``"auto"`` engages it
+      once the error is below ``rhs_comp_below`` (and ``dtype`` is not
+      f64).
+    * ``corner_seed_range=(p_lo, p_hi)``: boosted stages (every stage with
+      corners above ``bound`` when ``seed_always``) are corner-seeded —
+      each new mode's fixed point starts at one of the verifier's
+      ``worst_points``, re-ranked by ``worst_errors`` — and run through
+      :meth:`SeparatedPGD.solve` with at most ``seed_max_fp_it`` sweeps.
+    * Stops at ``bound``, at ``max_stages``, after ``minutes``, or when the
+      best verified error has not improved for ``stall_stages`` stages.
+
+    ``verify(result) -> float | {"corners", "interior", ...}`` (a float
+    counts as both).  ``init_result``: a raw combination to continue from
+    (stage 1 then only verifies it).  ``checkpoint(stage_dict,
+    raw_result)`` runs after each stage's verification.  ``rhs_bucket``:
+    pad each residual rhs stack with zero rows to a multiple of this.
+    ``metrics``: a :class:`~pgdrome_tpu_torch.utils.profiling.StageMetrics`
+    that receives each stage's residual-build, solve, Galerkin and
+    verification seconds and its fp sweeps.  The solves run on
+    ``device``.  Returns ``(best_result, history)``: the best
+    Galerkin-updated result seen (not the last) and one dict per stage."""
+    from pgdrome_tpu_torch.models.problems import corner_seeded_init
+    from pgdrome_tpu_torch.utils.profiling import StageMetrics
+
+    device = get_device(device)
+    metrics = metrics if metrics is not None else StageMetrics(device)
+
+    def common(comp):
+        return dict(tol=0.0, solver=solver, cg_iters=cg_iters,
+                    residual_check=False, dtype=dtype, rhs_comp=comp,
+                    device=device)
+
+    def _split(v):
+        if isinstance(v, dict):
+            return float(v["corners"]), float(v["interior"])
+        return float(v), float(v)
+
+    say = log or (lambda *a: None)
+    history = []
+    best_err, best_res, best_stage = np.inf, None, 0
+    corners = interior = np.inf
+    worst_pts = None
+    res = None
+    t_start = time.perf_counter()
+    for si in range(1, max_stages + 1):
+        if (
+            minutes is not None
+            and si > 1
+            and time.perf_counter() - t_start > minutes * 60.0
+        ):
+            say(f"adaptive cascade: {minutes:.0f} min budget reached at "
+                f"stage {si - 1}, best {best_err:.2e}")
+            break
+        t0 = time.perf_counter()
+        row = metrics.stage(si)
+        boosted = comp = seeded = False
+        if si == 1:
+            if init_result is not None:
+                res = init_result
+                row["fp_its"] = np.zeros(0, dtype=np.int64)
+            else:
+                with metrics.timed(row, "solve_s"):
+                    res = SeparatedPGD(
+                        problem_pc, n_max=n_stage1, tol_fp=tol_fp,
+                        max_fp_it=40, **common(False)).solve_fused()
+                row["fp_its"] = np.asarray(res.fp_its)
+        else:
+            boosted = (
+                boost_problem is not None
+                and corners > bound
+                and corners > boost_margin * interior
+            )
+            prob_s = boost_problem if boosted else problem_pc
+            if isinstance(rhs_comp, bool):
+                comp = rhs_comp
+            else:  # "auto": engage in the cancellation-bound region
+                comp = (
+                    max(corners, interior) < rhs_comp_below
+                    and np.dtype(dtype) != np.float64
+                )
+            with metrics.timed(row, "residual_s"):
+                sep_res, s_res = residual_problem(prob_s, res)
+                if rhs_bucket:
+                    sep_res = pad_rhs_bucket(sep_res, rhs_bucket)
+            row["rhs_rows"] = sep_res.num_rhs
+            seeded = (
+                # seed_always: corner-seeded fixed points on the plain
+                # measure while the remaining error is corner-localized
+                (boosted or (seed_always and corners > bound))
+                and corner_seed_range is not None
+                and worst_pts is not None
+                and len(worst_pts) > 0
+            )
+            with metrics.timed(row, "solve_s"):
+                if seeded:
+                    lo, hi = corner_seed_range
+                    delta = SeparatedPGD(
+                        sep_res, n_max=stage_budget, tol_fp=1e-5,
+                        max_fp_it=seed_max_fp_it,
+                        fp_init=corner_seeded_init(
+                            np.asarray(worst_pts)[:stage_budget], lo, hi
+                        ),
+                        **common(comp),
+                    ).solve()
+                else:
+                    delta = SeparatedPGD(
+                        sep_res, n_max=stage_budget, tol_fp=1e-5,
+                        max_fp_it=8, **common(comp),
+                    ).solve_fused()
+            row["fp_its"] = np.asarray(delta.fp_its)
+            res = combine_results(res, delta, s_res)
+        with metrics.timed(row, "galerkin_s"):
+            res_g = galerkin_update(problem_pc, res)
+        with metrics.timed(row, "verify_s"):
+            v = verify(res_g)
+        corners, interior = _split(v)
+        if isinstance(v, dict) and "worst_points" in v:
+            worst_pts = np.asarray(v["worst_points"])
+            worst_errs = np.asarray(v.get("worst_errors", []))
+            if worst_errs.shape[:1] == worst_pts.shape[:1]:
+                worst_pts = worst_pts[np.argsort(worst_errs)[::-1]]
+        mx = max(corners, interior)
+        entry = {
+            "stage": si, "rank": res.n_modes, "corners": corners,
+            "interior": interior, "max": mx, "boosted": boosted,
+            "seeded": seeded,
+            "rhs_comp": comp, "stage_s": round(time.perf_counter() - t0, 2),
+        }
+        if isinstance(v, dict):
+            # the audit trail of a screened verification, where present
+            for audit_key in ("screened", "eta", "measured_max",
+                              "estimated_max"):
+                if audit_key in v:
+                    entry[audit_key] = v[audit_key]
+        history.append(entry)
+        say(f"adaptive stage {si}: rank {res.n_modes} corners {corners:.2e} "
+            f"interior {interior:.2e}"
+            + (" [boost]" if boosted else "")
+            + (" [seeded]" if seeded else "")
+            + (" [dd]" if comp else ""))
+        if checkpoint is not None:
+            checkpoint(history[-1], res)
+        if mx < best_err:
+            best_err, best_res, best_stage = mx, res_g, si
+        if mx < bound:
+            break
+        if si - best_stage >= stall_stages:
+            say(f"adaptive cascade stalled: best {best_err:.2e} at stage "
+                f"{best_stage}, no improvement for {stall_stages} stages")
+            break
+    return best_res, history
+
+
 def two_stage_elliptic(sep: SeparatedProblem, n_stage1: int = 64,
                        n_stage2: int = 48, n_deploy: int | None = 50,
                        tol_fp: float = 1e-7, solver: str = "cg",
@@ -105,3 +294,174 @@ def two_stage_elliptic(sep: SeparatedProblem, n_stage1: int = 64,
         res = compress_modes(res, mass_c, n_deploy, n_iters=20)
     res = galerkin_update(sep_pc, res)
     return res, tf
+
+
+# the parameter count from which the JAX package verifies by the residual
+# screener (``highd_frontier(screen_from=8)``)
+_SCREEN_FROM = 8
+
+
+def frontier_setup(num_params, boost, *, n_x=1024, n_p=128):
+    """The frontier's host build on one boundary measure:
+    ``parametric_elliptic(n_x, n_p, num_params, degree_x=2,
+    boundary_boost=boost)`` preconditioned in host f64, through
+    :func:`~pgdrome_tpu_torch.utils.setup_cache.cached_setup` (off unless
+    ``$PGDROME_SETUP_CACHE`` is set).  Returns ``((sep_pc64, tf), status)``."""
+    import warnings
+
+    from pgdrome_tpu_torch.fem.assembly import load_vector, stiffness_matrix
+    from pgdrome_tpu_torch.models.problems import parametric_elliptic
+    from pgdrome_tpu_torch.utils.setup_cache import cached_setup
+
+    def _build():
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message=".*boundary_boost compounds.*")
+            sep64, _ = parametric_elliptic(n_x=n_x, n_p=n_p, num_params=num_params,
+                                           degree_x=2, boundary_boost=boost)
+        return precondition_dim0(sep64, dtype=np.float64)
+
+    return cached_setup(
+        _build, key_data=["torch_probe5_build_v1", n_x, n_p, num_params, boost],
+        code_objects=(parametric_elliptic, stiffness_matrix, load_vector),
+    )
+
+
+def frontier_spaces(num_params, *, n_x=1024, n_p=128):
+    """The frontier's spaces: P2 on ``n_x`` cells, then ``num_params`` P1
+    parameter spaces on ``n_p`` cells, all on [0, 1]."""
+    from pgdrome_tpu_torch.fem.mesh import IntervalMesh
+    from pgdrome_tpu_torch.fem.space import FunctionSpace
+
+    return [FunctionSpace(IntervalMesh(n_x, 0.0, 1.0), "P", 2)] + [
+        FunctionSpace(IntervalMesh(n_p, 0.0, 1.0), "P", 1) for _ in range(num_params)]
+
+
+def highd_frontier(num_params, *, bound=1e-6, n_x=1024, n_p=128,
+                   n_stage1=128, stage_budget=128, max_stages=24,
+                   minutes=None, base_boost=(8.0, 6),
+                   window_boost=(16.0, 6), boost_margin=1.2, n_edge=16,
+                   state_path=None, init_result=None, dtype=np.float32,
+                   log=None, artifact_path=None, seed_always=False,
+                   metrics=None, device="cuda"):
+    """The dimensionality-frontier drive: build the ``num_params``-parameter
+    elliptic vademecum (``parametric_elliptic(n_x, n_p, num_params,
+    degree_x=2)`` preconditioned in host f64, once on the ``base_boost``
+    measure and once on the stronger ``window_boost`` one), run
+    :func:`adaptive_cascade` with the frontier's discipline — corner-boosted
+    and corner-seeded stages while the corners bind, compensated dd rhs
+    stacks padded to 4096 rows from stage 2 on — and verify the best result
+    against per-sample f64 FEM at all 2^d inset corners, ``n_edge`` edge
+    points and 16 interior points for each of 4 seeds.
+
+    Returns ``(best_result, report)``; the report (the JAX package's keys,
+    ``"anova": None``) carries the verified maxima, the rank and the
+    per-stage history, and is written as JSON to ``artifact_path``.  A run
+    resumed through ``init_result`` extends that artifact's history and
+    wall time.  ``state_path``: after every stage the raw combination is
+    saved there (``m0 … m{d}``, ``n_modes``, ``amplitudes``, ``alpha``,
+    ``fp_its``, ``normU0``, ``stage``; :func:`~pgdrome_tpu_torch.convert.
+    load_state_npz` reads it).  The host builds go through
+    :func:`~pgdrome_tpu_torch.utils.setup_cache.cached_setup` (off unless
+    ``$PGDROME_SETUP_CACHE`` is set).  ``metrics``: as in
+    :func:`adaptive_cascade`.
+
+    From 8 parameters on the JAX package verifies by a residual screener
+    (``parallel/certify.py``) that the port does not have yet, so
+    ``num_params >= 8`` raises; nor does the port take its ANOVA start."""
+    from pgdrome_tpu_torch.models.problems import box_corners, elliptic_dense_verifier
+
+    if num_params >= _SCREEN_FROM:
+        raise ValueError(
+            f"highd_frontier: num_params={num_params} >= {_SCREEN_FROM} needs "
+            "the screened verification of parallel/certify.py, which "
+            "pgdrome_tpu_torch does not have yet"
+        )
+    device = get_device(device)  # raise before the host builds, not after
+    say = log or (lambda *a: None)
+    t_run0 = time.perf_counter()
+
+    builds = []
+    for boost in (tuple(base_boost), tuple(window_boost)):
+        build, status = frontier_setup(num_params, boost, n_x=n_x, n_p=n_p)
+        say(f"setup cache {status} (boost {boost})")
+        builds.append(build)
+    (sep_base, tf), (sep_boost, _) = builds
+
+    Vs = frontier_spaces(num_params, n_x=n_x, n_p=n_p)
+    grid = Vs[1].tabulate_dof_coordinates()[:, 0]
+    lo, hi = grid[1], grid[-2]
+    corners = box_corners(lo, hi, num_params)
+    verify = elliptic_dense_verifier(
+        Vs, tf, n_random=16, seeds=(7, 101, 1234, 777), n_edge=n_edge,
+    )
+
+    def checkpoint(stage_line, raw):
+        say(json.dumps({k: v for k, v in stage_line.items()
+                        if not isinstance(v, np.ndarray)}))
+        if state_path:
+            arrs = {f"m{d}": host_f64(raw.modes[d])
+                    for d in range(1 + num_params)}
+            np.savez(state_path, n_modes=raw.n_modes,
+                     amplitudes=np.asarray(raw.amplitudes),
+                     alpha=np.asarray(raw.alpha),
+                     fp_its=np.asarray(raw.fp_its),
+                     normU0=raw.normU0,
+                     stage=int(stage_line["stage"]), **arrs)
+
+    best, history = adaptive_cascade(
+        sep_base, verify, bound=bound, n_stage1=n_stage1,
+        stage_budget=stage_budget, max_stages=max_stages,
+        boost_problem=sep_boost, boost_margin=boost_margin,
+        rhs_comp=True, dtype=dtype, log=say,
+        init_result=init_result, checkpoint=checkpoint,
+        corner_seed_range=(lo, hi), rhs_bucket=4096,
+        seed_always=seed_always, minutes=minutes, metrics=metrics,
+        device=device,
+    )
+
+    # final verification of the best result: measured, corner-inclusive
+    v = verify(best)
+    final = {
+        "corners_fem_max": float(v["corners"]),
+        "corners_fem_n": int(len(corners)),
+        "interior_fem_max": float(v["interior"]),
+    }
+    final["max"] = max(final["corners_fem_max"], final["interior_fem_max"])
+
+    # a resumed leg extends the prior artifact's history, so the written
+    # JSON carries the whole error-vs-rank record
+    prior_hist, prior_wall, leg = [], 0.0, 1
+    if (artifact_path and init_result is not None
+            and os.path.exists(artifact_path)):
+        try:
+            with open(artifact_path) as f:
+                prev = json.load(f)
+            prior_hist = prev.get("history", [])
+            prior_wall = float(prev.get("wall_s", 0.0))
+            leg = int(prev.get("legs", 1)) + 1
+        except (OSError, ValueError):  # unreadable: start a fresh record
+            pass
+
+    report = {
+        "num_params": int(num_params),
+        "n_x": int(n_x), "n_p": int(n_p),
+        "bound_target": float(bound),
+        "rank": int(best.n_modes),
+        "anova": None,
+        "verified": final,
+        "screened_verification": False,
+        "legs": leg,
+        "history": prior_hist + [
+            dict({k: (float(v)
+                      if isinstance(v, (int, float, np.floating))
+                      else v)
+                  for k, v in h.items()
+                  if not isinstance(v, np.ndarray)}, leg=leg)
+            for h in history
+        ],
+        "wall_s": round(prior_wall + time.perf_counter() - t_run0, 1),
+    }
+    if artifact_path:
+        with open(artifact_path, "w") as f:
+            json.dump(report, f, indent=1)
+    return best, report

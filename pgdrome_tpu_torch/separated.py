@@ -12,7 +12,9 @@
   fixed point of :func:`make_enrich_step` (per-dim Gram contractions and a
   linear solve: LU, fixed-iteration CG or Cholesky), the reference's
   'norm' stop and 'stiff' normalisation, host-looped (:meth:`solve`) or
-  with a fixed budget and a device keep-mask (:meth:`solve_fused`).  Eager
+  with a fixed budget and a device keep-mask (:meth:`solve_fused`).  The
+  rhs stacks may stay in f64 or in compensated double-f32 on the device
+  (``rhs_f64`` / ``rhs_comp``, :func:`_contract_rhs`).  Eager
   PyTorch has no compiled program to share between problems, so the
   problem's own tensors are the step's data (the JAX package's
   ``_ProblemArrays`` / ``problem_data`` have no counterpart).  The fixed
@@ -39,6 +41,7 @@ import numpy as np
 import torch
 
 from pgdrome_tpu_torch.config import get_device, use_full_f32_matmul
+from pgdrome_tpu_torch.ops import ddf32
 
 # every einsum/matmul of the enrichment must be true f32 (TF32 would cost
 # about three digits and floor the greedy far above the 1e-6 gate)
@@ -100,21 +103,28 @@ class SeparatedProblem:
                 m[np.asarray(self.bc_dofs[d])] = 0.0
             self.bc_masks.append(m)
 
-    def as_device(self, dtype=None, device="cuda") -> "SeparatedProblem":
+    def as_device(self, dtype=None, device="cuda", rhs=None) -> "SeparatedProblem":
         """Copy with every array a tensor of ``dtype`` (numpy or torch;
         None keeps each array's own) on ``device``.  Host arrays are cast
         on the host, then copied once: build and precondition in host f64
         and cast here — casting the raw ill-conditioned operators to f32
-        costs cond(K)·eps, casting the preconditioned ones is benign."""
+        costs cond(K)·eps, casting the preconditioned ones is benign.
+        ``rhs``: host stacks uploaded in their own dtype in place of the
+        problem's (the f64 or dd stacks of ``SeparatedPGD(rhs_f64=...,
+        rhs_comp=...)``); the problem's own stacks are then not copied."""
         dev = get_device(device)
         dt = _torch_dtype(dtype)
 
-        def put(a):
+        def put(a, dt=dt):
             t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
             return t.to(dtype=dt or t.dtype).to(dev).contiguous()
 
+        if rhs is None:
+            rhs = [put(r) for r in self.rhs]
+        else:
+            rhs = [put(r, None) for r in rhs]
         return SeparatedProblem(
-            ops=[put(o) for o in self.ops], rhs=[put(r) for r in self.rhs],
+            ops=[put(o) for o in self.ops], rhs=rhs,
             mass=[put(m) for m in self.mass], bc_dofs=list(self.bc_dofs),
         )
 
@@ -259,13 +269,48 @@ def _term_weights(A_d, F_d):
 
 
 def _rhs_weights(R_d, F_d):
-    """c_r = F_d · g_rd for all rhs terms (R,)."""
-    return R_d @ F_d
+    """c_r = F_d · g_rd for all rhs terms (R,), in the stack's dtype."""
+    return R_d @ F_d.to(R_d.dtype)
 
 
-def _contract_rhs(rhs, Fs, k, nd):
-    """Per-dim rhs assembly b_i = Σ_r (Π_{j≠k} F_j·g_rj) g_rki of the plain
-    (R, n) stacks, in the stacks' dtype."""
+class _DDWeights:
+    """``dd_dot(rhs[j], F_j)`` of each dim's dd stack, computed once per
+    factor and reused until the factor changes: a sweep updates one factor
+    per dim solve, so each dim's weights are computed once per sweep, not
+    once per other dim.  A factor is the same while it is the same tensor
+    at the same version: an in-place write bumps ``_version`` and so
+    recomputes.  The same operations on the same inputs as a
+    recomputation, so the results are equal bit for bit."""
+
+    def __init__(self, rhs):
+        self.rhs = rhs
+        self.key = [None] * len(rhs)
+        self.w = [None] * len(rhs)
+
+    def __call__(self, j, F):
+        key = self.key[j]
+        if key is None or key[0] is not F or key[1] != F._version:
+            self.w[j] = ddf32.dd_dot(self.rhs[j], F)
+            self.key[j] = (F, F._version)
+        return self.w[j]
+
+
+def _contract_rhs(rhs, Fs, k, nd, dd_weights=None):
+    """Per-dim rhs assembly b_i = Σ_r (Π_{j≠k} F_j·g_rj) g_rki in the
+    stack's own precision: plain (R, n) stacks contract in their dtype
+    (f32 or f64), dd (R, n, 2) stacks (``rhs_comp``) through the
+    compensated :mod:`.ops.ddf32` path.  The caller casts the result to
+    the factors' dtype.  ``dd_weights``: a :class:`_DDWeights` of the dd
+    stacks (None recomputes each dim's weights)."""
+    if rhs[k].ndim == 3:
+        dd_weights = dd_weights or _DDWeights(rhs)
+        rh = torch.ones(rhs[0].shape[0], dtype=rhs[k].dtype, device=rhs[k].device)
+        rl = torch.zeros_like(rh)
+        for j in range(nd):
+            if j != k:
+                wh, wl = dd_weights(j, Fs[j])
+                rh, rl = ddf32.dd_mul(rh, rl, wh, wl)
+        return ddf32.dd_contract(rh, rl, rhs[k])
     rcoef = torch.ones(rhs[0].shape[0], dtype=rhs[0].dtype, device=rhs[0].device)
     for j in range(nd):
         if j != k:
@@ -338,7 +383,8 @@ def _previous_modes(problem, k, Fs, modes, mode_mask):
     return torch.bmm(problem.ops[k], W[:, :, None]).sum(0)[:, 0]
 
 
-def _solve_dim(problem, k, Fs, modes, mode_mask, solver="lu", cg_iters=30):
+def _solve_dim(problem, k, Fs, modes, mode_mask, solver="lu", cg_iters=30,
+               dd_weights=None):
     """One alternating-direction solve for dim k given the current factors
     ``Fs`` and the padded previous-mode buffers."""
     nd = problem.num_dims
@@ -347,7 +393,11 @@ def _solve_dim(problem, k, Fs, modes, mode_mask, solver="lu", cg_iters=30):
         if j != k:
             coef = coef * _term_weights(problem.ops[j], Fs[j])
     A_k = torch.tensordot(coef, problem.ops[k], dims=1)  # Σ_t coef_t O_tk
-    b = _contract_rhs(problem.rhs, Fs, k, nd) - _previous_modes(problem, k, Fs, modes, mode_mask)
+    # the loads in the stack's precision, cast to the factors' dtype
+    # BEFORE the previous modes are subtracted (f64 or dd stacks resolve
+    # the cascade's cancellation; the O(1) load then casts losslessly)
+    b = (_contract_rhs(problem.rhs, Fs, k, nd, dd_weights).to(Fs[k].dtype)
+         - _previous_modes(problem, k, Fs, modes, mode_mask))
     A_k, b = _apply_bc_system(A_k, b, problem.bc_masks[k])
     if solver == "cg":
         return _cg_solve(A_k, b, cg_iters)
@@ -386,21 +436,22 @@ def make_enrich_step(problem: SeparatedProblem, max_fp_it=50, tol_fp=1e-5,
             Fs.append(f / _norm_d(P, d, f))
         return Fs
 
-    def residual_norm(Fs, modes, mode_mask):
+    def residual_norm(Fs, modes, mode_mask, dd_weights):
         # reference residual check (solver.py:345-395): per-dim rhs with
         # the init modes, bc entries zeroed, res = sqrt(Σ_d ||b_d||²)
         res = 0.0
         for d in range(nd):
-            b = _contract_rhs(P.rhs, Fs, d, nd) - _previous_modes(P, d, Fs, modes, mode_mask)
+            b = (_contract_rhs(P.rhs, Fs, d, nd, dd_weights).to(Fs[d].dtype)
+                 - _previous_modes(P, d, Fs, modes, mode_mask))
             b = b * P.bc_masks[d]
             res = res + b @ b
         return torch.sqrt(res)
 
-    def fp_sweep(Fs, modes, mode_mask):
+    def fp_sweep(Fs, modes, mode_mask, dd_weights):
         Fs = list(Fs)
         for k in range(nd):
             Fs[k] = _solve_dim(P, k, Fs, modes, mode_mask, solver=solver,
-                               cg_iters=cg_iters)
+                               cg_iters=cg_iters, dd_weights=dd_weights)
         return Fs
 
     def enrich(modes, n_modes, init=None):
@@ -414,8 +465,9 @@ def make_enrich_step(problem: SeparatedProblem, max_fp_it=50, tol_fp=1e-5,
                 f = torch.as_tensor(np.asarray(init[d])).to(dtype=dt).to(dev)
                 f = f * P.bc_masks[d]
                 Fs.append(f / _norm_d(P, d, f))
+        dd_weights = _DDWeights(P.rhs) if P.rhs[0].ndim == 3 else None
         if residual_check:
-            res = residual_norm(Fs, modes, mode_mask)
+            res = residual_norm(Fs, modes, mode_mask, dd_weights)
         else:
             # skip the residual; its semantics only matter for degenerate
             # zero-residual problems (solver.py:391-395)
@@ -423,7 +475,7 @@ def make_enrich_step(problem: SeparatedProblem, max_fp_it=50, tol_fp=1e-5,
 
         err, fp_its = math.inf, 0
         while err >= tol_fp and fp_its < max_fp_it:  # NaN stops, as in JAX
-            Fs_new = fp_sweep(Fs, modes, mode_mask)
+            Fs_new = fp_sweep(Fs, modes, mode_mask, dd_weights)
             # 'norm' stop (solver.py:812-871): product inner products
             newnew = newold = oldold = 1.0
             for d in range(nd):
@@ -472,13 +524,22 @@ class SeparatedPGD:
     get_Fsinit, seeded per mode) or ``fn(mode, sizes) → per-dim vectors``.
     A mode whose fixed point collapses (normU → 0/NaN) is retried
     ``stall_retries`` times from a randomized init.  ``device``: CUDA by
-    default; without it this raises unless ``device="cpu"`` is asked for."""
+    default; without it this raises unless ``device="cpu"`` is asked for.
+
+    ``rhs_f64`` / ``rhs_comp`` (exclusive; both need the host f64 problem):
+    keep the rhs stacks in f64, or as double-f32 pairs (R, n, 2)
+    contracted by :mod:`.ops.ddf32`, on the device, while everything else
+    runs in ``dtype``.  Residual-cascade stages ship rows of magnitude ~1/s
+    that cancel to O(1) in the load contraction; plain f32 floors deep
+    cascades at ~1.5e-6 there.  The H100 has f64 units, so ``rhs_f64``
+    runs on the card (the JAX package needs an x64 host backend for it)."""
 
     def __init__(self, problem: SeparatedProblem, n_max: int = 20,
                  tol: float = 1e-10, tol_fp: float = 1e-5, max_fp_it: int = 50,
                  dtype=None, solver: str = "lu", cg_iters: int = 30,
                  residual_check: bool = True, fp_init="ones",
-                 stall_retries: int = 1, device="cuda"):
+                 stall_retries: int = 1, rhs_f64: bool = False,
+                 rhs_comp: bool = False, device="cuda"):
         if solver not in ("lu", "cg", "chol"):
             raise ValueError(
                 f"unknown solver {solver!r}: expected 'lu', 'cg' or 'chol'"
@@ -488,8 +549,28 @@ class SeparatedPGD:
                 f"unknown fp_init {fp_init!r}: expected 'ones', 'randomized' "
                 "or a callable"
             )
+        if rhs_comp and rhs_f64:
+            raise ValueError("rhs_comp and rhs_f64 are exclusive")
+        rhs0 = problem.rhs[0]
+        if (rhs_comp or rhs_f64) and not (
+            isinstance(rhs0, np.ndarray) and rhs0.dtype == np.float64
+        ):
+            # a stack already cast to f32 has no low parts left to keep:
+            # the flag would silently do nothing
+            raise ValueError(
+                "rhs_f64/rhs_comp need the HOST float64 problem (builders' "
+                "convention) — this problem's rhs is already "
+                f"{'device' if not isinstance(rhs0, np.ndarray) else str(rhs0.dtype)}"
+            )
         self.device = get_device(device)
-        self.problem = problem.as_device(dtype, self.device)
+        if rhs_comp:
+            # split from the host f64 stack before any cast
+            rhs = [ddf32.dd_from_f64(r) for r in problem.rhs]
+        elif rhs_f64:
+            rhs = list(problem.rhs)
+        else:
+            rhs = None
+        self.problem = problem.as_device(dtype, self.device, rhs=rhs)
         self.dtype = self.problem.ops[0].dtype
         self.n_max = n_max
         self.tol = tol

@@ -1,5 +1,6 @@
 """Per-enrichment metrics (counterpart of
-``pgdrome_tpu/utils/profiling.py::EnrichmentMetrics``).
+``pgdrome_tpu/utils/profiling.py::EnrichmentMetrics``) and, for the
+port's cascades, a per-stage time split (:class:`StageMetrics`).
 
 PyTorch returns before the device finishes, so on a CUDA device each
 step's wall time ends at a device synchronise: it is the time of the work,
@@ -53,3 +54,33 @@ class EnrichmentMetrics:
             ),
             "final_amplitude": self.rows[-1].get("amplitude"),
         }
+
+
+class StageMetrics:
+    """Per-stage time split of a residual cascade
+    (``recipes.adaptive_cascade(metrics=...)``)::
+
+        m = StageMetrics(device)
+        row = m.stage(si)
+        with m.timed(row, "solve_s"):
+            ...
+        m.rows  # [{"stage": 1, "solve_s": ..., "fp_its": [...]}, ...]
+
+    Each timed part ends at a device synchronise on a CUDA device, so it
+    is the time of the work, not of its enqueue."""
+
+    def __init__(self, device="cpu"):
+        self.device = torch.device(device)
+        self.rows = []
+
+    def stage(self, si) -> dict:
+        self.rows.append({"stage": si})
+        return self.rows[-1]
+
+    @contextlib.contextmanager
+    def timed(self, row, key):
+        t0 = time.perf_counter()
+        yield
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        row[key] = time.perf_counter() - t0

@@ -1,6 +1,7 @@
 """The sweep's CUDA kernels (the factor kernel with its fused narrow
 product, the tensor-core GEMM) against their plain PyTorch version, on the
-card.
+card; the solver on the card against the f64 CPU solve; the compensated
+dd path on the card against the CPU, bit for bit.
 
 These tests need an NVIDIA GPU with ``nvcc`` (sm_90a); without one they
 skip.  They import no JAX, so they run on a machine that has only the
@@ -450,3 +451,85 @@ def test_two_stage_elliptic_served_by_kernel(cuda):
     f64 = _fields64(Vs, res, tf, samples.astype(np.float64))
     err = np.linalg.norm(out.cpu().double().numpy() - f64, axis=1) / np.linalg.norm(f64, axis=1)
     assert err.max() < 1e-6
+
+
+# ----------------------------------------------- the compensated rhs path
+
+def test_dd_functions_equal_cpu(cuda):
+    # plain elementwise torch, one rounding a step: the card rounds every
+    # step as the CPU does, so every dd function and the dd (R, n, 2)
+    # contraction equal the CPU results bit for bit
+    from pgdrome_tpu_torch.ops import ddf32 as TD
+    from pgdrome_tpu_torch.separated import _DDWeights, _contract_rhs
+
+    rng = np.random.default_rng(40)
+
+    def f32(*shape):
+        return (rng.standard_normal(shape) * 10.0 ** rng.uniform(-6, 6, shape)).astype(np.float32)
+
+    def dd(*shape):
+        d = TD.dd_from_f64(rng.standard_normal(shape) * 10.0 ** rng.uniform(-6, 6, shape))
+        return d[..., 0], d[..., 1]
+
+    n = 65_536
+    stack = TD.dd_from_f64(rng.standard_normal((4096, 129)) * 10.0 ** rng.integers(-5, 5, (4096, 1)))
+    cases = {
+        "two_sum": (f32(n), f32(n)), "fast_two_sum": None, "_split": (f32(n),),
+        "two_prod": (f32(n), f32(n)), "dd_add": dd(n) + dd(n), "dd_mul": dd(n) + dd(n),
+        "dd_mul_f": dd(n) + (f32(n),), "dd_sum": dd(2049, 129), "dd_dot": (stack, f32(129)),
+        "dd_contract": dd(4096) + (stack,),
+    }
+    a, b = f32(n), f32(n)
+    cases["fast_two_sum"] = (np.where(np.abs(a) >= np.abs(b), a, b),
+                             np.where(np.abs(a) >= np.abs(b), b, a))
+    for name, args in cases.items():
+        fn = getattr(TD, name)
+        cpu = fn(*(torch.from_numpy(np.ascontiguousarray(x)) for x in args))
+        gpu = fn(*(torch.from_numpy(np.ascontiguousarray(x)).to(cuda) for x in args))
+        cpu, gpu = (o if isinstance(o, tuple) else (o,) for o in (cpu, gpu))
+        for x, y in zip(cpu, gpu):
+            assert torch.equal(x.view(torch.int32), y.cpu().view(torch.int32)), name
+    rhs = [TD.dd_from_f64(rng.standard_normal((4096, m))) for m in (2047, 129, 129)]
+    Fs = [f32(m) for m in (2047, 129, 129)]
+    for k in range(3):
+        cpu = _contract_rhs([torch.from_numpy(r) for r in rhs],
+                            [torch.from_numpy(f) for f in Fs], k, 3)
+        g_rhs = [torch.from_numpy(r).to(cuda) for r in rhs]
+        gpu = _contract_rhs(g_rhs, [torch.from_numpy(f).to(cuda) for f in Fs], k, 3,
+                            _DDWeights(g_rhs))
+        assert gpu.is_cuda and torch.equal(cpu.view(torch.int32), gpu.cpu().view(torch.int32))
+
+
+@pytest.mark.parametrize("flag", ["rhs_comp", "rhs_f64"])
+def test_cancelling_rhs_solve_on_card(cuda, flag):
+    # the cancelling problem of tests/unit/test_ddf32.py:130 solved in f32
+    # on the card with its stack in dd or f64 there: within 2e-6 of the
+    # f64 CPU solve, where the plain f32 contraction is > 100× further off
+    from pgdrome_tpu_torch.separated import SeparatedPGD, SeparatedProblem
+
+    _, _, pc, _ = _elliptic(1)
+    C = 3.0e5
+    g0, g1 = (np.asarray(r, dtype=np.float64) for r in pc.rhs)
+    sep_c = SeparatedProblem(ops=list(pc.ops), rhs=[np.concatenate([(1.0 + C) * g0, -C * g0]),
+                                                    np.concatenate([g1, g1])],
+                             mass=list(pc.mass), bc_dofs=list(pc.bc_dofs))
+    kw = dict(n_max=4, tol=0.0, tol_fp=1e-7, max_fp_it=40, residual_check=False)
+    ref = SeparatedPGD(pc, dtype=np.float64, device="cpu", **kw).solve_fused()
+    solver = SeparatedPGD(sep_c, dtype=np.float32, device=cuda, **{flag: True}, **kw)
+    assert solver.problem.rhs[0].is_cuda
+    assert solver.problem.rhs[0].dtype == (torch.float32 if flag == "rhs_comp" else torch.float64)
+    mixed = solver.solve_fused()
+    plain = SeparatedPGD(sep_c, dtype=np.float32, device=cuda, **kw).solve_fused()
+
+    def tensor(res):
+        K = res.n_modes
+        return np.einsum("ki,kj->ij", res.modes[0][:K].double().cpu().numpy(),
+                         res.modes[1][:K].double().cpu().numpy())
+
+    t_ref = tensor(ref)
+    scale = np.abs(t_ref).max()
+    err_mixed = np.abs(tensor(mixed) - t_ref).max() / scale
+    err_plain = np.abs(tensor(plain) - t_ref).max() / scale
+    assert mixed.modes[0].is_cuda
+    assert err_mixed < 2e-6, err_mixed
+    assert err_plain > 100 * err_mixed, (err_plain, err_mixed)

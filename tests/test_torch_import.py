@@ -2,7 +2,8 @@
 
 A subprocess imports ``pgdrome_tpu_torch`` and every submodule and reports
 what ``sys.modules`` then holds; a source scan checks every import
-statement of the package and of ``chip_smoke.py``.
+statement of the package and of its two scripts, ``chip_smoke.py`` and
+``run_frontier_torch.py``.
 """
 
 import ast
@@ -16,7 +17,8 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "pgdrome_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "h5py", "pgdrome_tpu")
-SOURCES = sorted(p.relative_to(ROOT).as_posix() for p in PKG.rglob("*.py")) + ["chip_smoke.py"]
+SOURCES = sorted(p.relative_to(ROOT).as_posix() for p in PKG.rglob("*.py")) + [
+    "chip_smoke.py", "run_frontier_torch.py"]
 MODULES = sorted(
     p.relative_to(ROOT).with_suffix("").as_posix().replace("/", ".").removesuffix(".__init__")
     for p in PKG.rglob("*.py")
