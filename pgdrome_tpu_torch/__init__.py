@@ -13,9 +13,11 @@ residual restarts, compression and the Galerkin update on the host, as
 one recipe in :mod:`.recipes`; the error-driven cascade and the d-parameter
 frontier drive (:func:`.recipes.adaptive_cascade`,
 :func:`.recipes.highd_frontier`: corner-boosted and corner-seeded stages,
-rhs stacks kept in f64 or compensated double-f32, :mod:`.ops.ddf32`);
-dense verification against per-sample FEM
-(:func:`.models.problems.elliptic_dense_verifier`); the weights brought
+rhs stacks kept in f64 or compensated double-f32, :mod:`.ops.ddf32`; the
+anchored-ANOVA start, :mod:`.anova`; the residual screener's verification
+from 8 parameters on); dense verification against per-sample FEM
+(:func:`.models.problems.elliptic_dense_verifier`); residual indicators,
+calibrated and guaranteed error bounds (:mod:`.parallel.certify`); the weights brought
 across from the JAX package's saved states (:mod:`.convert`); and the
 batched field / sensor / moment sweeps (:mod:`.parallel.vademecum`,
 :mod:`.serving`) whose hot loop is one hand-written CUDA kernel
@@ -51,6 +53,7 @@ from pgdrome_tpu_torch.models.problems import (
     corner_seeded_init,
     elliptic_dense_verifier,
 )
+from pgdrome_tpu_torch.anova import anova_init
 from pgdrome_tpu_torch.recipes import (
     adaptive_cascade,
     highd_frontier,
@@ -87,6 +90,7 @@ __all__ = [
     "combine_results",
     "elliptic_dense_verifier",
     "corner_seeded_init",
+    "anova_init",
     "residual_cascade",
     "adaptive_cascade",
     "two_stage_elliptic",

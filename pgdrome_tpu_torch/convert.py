@@ -63,8 +63,10 @@ def frontier_spaces(num_params, n_x=1024, n_p=128):
 def frontier_vademecum(path, num_params, n_x=1024, n_p=128, device="cuda",
                        dtype=torch.float32, method="auto"):
     """A ready :class:`~pgdrome_tpu_torch.serving.Vademecum` for a saved
-    parametric-elliptic frontier state (e.g. ``states/frontier_d5_state.npz``
-    with ``num_params=5``): host build, dim-0 transform, modes mapped to full
+    parametric-elliptic frontier state (``states/frontier_d5_state.npz`` or
+    the ANOVA-started ``states/frontier_anova_d5_state.npz`` with
+    ``num_params=5``, ``states/frontier_anova_d10_state.npz`` with
+    ``num_params=10``): host build, dim-0 transform, modes mapped to full
     dofs and put on ``device``."""
     from pgdrome_tpu_torch.config import get_device
     from pgdrome_tpu_torch.serving import Vademecum

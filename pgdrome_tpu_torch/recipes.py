@@ -9,7 +9,9 @@ deployed rank and a Galerkin update, both in host f64.
 :func:`adaptive_cascade` drives residual restarts until a verified bound
 (boosted, corner-seeded and compensated stages where the errors ask for
 them), and :func:`highd_frontier` packages it for the d-parameter elliptic
-vademecum with dense FEM verification.
+vademecum: dense FEM verification below 8 parameters, the residual
+screener's (:func:`screened_verification`, :func:`screened_final`) from
+8 on, and optionally the anchored-ANOVA start (:mod:`.anova`).
 """
 
 from __future__ import annotations
@@ -296,11 +298,6 @@ def two_stage_elliptic(sep: SeparatedProblem, n_stage1: int = 64,
     return res, tf
 
 
-# the parameter count from which the JAX package verifies by the residual
-# screener (``highd_frontier(screen_from=8)``)
-_SCREEN_FROM = 8
-
-
 def frontier_setup(num_params, boost, *, n_x=1024, n_p=128):
     """The frontier's host build on one boundary measure:
     ``parametric_elliptic(n_x, n_p, num_params, degree_x=2,
@@ -336,13 +333,104 @@ def frontier_spaces(num_params, *, n_x=1024, n_p=128):
         FunctionSpace(IntervalMesh(n_p, 0.0, 1.0), "P", 1) for _ in range(num_params)]
 
 
+def screened_verification(sep_base, Vs, verifier, *, max_rank, screen_top_k=32,
+                          screener_cap=3072, n_screen_edges=2048, log=None,
+                          device="cuda"):
+    """The frontier's screened verification for high parameter counts
+    (``highd_frontier`` from ``screen_from`` parameters on): the f32
+    residual screener (:func:`~pgdrome_tpu_torch.parallel.certify.
+    make_screener` on ``sep_base``, its mode cap the larger of
+    ``screener_cap`` and ``max_rank`` rounded up to 128) ranks all 2^d
+    inset corners plus ``n_screen_edges`` edge/face candidates, and
+    :func:`~pgdrome_tpu_torch.parallel.certify.screened_verify` measures the
+    worst ``screen_top_k`` with the dense ``verifier``'s FEM and 32 interior
+    points always.  The edge candidates and the interior points are drawn
+    from ``default_rng(424242)`` as the JAX package draws them, in the same
+    order.  Returns a namespace: ``verify`` (for
+    :func:`adaptive_cascade`), ``screen``, ``verifier``, ``corners``,
+    ``edge_cands``, ``interior``, ``screen_top_k``."""
+    from types import SimpleNamespace
+
+    from pgdrome_tpu_torch.models.problems import box_corners
+    from pgdrome_tpu_torch.parallel.certify import make_screener, screened_verify
+
+    num_params = len(Vs) - 1
+    grid = Vs[1].tabulate_dof_coordinates()[:, 0]
+    lo, hi = grid[1], grid[-2]
+    corners = box_corners(lo, hi, num_params)
+    rng = np.random.default_rng(424242)
+    edge_cands = grid[rng.integers(1, len(grid) - 1, size=(n_screen_edges, num_params))]
+    for r in range(n_screen_edges):
+        k = int(rng.integers(1, num_params))
+        dims = rng.choice(num_params, size=k, replace=False)
+        edge_cands[r, dims] = np.where(rng.integers(0, 2, size=k) == 0, lo, hi)
+    interior = grid[rng.integers(1, len(grid) - 1, size=(32, num_params))]
+    # the cap covers the deepest rank the run can reach: an overflow
+    # would raise inside verify, mid-cascade
+    cap = max(int(screener_cap), -(-int(max_rank) // 128) * 128)
+    screen = make_screener(sep_base, Vs, n_modes_cap=cap, device=device)
+    verify = screened_verify(
+        screen, verifier.sample_errors, np.concatenate([corners, edge_cands]),
+        top_k=screen_top_k, safety=1.5, interior_samples=interior, log=log,
+    )
+    return SimpleNamespace(verify=verify, screen=screen, verifier=verifier,
+                           corners=corners, edge_cands=edge_cands, interior=interior,
+                           screen_top_k=screen_top_k)
+
+
+def screened_final(sv, best, final_fem_corners=1024):
+    """The screened run's final confirmation of ``best``
+    (:func:`screened_verification`'s namespace ``sv``): FEM at the
+    ``final_fem_corners`` worst-screened corners and at the worst
+    ``screen_top_k`` edge candidates, 1.5×-safety η estimates for the
+    unmeasured rest of each, FEM at the 32 interior points.  Returns
+    ``(final, measured)``: ``final`` the report's keys, its ``max`` over
+    every measured maximum and estimate; ``measured`` the FEM-measured
+    corner and edge points with their screen values and errors."""
+    final = {}
+    corners, edge_cands, top_k = sv.corners, sv.edge_cands, sv.screen_top_k
+    rs = sv.screen(best, corners)
+    k = min(final_fem_corners, len(corners))
+    order = np.argsort(rs)
+    worst = corners[order[-k:]]
+    t0 = time.perf_counter()
+    te = sv.verifier.sample_errors(best, worst)
+    final["corners_fem_max"] = float(te.max())
+    final["corners_fem_n"] = int(k)
+    final["corners_fem_s"] = round(time.perf_counter() - t0, 1)
+    if k < len(corners):
+        eta = 1.5 * float((te / np.maximum(rs[order[-k:]], 1e-300)).max())
+        final["corners_rest_estimate"] = float(eta * rs[order[:-k]].max())
+    ev = sv.screen(best, edge_cands)
+    e_order = np.argsort(ev)
+    worst_e = edge_cands[e_order[-top_k:]]
+    te_e = sv.verifier.sample_errors(best, worst_e)
+    final["edges_fem_max"] = float(te_e.max())
+    final["edges_fem_n"] = int(len(worst_e))
+    if top_k < len(edge_cands):
+        # the unmeasured edge candidates get an η estimate too: the f32
+        # screener can under-rank a pocket
+        eta_e = 1.5 * float((te_e / np.maximum(ev[e_order[-top_k:]], 1e-300)).max())
+        final["edges_rest_estimate"] = float(eta_e * ev[e_order[:-top_k]].max())
+    final["interior_fem_max"] = float(sv.verifier.sample_errors(best, sv.interior).max())
+    final["max"] = max(final.get(key, 0.0) for key in (
+        "corners_fem_max", "edges_fem_max", "interior_fem_max",
+        "corners_rest_estimate", "edges_rest_estimate"))
+    measured = {"corners": (worst, rs[order[-k:]], te),
+                "edges": (worst_e, ev[e_order[-top_k:]], te_e)}
+    return final, measured
+
+
 def highd_frontier(num_params, *, bound=1e-6, n_x=1024, n_p=128,
                    n_stage1=128, stage_budget=128, max_stages=24,
                    minutes=None, base_boost=(8.0, 6),
                    window_boost=(16.0, 6), boost_margin=1.2, n_edge=16,
+                   screen_from=8, screen_top_k=32, screener_cap=3072,
+                   n_screen_edges=2048, final_fem_corners=1024,
                    state_path=None, init_result=None, dtype=np.float32,
-                   log=None, artifact_path=None, seed_always=False,
-                   metrics=None, device="cuda"):
+                   log=None, artifact_path=None, anova_order=0,
+                   anova_tol_pair=2e-7, seed_always=False, metrics=None,
+                   device="cuda"):
     """The dimensionality-frontier drive: build the ``num_params``-parameter
     elliptic vademecum (``parametric_elliptic(n_x, n_p, num_params,
     degree_x=2)`` preconditioned in host f64, once on the ``base_boost``
@@ -350,32 +438,34 @@ def highd_frontier(num_params, *, bound=1e-6, n_x=1024, n_p=128,
     :func:`adaptive_cascade` with the frontier's discipline — corner-boosted
     and corner-seeded stages while the corners bind, compensated dd rhs
     stacks padded to 4096 rows from stage 2 on — and verify the best result
-    against per-sample f64 FEM at all 2^d inset corners, ``n_edge`` edge
-    points and 16 interior points for each of 4 seeds.
+    against per-sample f64 FEM.
 
-    Returns ``(best_result, report)``; the report (the JAX package's keys,
-    ``"anova": None``) carries the verified maxima, the rank and the
-    per-stage history, and is written as JSON to ``artifact_path``.  A run
-    resumed through ``init_result`` extends that artifact's history and
-    wall time.  ``state_path``: after every stage the raw combination is
-    saved there (``m0 … m{d}``, ``n_modes``, ``amplitudes``, ``alpha``,
-    ``fp_its``, ``normU0``, ``stage``; :func:`~pgdrome_tpu_torch.convert.
-    load_state_npz` reads it).  The host builds go through
+    * Verification below ``screen_from`` parameters: all 2^d inset
+      corners, ``n_edge`` edge points and 16 interior points for each of 4
+      seeds, every stage and at the end.  From ``screen_from`` on:
+      :func:`screened_verification` each stage, and at the end
+      :func:`screened_final` (FEM at the ``final_fem_corners``
+      worst-screened corners and the worst ``screen_top_k`` edges, η
+      estimates for the rest, all counted in the claimed max).
+    * ``anova_order`` (1 or 2): start from the anchored-ANOVA surrogate
+      (:func:`~pgdrome_tpu_torch.anova.anova_init` of the nodal build,
+      ``anova_tol_pair``, dim-0 factors in the base build's basis, through
+      the setup cache under its own key) instead of a stage-1 solve; stage
+      1 then verifies it, and ``report["anova"]`` is its report.
+
+    Returns ``(best_result, report)``; the report (the JAX package's keys)
+    carries the verified maxima, the rank and the per-stage history, and
+    is written as JSON to ``artifact_path``.  A run resumed through
+    ``init_result`` extends that artifact's history and wall time.
+    ``state_path``: after every stage the raw combination is saved there
+    (``m0 … m{d}``, ``n_modes``, ``amplitudes``, ``alpha``, ``fp_its``,
+    ``normU0``, ``stage``; :func:`~pgdrome_tpu_torch.convert.load_state_npz`
+    reads it).  The host builds go through
     :func:`~pgdrome_tpu_torch.utils.setup_cache.cached_setup` (off unless
     ``$PGDROME_SETUP_CACHE`` is set).  ``metrics``: as in
-    :func:`adaptive_cascade`.
-
-    From 8 parameters on the JAX package verifies by a residual screener
-    (``parallel/certify.py``) that the port does not have yet, so
-    ``num_params >= 8`` raises; nor does the port take its ANOVA start."""
+    :func:`adaptive_cascade`."""
     from pgdrome_tpu_torch.models.problems import box_corners, elliptic_dense_verifier
 
-    if num_params >= _SCREEN_FROM:
-        raise ValueError(
-            f"highd_frontier: num_params={num_params} >= {_SCREEN_FROM} needs "
-            "the screened verification of parallel/certify.py, which "
-            "pgdrome_tpu_torch does not have yet"
-        )
     device = get_device(device)  # raise before the host builds, not after
     say = log or (lambda *a: None)
     t_run0 = time.perf_counter()
@@ -387,13 +477,49 @@ def highd_frontier(num_params, *, bound=1e-6, n_x=1024, n_p=128,
         builds.append(build)
     (sep_base, tf), (sep_boost, _) = builds
 
+    anova_report = None
+    if anova_order and init_result is None:
+        # the anchored-ANOVA start: the near-additive solution's axis and
+        # pair structure built exactly, so the cascade enriches only the
+        # interaction remainder
+        from pgdrome_tpu_torch.anova import anova_init
+        from pgdrome_tpu_torch.models.problems import parametric_elliptic
+        from pgdrome_tpu_torch.utils.setup_cache import cached_setup
+
+        def _build_anova():
+            sep_nodal, _ = parametric_elliptic(n_x=n_x, n_p=n_p, num_params=num_params,
+                                               degree_x=2)
+            return anova_init(sep_nodal, order=anova_order, tf=tf,
+                              tol_pair=anova_tol_pair, log=say)
+
+        (init_result, anova_report), status = cached_setup(
+            _build_anova,
+            key_data=["torch_anova_init_v1", n_x, n_p, num_params, anova_order,
+                      anova_tol_pair],
+            code_objects=(anova_init, parametric_elliptic),
+        )
+        say(f"anova init cache {status}: order {anova_order} "
+            f"rank {init_result.n_modes}")
+
     Vs = frontier_spaces(num_params, n_x=n_x, n_p=n_p)
     grid = Vs[1].tabulate_dof_coordinates()[:, 0]
     lo, hi = grid[1], grid[-2]
     corners = box_corners(lo, hi, num_params)
-    verify = elliptic_dense_verifier(
-        Vs, tf, n_random=16, seeds=(7, 101, 1234, 777), n_edge=n_edge,
+    screened = num_params >= screen_from
+    verifier = elliptic_dense_verifier(
+        Vs, tf, n_random=16, seeds=(7, 101, 1234, 777),
+        corner_cap=(2 if screened else None), n_edge=(0 if screened else n_edge),
     )
+    verify = verifier
+    if screened:
+        start_rank = init_result.n_modes if init_result is not None else 0
+        max_rank = (start_rank + (0 if start_rank else n_stage1)
+                    + stage_budget * max_stages)
+        sv = screened_verification(
+            sep_base, Vs, verifier, max_rank=max_rank, screen_top_k=screen_top_k,
+            screener_cap=screener_cap, n_screen_edges=n_screen_edges, log=say,
+            device=device)
+        verify = sv.verify
 
     def checkpoint(stage_line, raw):
         say(json.dumps({k: v for k, v in stage_line.items()
@@ -420,13 +546,16 @@ def highd_frontier(num_params, *, bound=1e-6, n_x=1024, n_p=128,
     )
 
     # final verification of the best result: measured, corner-inclusive
-    v = verify(best)
-    final = {
-        "corners_fem_max": float(v["corners"]),
-        "corners_fem_n": int(len(corners)),
-        "interior_fem_max": float(v["interior"]),
-    }
-    final["max"] = max(final["corners_fem_max"], final["interior_fem_max"])
+    if screened:
+        final, _ = screened_final(sv, best, final_fem_corners)
+    else:
+        v = verifier(best)
+        final = {
+            "corners_fem_max": float(v["corners"]),
+            "corners_fem_n": int(len(corners)),
+            "interior_fem_max": float(v["interior"]),
+        }
+        final["max"] = max(final["corners_fem_max"], final["interior_fem_max"])
 
     # a resumed leg extends the prior artifact's history, so the written
     # JSON carries the whole error-vs-rank record
@@ -447,9 +576,9 @@ def highd_frontier(num_params, *, bound=1e-6, n_x=1024, n_p=128,
         "n_x": int(n_x), "n_p": int(n_p),
         "bound_target": float(bound),
         "rank": int(best.n_modes),
-        "anova": None,
+        "anova": anova_report,
         "verified": final,
-        "screened_verification": False,
+        "screened_verification": bool(screened),
         "legs": leg,
         "history": prior_hist + [
             dict({k: (float(v)

@@ -183,6 +183,25 @@ class Dim0Transform:
         out[:, self.interior] = u_int
         return out
 
+    def full_to_modes(self, modes_full):
+        """(n_max, n_full) nodal dof modes (a tensor or an array) →
+        (n_max, n_int) host f64 transformed modes, ``y = Lᵀ u_int``: the
+        exact inverse of :meth:`modes_to_full` for modes supported on the
+        interior dofs, by a banded (or dense) multiply, never a triangular
+        solve.  Brings externally built modes (the anchored-ANOVA start,
+        :mod:`~pgdrome_tpu_torch.anova`) into a preconditioned cascade's
+        basis."""
+        u = host_f64(modes_full)[:, self.interior].T
+        if self.banded is not None:
+            _, Ub = self.banded  # Lᵀ in scipy's upper-banded layout
+            ku = Ub.shape[0] - 1
+            n = u.shape[0]
+            y = np.zeros_like(u)
+            for mo in range(ku + 1):
+                y[: n - mo] += Ub[ku - mo, mo:n][:, None] * u[mo:n]
+            return y.T
+        return (self.dense_L.T @ u).T
+
 
 def precondition_dim0(sep: SeparatedProblem, dtype=None):
     """:func:`precondition_dim` on dimension 0 (the usual space dim)."""

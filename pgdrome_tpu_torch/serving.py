@@ -12,7 +12,10 @@ decomposition, so the container holds the trained modes on the device
   at fixed points (the dim-0 modes tabled there once, small LRU cache);
 * :meth:`Vademecum.factor_moments` / :meth:`Vademecum.moments` — streaming
   Monte-Carlo mean and variance fields, reduced on the device to K-sized
-  factor moments and finished on the host in f64.
+  factor moments and finished on the host in f64;
+* :meth:`Vademecum.residuals` / :meth:`Vademecum.error_bound` — certified
+  error queries through an attached
+  :class:`~pgdrome_tpu_torch.parallel.certify.Certifier`.
 
 Energy-basis solves (``precondition_dim0``) pass their transform once at
 construction.  HDF5 ``save``/``load`` are not ported yet.
@@ -136,6 +139,7 @@ class Vademecum:
         self._sensor_cache = OrderedDict()
         self._sensor_cache_max = 8
         self._moments_fn = None
+        self._certifier = None
 
     def _sweep(self, out_dtype=None):
         from pgdrome_tpu_torch.parallel.vademecum import make_sweep_fn
@@ -250,3 +254,29 @@ class Vademecum:
         cov = C - torch.outer(fbar, fbar)
         var = torch.einsum("ki,ki->i", cov @ M0, M0)
         return mean, torch.clamp(var, min=0.0)
+
+    def attach_certifier(self, certifier):
+        """Attach a :class:`~pgdrome_tpu_torch.parallel.certify.Certifier`
+        so :meth:`residuals` / :meth:`error_bound` serve certified error
+        queries beside the fields; returns the vademecum."""
+        self._certifier = certifier
+        return self
+
+    def _require_certifier(self):
+        if self._certifier is None:
+            raise RuntimeError(
+                "no certifier attached — build one with "
+                "parallel.certify.make_certifier(sep, spaces, result, tf=tf) "
+                "and attach_certifier(...)"
+            )
+        return self._certifier
+
+    def residuals(self, samples):
+        """Per-sample relative algebraic residuals, host (B,) float64 (an
+        attached certifier required)."""
+        return self._require_certifier().residuals(samples)
+
+    def error_bound(self, samples):
+        """Calibrated per-sample error bounds η·residual, host (B,) float64
+        (an attached, calibrated certifier required)."""
+        return self._require_certifier().bound(samples)

@@ -4,6 +4,12 @@
 write its verified artifact.
 
     python3 run_frontier_torch.py --out DIR [--minutes 40] [--resume]
+        [--anova 2 --budget 96]
+
+``--anova 2`` starts from the anchored-ANOVA surrogate (mean, axes and
+pairs; ``pgdrome_tpu_torch/anova.py``), as ``scripts/run_frontier.py
+--anova`` does for the JAX package; ``--budget`` sets the modes a stage
+(128 by default; the JAX package's ANOVA d=5 record ran 96).
 
 It runs on the CUDA device (``--device cpu`` with ``--n-x``/``--n-p`` cut
 down for a rehearsal).  It writes, under ``--out`` (made if missing):
@@ -40,6 +46,9 @@ def main() -> int:
     ap.add_argument("--out", required=True, help="directory for the outputs")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--anova", type=int, default=0,
+                    help="anchored-ANOVA start order (0 = off, 2 = mean + axes + pairs)")
+    ap.add_argument("--budget", type=int, default=128, help="modes a stage")
     args = ap.parse_args()
 
     import numpy as np
@@ -71,6 +80,7 @@ def main() -> int:
     t0 = time.perf_counter()
     best, report = highd_frontier(
         5, n_x=args.n_x, n_p=args.n_p, minutes=args.minutes,
+        stage_budget=args.budget, anova_order=args.anova,
         state_path=str(state), init_result=init, artifact_path=str(artifact),
         log=log, metrics=metrics, device=device,
     )

@@ -8,12 +8,18 @@ stages take all three kinds the d=5 run takes: plain f32-style, compensated,
 then boosted, corner-seeded and compensated.  Ranks and the boosted /
 seeded / rhs_comp flags are equal per stage; errors and the best result's
 amplitudes agree to rtol 1e-8 (measured ~1e-10 and ~1e-15); the report,
-the state npz and the artifact have the reference's keys.  The rest is the
-port alone: ``adaptive_cascade``'s decisions on scripted errors,
+the state npz and the artifact have the reference's keys.  The same drive
+with the screened verification (``screen_from=3``) and from the
+anchored-ANOVA start (``anova_order=2``) in both packages: FEM-measured
+errors to 1e-8, the f32 screener's estimates to 1e-3; the screened
+candidates drawn as the reference draws them; the committed ANOVA states
+read by ``load_state_npz``.  The rest is the port alone:
+``adaptive_cascade``'s decisions on scripted errors,
 ``corner_seeded_init``, a resumed leg, the setup cache.
 """
 
 import json
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -32,6 +38,10 @@ from pgdrome_tpu_torch.models.problems import parametric_elliptic
 from pgdrome_tpu_torch.utils import setup_cache as t_cache
 
 RTOL = 1e-8
+# f64 floor of a verified error: the reconstruction and the FEM solve each
+# carry ~1e-15·|u|, so errors near 1e-7 (the ANOVA-started stages) agree
+# to ~1e-15 absolute, not to 1e-8 of themselves
+F64_FLOOR = 1e-14
 TOY = dict(n_x=32, n_p=16, n_stage1=8, stage_budget=8, max_stages=3,
            dtype=np.float64, base_boost=(1.0, 6))
 FLAGS = ("boosted", "seeded", "rhs_comp")
@@ -131,9 +141,146 @@ def test_resumed_leg_extends_artifact(runs, tmp_path):
     assert json.loads(art.read_text())["legs"] == 2
 
 
-def test_screened_range_raises():
-    with pytest.raises(ValueError, match="parallel/certify.py"):
-        TR.highd_frontier(8, device="cpu")
+SCREENED = dict(screen_from=3, screen_top_k=4, screener_cap=64, n_screen_edges=48)
+# the screener's f32 estimates (η·residual) in both packages: true f32
+# products summed in other orders, read through a ~1e-4 cancellation
+EST_RTOL = 1e-3
+
+
+@pytest.fixture(scope="module")
+def branch_runs(monkeypatch_module):
+    """``highd_frontier(3)`` at the toy size in both packages, once with the
+    screened verification (``screen_from=3``) and once from the
+    anchored-ANOVA start (``anova_order=2``)."""
+    monkeypatch_module.delenv("PGDROME_SETUP_CACHE", raising=False)
+    out = {}
+    for name, kw in (("screened", SCREENED), ("anova", dict(anova_order=2))):
+        out[name] = [fn(3, **TOY, **kw, **extra)
+                     for fn, extra in ((JR.highd_frontier, {}),
+                                       (TR.highd_frontier, {"device": "cpu"}))]
+    return out
+
+
+def test_screened_branch(branch_runs):
+    (jb, jr), (tb, tr) = branch_runs["screened"]
+    assert tr["screened_verification"] is jr["screened_verification"] is True
+    assert tr.keys() == jr.keys() and tr["anova"] is None
+    jh, th = jr["history"], tr["history"]
+    assert [h["rank"] for h in th] == [h["rank"] for h in jh] == [8.0, 16.0, 24.0]
+    for a, b in zip(jh, th):
+        assert b.keys() == a.keys() and b["screened"] == a["screened"] == 1.0
+        assert [b[f] for f in FLAGS] == [a[f] for f in FLAGS]
+        for key in ("interior", "measured_max"):  # FEM-measured
+            np.testing.assert_allclose(b[key], a[key], rtol=RTOL)
+        for key in ("corners", "max", "eta", "estimated_max"):  # screener estimates
+            np.testing.assert_allclose(b[key], a[key], rtol=EST_RTOL)
+    jv, tv = jr["verified"], tr["verified"]
+    assert tv.keys() == jv.keys()
+    assert tv["corners_fem_n"] == jv["corners_fem_n"] == 8
+    assert tv["edges_fem_n"] == jv["edges_fem_n"] == 4
+    for key in ("corners_fem_max", "edges_fem_max", "interior_fem_max"):
+        np.testing.assert_allclose(tv[key], jv[key], rtol=RTOL)
+    for key in ("edges_rest_estimate", "max"):
+        np.testing.assert_allclose(tv[key], jv[key], rtol=EST_RTOL)
+    assert tb.n_modes == jb.n_modes == 24
+    np.testing.assert_allclose(tb.amplitudes, np.asarray(jb.amplitudes), rtol=RTOL)
+
+
+def test_d8_takes_screened_branch():
+    # from 8 parameters on the recipe verifies by the screener by default
+    # (it raised before the screener was ported): all 256 corners measured
+    # at the end, the edge candidates screened and their worst measured
+    _, rep = TR.highd_frontier(8, n_x=16, n_p=4, n_stage1=4, stage_budget=4, max_stages=1,
+                               screener_cap=64, n_screen_edges=16, dtype=np.float64,
+                               device="cpu")
+    assert rep["screened_verification"] is True and rep["history"][0]["screened"] == 1.0
+    v = rep["verified"]
+    assert v["corners_fem_n"] == 256 and v["edges_fem_n"] == 16
+    assert v["max"] == max(v["corners_fem_max"], v["edges_fem_max"], v["interior_fem_max"])
+
+
+def test_screened_candidates_equal_reference():
+    # the edge candidates and interior points of the reference's draw
+    # (recipes.py:652-666 of the JAX package), in its order
+    from pgdrome_tpu_torch.models.problems import elliptic_dense_verifier
+
+    Vs = TR.frontier_spaces(3, n_x=32, n_p=16)
+    grid = Vs[1].tabulate_dof_coordinates()[:, 0]
+    lo, hi = grid[1], grid[-2]
+    rng = np.random.default_rng(424242)
+    edges = grid[rng.integers(1, len(grid) - 1, size=(48, 3))]
+    for r in range(48):
+        k = int(rng.integers(1, 3))
+        dims = rng.choice(3, size=k, replace=False)
+        edges[r, dims] = np.where(rng.integers(0, 2, size=k) == 0, lo, hi)
+    interior = grid[rng.integers(1, len(grid) - 1, size=(32, 3))]
+    (pc, tf), _ = TR.frontier_setup(3, (1.0, 6), n_x=32, n_p=16)
+    sv = TR.screened_verification(pc, Vs, elliptic_dense_verifier(Vs, tf, corner_cap=2),
+                                  max_rank=200, screener_cap=64, n_screen_edges=48,
+                                  device="cpu")
+    np.testing.assert_array_equal(sv.edge_cands, edges)
+    np.testing.assert_array_equal(sv.interior, interior)
+    assert sv.corners.shape == (8, 3) and sv.screen.n_modes_cap == 256
+
+
+def test_anova_branch(branch_runs):
+    (jb, jr), (tb, tr) = branch_runs["anova"]
+    assert tr.keys() == jr.keys() and tr["screened_verification"] is False
+    ja, ta = jr["anova"], tr["anova"]
+    assert ta["rank"] == ja["rank"] == 35 and ta["anchor"] == ja["anchor"]
+    for a, b in zip(ja["pairs"], ta["pairs"]):
+        assert {k: v for k, v in b.items() if k != "s"} == {
+            k: v for k, v in a.items() if k != "s"}
+    jh, th = jr["history"], tr["history"]
+    # stage 1 verifies the ANOVA start; the next stages enrich it
+    assert [h["rank"] for h in th] == [h["rank"] for h in jh]
+    assert th[0]["rank"] == 35.0 and len(th) >= 2
+    for a, b in zip(jh, th):
+        assert [b[f] for f in FLAGS] == [a[f] for f in FLAGS]
+        for key in ("corners", "interior", "max"):
+            np.testing.assert_allclose(b[key], a[key], rtol=RTOL, atol=F64_FLOOR)
+    for key in ("corners_fem_max", "interior_fem_max", "max"):
+        np.testing.assert_allclose(tr["verified"][key], jr["verified"][key], rtol=RTOL,
+                                   atol=F64_FLOOR)
+    assert tb.n_modes == jb.n_modes
+    np.testing.assert_allclose(tb.amplitudes, np.asarray(jb.amplitudes), rtol=RTOL)
+
+
+@pytest.mark.parametrize("name,num_params,rank", [
+    ("frontier_anova_d5_state.npz", 5, 189), ("frontier_anova_d10_state.npz", 10, 2717)])
+def test_anova_state_loader(name, num_params, rank):
+    # the committed ANOVA-started states: the d=5 keys, dim-0 modes in the
+    # energy basis (2047 interior dofs of the 2049-dof P2 space)
+    path = Path(__file__).resolve().parent.parent / "states" / name
+    res = load_state_npz(path)
+    assert res.n_modes == rank and len(res.modes) == 1 + num_params
+    assert tuple(res.modes[0].shape) == (rank, 2047)
+    assert all(tuple(m.shape) == (rank, 129) for m in res.modes[1:])
+    assert all(m.dtype == torch.float64 and bool(torch.isfinite(m).all())
+               for m in res.modes)
+    with np.load(path) as z:
+        for d in range(1 + num_params):
+            np.testing.assert_array_equal(res.modes[d].numpy(), z[f"m{d}"])
+        np.testing.assert_array_equal(res.amplitudes, z["amplitudes"])
+        assert res.normU0 == float(z["normU0"])
+
+
+def test_anova_d5_state_served():
+    # frontier_vademecum serves the committed ANOVA-started d=5 state (raw
+    # combination, rank 189): its f64 fields within 1e-6 of per-sample FEM
+    # at the 32 inset corners (7.71e-7 measured on a CPU)
+    from pgdrome_tpu_torch.convert import frontier_vademecum
+    from pgdrome_tpu_torch.models.problems import box_corners, elliptic_fem_solver
+
+    path = Path(__file__).resolve().parent.parent / "states" / "frontier_anova_d5_state.npz"
+    vd = frontier_vademecum(path, 5, device="cpu", dtype=torch.float64, method="torch")
+    assert vd.n_modes == 189 and tuple(vd._modes[0].shape) == (189, 2049)
+    grid = vd.spaces[1].tabulate_dof_coordinates()[:, 0]
+    corners = box_corners(grid[1], grid[-2], 5)
+    fem = elliptic_fem_solver(vd.spaces[0], 5)
+    errs = [np.linalg.norm(u - ref) / np.linalg.norm(ref)
+            for u, ref in zip(vd.fields(corners).numpy(), (fem(p) for p in corners))]
+    assert len(errs) == 32 and max(errs) < 1e-6
 
 
 def test_corner_seeded_init_equals_reference():

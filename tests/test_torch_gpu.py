@@ -533,3 +533,91 @@ def test_cancelling_rhs_solve_on_card(cuda, flag):
     assert mixed.modes[0].is_cuda
     assert err_mixed < 2e-6, err_mixed
     assert err_plain > 100 * err_mixed, (err_plain, err_mixed)
+
+
+# ------------------------------------ certification and the ANOVA start
+
+def _certify_case():
+    """A 12-mode f32 solve of the 3-parameter elliptic (host), and 24 of its
+    parameter grid points (the f32 mode evaluation is exact there)."""
+    from pgdrome_tpu_torch.separated import SeparatedPGD
+
+    sep, Vs, pc, tf = _elliptic(3)
+    res = SeparatedPGD(pc, n_max=12, tol=0.0, tol_fp=1e-8, residual_check=False,
+                       dtype=np.float32, device="cpu").solve_fused()
+    grid = Vs[1].tabulate_dof_coordinates()[:, 0]
+    pts = grid[np.random.default_rng(9).integers(1, len(grid) - 1, size=(24, 3))]
+    return sep, Vs, pc, tf, res, pts
+
+
+def test_dd_indicator_and_screener_on_card(cuda):
+    # the dd residual and rhs pairs on the card equal the CPU's bit for bit
+    # (plain elementwise torch, one rounding a step); the final f32 norms
+    # are sums in another order, within 1e-6; the f32 screener within 1e-4
+    # relative or one f32 unit of the normalised ‖b(p)‖
+    from pgdrome_tpu_torch.parallel.certify import make_residual_indicator, make_screener
+
+    _, Vs, pc, _, res, pts = _certify_case()
+    ind_cpu = make_residual_indicator(pc, Vs, res, device="cpu")
+    ind_gpu = make_residual_indicator(pc, Vs, res, device=cuda)
+    p32 = torch.as_tensor(pts, dtype=torch.float32)
+    for a, b in zip(ind_cpu.dd_residual(p32), ind_gpu.dd_residual(p32.to(cuda))):
+        assert b.is_cuda and torch.equal(a.view(torch.int32), b.cpu().view(torch.int32))
+    v_cpu, v_gpu = ind_cpu(pts), ind_gpu(pts)
+    assert np.all(np.abs(v_gpu - v_cpu) <= 1e-6 * v_cpu)
+    s_cpu = make_screener(pc, Vs, n_modes_cap=16, device="cpu")(res, pts)
+    s_gpu = make_screener(pc, Vs, n_modes_cap=16, device=cuda)(res, pts)
+    assert np.all(np.abs(s_gpu - s_cpu) <= np.maximum(1e-4 * s_cpu, 2.0 ** -24))
+
+
+def test_certifier_on_served_vademecum(cuda):
+    # a certifier on the card attached to a vademecum served through the
+    # field kernels: its residuals are the CPU certifier's (1e-6), its
+    # bounds η·residual, and the guaranteed bound covers the f64 error
+    from pgdrome_tpu_torch.models.problems import elliptic_dense_verifier
+    from pgdrome_tpu_torch.parallel.certify import guaranteed_field_bound, make_certifier
+    from pgdrome_tpu_torch.serving import Vademecum
+
+    sep, Vs, pc, tf, res, pts = _certify_case()
+    cert = make_certifier(pc, Vs, res, eta=1.5, device=cuda)
+    cert.attach_guaranteed(guaranteed_field_bound(pc, Vs, res, nodal_tf=tf, device=cuda))
+    vd = Vademecum(Vs, res, dim0_transform=tf, method="fused", device=cuda)
+    assert vd.attach_certifier(cert) is vd
+    ref = make_certifier(pc, Vs, res, device="cpu").residuals(pts)
+    r = vd.residuals(pts)
+    assert np.all(np.abs(r - ref) <= 1e-6 * ref)
+    np.testing.assert_array_equal(vd.error_bound(pts), 1.5 * r)
+    true = elliptic_dense_verifier(Vs, tf, n_random=1, seeds=(7,)).sample_errors(res, pts)
+    assert np.all(cert.guaranteed_bound(pts) >= true)
+    fs.reset_launch_counts()
+    out = vd.fields(torch.as_tensor(pts, dtype=torch.float32, device=cuda))
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES["fields_f32"] == 1 and fs.STAGE_LAUNCHES["gemm"] >= 1
+    f64 = _fields64(Vs, res, tf, pts)
+    err = np.linalg.norm(out.cpu().double().numpy() - f64, axis=1) / np.linalg.norm(f64, axis=1)
+    assert err.max() < 1e-6
+
+
+def test_anova_init_served_by_kernel(cuda):
+    # the host f64 ANOVA start (modes as host arrays) served through the
+    # field kernels: within 2γ_c of the plain version, c = K + 4·NP, and
+    # close to its f64 reconstruction
+    from pgdrome_tpu_torch.anova import anova_init
+    from pgdrome_tpu_torch.serving import Vademecum
+
+    sep, Vs, _, tf = _elliptic(3)
+    res, rep = anova_init(sep, order=2, tf=tf)
+    assert rep["rank"] == res.n_modes and isinstance(res.modes[0], np.ndarray)
+    vd = Vademecum(Vs, res, dim0_transform=tf, method="fused", device=cuda)
+    samples = np.random.default_rng(6).uniform(0.0, 1.0, size=(500, 3)).astype(np.float32)
+    fs.reset_launch_counts()
+    out = vd.fields(torch.as_tensor(samples, device=cuda))
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES["fields_f32"] == 1 and fs.STAGE_LAUNCHES["gemm"] >= 1
+    modes = [m.cpu().numpy() for m in vd._modes]
+    plain = fs.make_fused_sweep(Vs, modes, vd.n_modes, device="cpu")(torch.as_tensor(samples))
+    bound = _gamma_bound(Vs, modes, vd.n_modes, samples, vd.n_modes + 4 * 3)
+    assert bool(((out.cpu().double() - plain.double()).abs() <= 2 * bound).all())
+    f64 = _fields64(Vs, res, tf, samples.astype(np.float64))
+    err = np.linalg.norm(out.cpu().double().numpy() - f64, axis=1) / np.linalg.norm(f64, axis=1)
+    assert err.max() < 1e-6

@@ -72,3 +72,10 @@ def test_source_imports(source):
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             names.append(node.module)
     assert [n for n in names if _forbidden(n)] == []
+
+
+def test_high_d_modules_covered():
+    # the high-d frontier's modules are among those imported and scanned
+    for module in ("pgdrome_tpu_torch.anova", "pgdrome_tpu_torch.parallel.certify"):
+        assert module in MODULES
+        assert module.replace(".", "/") + ".py" in SOURCES
