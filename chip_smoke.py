@@ -12,8 +12,13 @@ fields (f32, streamed, bf16 store), sensors and Monte-Carlo moments, and
 takes one moment call apart on the device and host clocks.  It then holds
 every kernel wiring against the plain PyTorch version on the same inputs
 (the factors bit for bit), the served fields against per-sample FEM at
-the 32 inset parameter-box corners.  Last, phase ``train`` trains the bench
-vademecum with the port alone (``bench.py:806-881`` at its own widths: a
+the 32 inset parameter-box corners.  Phase ``analytics`` then checks the
+rest of serving on the same vademecum: ``save`` → ``load``, ``errors``, a
+fixed-parameter slice (NP = 3) and the derivative vademecum (a DG1 table of
+2048 dofs) through the field kernels, the parameter Jacobian, a batched
+Gauss–Newton fit, an MCMC posterior, exact Sobol' indices against
+Monte-Carlo moments and a D-optimal sensor design.  Next, phase ``train``
+trains the bench vademecum with the port alone (``bench.py:806-881`` at its own widths: a
 64-mode f32 greedy stage on the card, two f64 residual restarts of 48
 modes, compression to rank 50 and a Galerkin update on the host), holds
 it under 1e-6 against per-sample FEM over 8 corners + 3 × (64 random +
@@ -33,9 +38,10 @@ Phase ``certify`` loads the committed rank-2717 d=10 state
 training: the recipe's screened verification and its final FEM
 confirmation at all 1024 inset corners, the dd residual indicator and the
 guaranteed field bound, each held against the JAX package's figures on
-this state, and a certifier attached to the vademecum served through the
-field kernels.  It prints the measurements: one line per phase, a
-``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
+this state, a certifier attached to the vademecum served through the
+field kernels, and the certifier saved and reloaded.  It prints the
+measurements: one line per phase, a ``{"kernels": [...]}`` line and, last,
+``{"ok": true, "device": {...}}``.
 
 Any failed check raises (non-zero exit, no result line); a watchdog turns a
 hang into a traceback and a non-zero exit.  Without a CUDA device, or run
@@ -341,6 +347,34 @@ D10_FEM = [
     4.93643902319e-07, 6.66841845513e-08, 1.30286794903e-07, 1.34762956653e-07, 3.04658875900e-07,
     3.59955497061e-07, 2.69559095379e-07, 4.76602381319e-07, 1.80430829057e-07,
 ]
+# the analytics phase, on the d=5 vademecum of the serving phases
+FIXED = {1: 40 / 128, 3: 88 / 128}   # fix_parameters: two params at interior grid nodes
+N_SENS = 16                          # sensor points of the Jacobian, fit and posterior
+B_JAC = 65_536                       # Jacobian samples, inside grid cells
+# the JAX test's tolerance for the Jacobian against central differences
+# (tests/unit/test_serving_analytics.py:38-95): rtol, atol, step
+JAC_FD = (1e-5, 1e-6, 1e-7)
+B_FIT, FIT_STARTS, FIT_ITERS = 1024, 8, 30
+# the fit's gate.  The same fit run by the port in f64 on a CPU at this size
+# (`PYTHONPATH=. python tests/test_torch_analytics.py`) recovers every one of
+# the 1024 seeded interior parameter sets to 2.3e-13 from the 8 starts: the
+# parameters are identifiable, so the f32 fit is held to recovery, by a limit
+# that does not depend on p̂.  Let ν be the largest f32 residual norm the
+# fit's own arithmetic gives at the true parameters (a fit of n_iter = 0
+# from p: the sweep's rounding, the f32 table, the rounding of p and of obs).
+# The fit's optimum does no worse than the truth: resnorm ≤ ν (checked).  Its
+# f64 residual then is ‖s64(p̂) − obs‖ ≤ resnorm + ‖(s32 − s64)(p̂) − o‖ ≤ 2ν,
+# the second term the same rounding at p̂ (o the rounding of obs), and to
+# first order in p̂ − p, σ_min(J(p)) ‖p̂ − p‖₂ ≤ ‖s64(p̂) − obs‖₂, so
+# ‖p̂ − p‖₂ ≤ FIT_NOISE · ν / σ_min(J(p)).  The same gate on a CPU's f32 fit
+# (the script above) passes at 0.32 of the limit after 30 iterations and
+# refuses a fit cut to one iteration (303 times the limit).
+FIT_NOISE = 2
+POST_CHAINS, POST_SAMPLES = 64, 1000
+MCMC_STEPS = 1000                    # the sampler's chain steps timed alone
+POST_SIGMA = 1e-3                    # σ = POST_SIGMA · max|obs|
+N_CANDIDATES, N_DESIGN = 256, 8
+MC_SIGMAS = 5                        # Monte-Carlo variance vs Sobol': this many standard errors
 # served f32 fields vs the f64 reconstruction's verified max: the d=5 state
 # served at K = 640 sits 1.3e-7 (19 %) above its f64 reconstruction at the
 # corners (PERF.md §6.1); the trained frontier results are held to 10 %
@@ -954,6 +988,347 @@ def main() -> int:
         check(d_mean <= MEAN_REL * m_max, "kernel-path mean vs plain-path mean")
         check(d_var <= VAR_REL * m2_max, "kernel-path variance vs plain-path variance")
 
+    # ---------------------------------------------------------- analytics
+    # the rest of serving on the same d=5 vademecum: save/load, errors,
+    # a fixed-parameter slice and the derivative vademecum through the field
+    # kernel, the parameter Jacobian, the Gauss–Newton fit, the posterior,
+    # exact Sobol' indices and sensor design
+    with Phase("analytics"):
+        import shutil
+        import tempfile
+
+        import numpy as np
+
+        from pgdrome_tpu_torch.fem.derivative import derivative_function
+        from pgdrome_tpu_torch.fem.function import Function
+        from pgdrome_tpu_torch.fem.interpolate import _cell_widths, _locate_1d
+        from pgdrome_tpu_torch.fem.assembly import mass_matrix
+        from pgdrome_tpu_torch.parallel.bayes import make_mcmc_fn
+        from pgdrome_tpu_torch.parallel.vademecum import sensor_table
+        from pgdrome_tpu_torch.uq import _mixed_product
+
+        analytics = {}
+
+        def timed(key, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            analytics[key] = time.perf_counter() - t0
+            return out
+
+        # 1. save → load: the reloaded vademecum serves the same fields
+        tmp_a = Path(tempfile.mkdtemp(prefix="chip_smoke_analytics_"))
+        try:
+            timed("save_s", lambda: vd.save(tmp_a / "d5.npz"))
+            vd_re = timed("load_s", lambda: Vademecum.load(tmp_a / "d5.npz", vd.spaces,
+                                                           device=dev))
+            size = (tmp_a / "d5.npz").stat().st_size
+        finally:
+            shutil.rmtree(tmp_a, ignore_errors=True)
+        s_rt = s_fields[:4096]
+        check(isinstance(vd_re._sweep(), fs.FusedSweep)
+              and torch.equal(vd_re.fields(s_rt), vd.fields(s_rt)),
+              "save → load: the reloaded vademecum's kernel fields equal the original's")
+        del vd_re
+        say(f"analytics save/load: {size / 2**20:.3f} MiB, save {analytics['save_s']:.3f} s, "
+            f"load {analytics['load_s']:.3f} s; 4096 kernel fields equal bit for bit")
+
+        # 2. errors at the inset corners against the FEM truth
+        err_c = timed("errors_s", lambda: vd.errors(corners, np.stack(u_fem)))
+        e_max = float(err_c.max())
+        say(f"analytics errors: max rel-L2 {e_max:.9e} over the {len(corners)} inset corners "
+            f"(the fem_truth phase's kernel figure {e_kernel:.9e}, |rel| "
+            f"{abs(e_max / e_kernel - 1):.3e})")
+        check(err_c.is_cuda and err_c.dtype == torch.float64
+              and abs(e_max / e_kernel - 1) <= 1e-12,
+              "errors() equals the kernel fields' FEM error")
+
+        # 3. a fixed-parameter slice through the field kernel at NP = 3
+        vd_fix = vd.fix_parameters(FIXED)
+        fused_fix = vd_fix._sweep()
+        free = [j for j in range(NUM_PARAMS) if j not in FIXED]
+        check(isinstance(fused_fix, fs.FusedSweep) and fused_fix.tabs.shape[0] == 3,
+              "the slice takes the kernel at NP = 3")
+        s3 = s_fields[:, free].contiguous()
+        torch.cuda.synchronize()
+        fs.reset_launch_counts()
+        out3 = vd_fix.fields(s3)
+        torch.cuda.synchronize()
+        launches_fix, stages_fix = dict(fs.LAUNCHES), dict(fs.STAGE_LAUNCHES)
+        say(f"launches on the fix_parameters path: {json.dumps(launches_fix)}; kernels "
+            f"{json.dumps(stages_fix)}")
+        check(launches_fix["fields_f32"] == 1 and stages_fix["gemm"] >= 1
+              and stages_fix["factors_stage"] == stages_fix["gemm"],
+              "the slice's fields ran the field wiring's kernels")
+        s5 = s_fields.clone()
+        for j, v in FIXED.items():
+            s5[:, j] = v
+        # held to the full vademecum's f64 plain product with the fixed values
+        # inserted: γ_c with c = K + 4·5 covers the slice's K + 4·3 roundings
+        # and the one of its folded dim-0 table
+        w_fix = hold(out3, s5, m0, c_fields)
+        g3, tb3, m03 = fused_fix.grid, fused_fix.tabs, fused_fix.m0
+        ms_fix = cuda_ms(lambda: fused_fix(s3), 3)
+        plain_fix = cuda_ms(lambda: fs.fused_sweep_plain(s3, g3, tb3, m03, vd.n_modes), 2)
+        fac3 = fs.fused_sweep(s3, g3, tb3, None, vd.n_modes)
+        lib_fix = cuda_ms(lambda: torch.matmul(fac3, m03), 3)
+        del fac3
+        entry("fused_sweep_fields_f32_fixed_np3",
+              kernel_of(fused_fix, "split") + " + sweep_gemm_kernel<f32>",
+              "serving.py::Vademecum.fix_parameters -> parallel/vademecum.py::make_sweep_fn "
+              f"(params {sorted(FIXED)} fixed, NP = 3)", out3.shape,
+              launches_fix["fields_f32"], w_fix, ms_fix, plain_fix, lib_fix,
+              roofline(B_FIELDS, n0, 4, True, sw=fused_fix), c_fields,
+              stages=stage_ms(s3, fused_fix, n0))
+        del out3, s5
+
+        # 4. the derivative vademecum: DG1 dim-0 table, n0 = 2048
+        vd_d = timed("derivative_build_s", vd.derivative)
+        fused_d = vd_d._sweep()
+        n0_d = int(vd_d._modes[0].shape[1])
+        check(isinstance(fused_d, fs.FusedSweep) and n0_d == 2048
+              and (vd_d.spaces[0].family, vd_d.spaces[0].degree) == ("DG", 1),
+              "the derivative vademecum serves a DG1 table of 2048 dofs through the kernel")
+        torch.cuda.synchronize()
+        fs.reset_launch_counts()
+        out_d = vd_d.fields(s_fields)
+        torch.cuda.synchronize()
+        launches_d, stages_d = dict(fs.LAUNCHES), dict(fs.STAGE_LAUNCHES)
+        say(f"launches on the derivative path: {json.dumps(launches_d)}; kernels "
+            f"{json.dumps(stages_d)}")
+        check(launches_d["fields_f32"] == 1 and stages_d["gemm"] >= 1
+              and stages_d["factors_stage"] == stages_d["gemm"],
+              "the derivative fields ran the field wiring's kernels")
+        w_d = hold(out_d, s_fields, fused_d.m0, c_fields, sw=fused_d)
+        du_fem = np.stack([derivative_function(Function(vd.spaces[0], u)).array for u in u_fem])
+        du_served = vd_d.fields(corners).double().cpu().numpy()
+        gap_d = np.linalg.norm(du_served - du_fem, axis=1) / np.linalg.norm(du_fem, axis=1)
+        say(f"analytics derivative: served du/dx vs derivative_function of the FEM solutions, "
+            f"max rel-L2 {gap_d.max():.6e}, median {np.median(gap_d):.6e} over the "
+            f"{len(corners)} inset corners (printed, no gate); build "
+            f"{analytics['derivative_build_s']:.3f} s")
+        gd, tbd, md = fused_d.grid, fused_d.tabs, fused_d.m0
+        ms_d = cuda_ms(lambda: fused_d(s_fields), 3)
+        plain_d = cuda_ms(lambda: fs.fused_sweep_plain(s_fields, gd, tbd, md, vd.n_modes), 2)
+        fac_d = fs.fused_sweep(s_fields, gd, tbd, None, vd.n_modes)
+        lib_d = cuda_ms(lambda: torch.matmul(fac_d, md), 3)
+        del fac_d
+        entry("fused_sweep_fields_f32_derivative_dg1",
+              kernel_of(fused_d, "split") + " + sweep_gemm_kernel<f32>",
+              "serving.py::Vademecum.derivative -> parallel/vademecum.py::make_sweep_fn "
+              "(DG1 dim-0 table, n0 = 2048)", out_d.shape, launches_d["fields_f32"], w_d,
+              ms_d, plain_d, lib_d, roofline(B_FIELDS, n0_d, 4, True, sw=fused_d), c_fields,
+              stages=stage_ms(s_fields, fused_d, n0_d))
+        del out_d
+
+        # 5. the parameter Jacobian at 16 sensors, samples inside grid cells
+        pts_s = np.linspace(0.03, 0.97, N_SENS)
+        gen_a = torch.Generator(device=dev)
+        gen_a.manual_seed(SEED + 5)
+        cells = torch.randint(0, 128, (B_JAC, NUM_PARAMS), generator=gen_a, device=dev)
+        s_jac = (cells + 0.25 + 0.5 * torch.rand((B_JAC, NUM_PARAMS), generator=gen_a,
+                                                  device=dev)) / 128
+        vd64 = Vademecum(vd.spaces, vd.result, method="torch", dtype=torch.float64, device=dev)
+        jac32 = vd.sensors_jacobian(pts_s)
+        J32 = timed("jacobian_s", lambda: jac32(s_jac))
+        J64 = vd64.sensors_jacobian(pts_s)(s_jac)
+
+        def abs_factors(V, M, p, derivative):
+            """Σ_l |φ_l| |T_l| (or Σ_l |φ'_l| |T_l| / h): the absolute
+            counterpart of a factor value, in f64."""
+            cell, xi = _locate_1d(V.mesh(), p, torch)
+            ed = V.element_dofs_device(dev)[cell]
+            nodes = M.abs().double().T[ed]  # (B, nl, K)
+            if derivative:
+                wgt = torch.ones_like(xi)[:, None].expand(-1, 2) / _cell_widths(
+                    V.mesh(), cell, xi, torch)[:, None]
+            else:
+                wgt = torch.stack([1 - xi, xi], -1)
+            return torch.einsum("bl,blk->bk", wgt, nodes)
+
+        s64 = s_jac.double()
+        va = [abs_factors(vd.spaces[j], vd._modes[j], s64[:, j - 1], False)
+              for j in range(1, NUM_PARAMS + 1)]
+        da = [abs_factors(vd.spaces[j], vd._modes[j], s64[:, j - 1], True)
+              for j in range(1, NUM_PARAMS + 1)]
+        t_abs = torch.as_tensor(sensor_table(vd.spaces[0], vd64._modes[0], pts_s),
+                                device=dev).abs()
+        # c: the factor model's K + 4·NP roundings, one of the f32 sensor
+        # table and one of the derivative's division by h
+        c_jac = K + 4 * NUM_PARAMS + 2
+        worst_j = 0.0
+        for j in range(NUM_PARAMS):
+            fa = da[j]
+            for l in range(NUM_PARAMS):
+                if l != j:
+                    fa = fa * va[l]
+            bound_j = gamma(c_jac) * (fa @ t_abs)
+            e_j = (J32[:, :, j].double() - J64[:, :, j]).abs()
+            check(bool((e_j <= bound_j).all()), f"Jacobian column {j} within γ_c of the f64 one")
+            worst_j = max(worst_j, float((e_j / bound_j.clamp_min(1e-300)).max()))
+        del va, da
+        rtol, atol, h = JAC_FD
+        sens64 = vd64.sensors(pts_s)
+        fd_worst = 0.0
+        for j in range(NUM_PARAMS):
+            dp = torch.zeros(NUM_PARAMS, dtype=torch.float64, device=dev)
+            dp[j] = h
+            fd = (sens64(s64 + dp) - sens64(s64 - dp)) / (2 * h)
+            excess = (J64[:, :, j] - fd).abs() - (atol + rtol * fd.abs())
+            fd_worst = max(fd_worst, float(excess.max()))
+        say(f"analytics Jacobian: {B_JAC} samples x {N_SENS} sensors x {NUM_PARAMS} params in "
+            f"{analytics['jacobian_s']:.4f} s ({B_JAC / analytics['jacobian_s']:.6g} samples/s, "
+            f"f32, plain products); vs the f64 Jacobian {worst_j:.3f} of its γ_c bound "
+            f"(c = {c_jac}); f64 vs central differences (h {h:g}): worst |Δ| − (atol + rtol|fd|) "
+            f"{fd_worst:.3e} (rtol {rtol:g}, atol {atol:g})")
+        check(fd_worst <= 0.0, "the f64 Jacobian equals central differences of the f64 sweep")
+        del J32, J64, s64
+
+        # 6. the Gauss–Newton fit: 1024 observations x 8 starts, f32 on the card
+        rng_a = np.random.default_rng(SEED)
+        p_true = rng_a.uniform(0.1, 0.9, size=(B_FIT, NUM_PARAMS))
+        obs = vd64.sensors(pts_s)(p_true).cpu().numpy()
+        p_hat, resn = timed("fit_s", lambda: vd.fit_parameters(
+            pts_s, obs, n_starts=FIT_STARTS, seed=0, n_iter=FIT_ITERS))
+        # the same fit of one observation: how the time scales with the batch
+        timed("fit_one_s", lambda: vd.fit_parameters(pts_s, obs[:1], n_starts=FIT_STARTS,
+                                                      seed=0, n_iter=FIT_ITERS))
+        d_p = np.abs(p_hat - p_true)
+        smin = np.linalg.svd(vd64.sensors_jacobian(pts_s)(p_true).cpu().numpy(),
+                             compute_uv=False)[:, -1]
+        nu = float(vd.fit_parameters(pts_s, obs, p0=p_true, n_iter=0)[1].max())
+        limit = FIT_NOISE * nu / smin
+        e2 = np.linalg.norm(p_hat - p_true, axis=1)
+        r64 = np.linalg.norm(vd64.sensors(pts_s)(p_hat.astype(np.float64)).cpu().numpy() - obs,
+                             axis=1)
+        ratio = e2 / (r64 / smin)
+        say(f"analytics fit: {B_FIT} observations x {FIT_STARTS} starts ({B_FIT * FIT_STARTS} "
+            f"problems), {FIT_ITERS} iterations, f32: {analytics['fit_s']:.3f} s "
+            f"({B_FIT / analytics['fit_s']:.6g} observations/s; one observation "
+            f"{analytics['fit_one_s']:.3f} s); max |p̂ − p| {d_p.max():.3e}, "
+            f"median {np.median(d_p):.3e}; resnorm max {resn.max():.3e}, median "
+            f"{np.median(resn):.3e} (ν at the truth {nu:.3e}; max |obs| "
+            f"{np.abs(obs).max():.4e}); σ_min(J) {smin.min():.3e}..{smin.max():.3e}; "
+            f"‖p̂ − p‖₂ / ({FIT_NOISE}ν/σ_min) max {(e2 / limit).max():.4f}, median "
+            f"{np.median(e2 / limit):.4f}; diagnostic ‖p̂ − p‖ / (‖s64(p̂) − obs‖ / σ_min) max "
+            f"{ratio.max():.3f}, median {np.median(ratio):.3f}")
+        check(bool(np.isfinite(p_hat).all() and (smin > 0).all() and nu > 0),
+              "finite fit, full-rank J")
+        check(float(resn.max()) <= nu, "the fit's resnorm within the f32 residual at the truth")
+        check(bool((e2 <= limit).all()), f"the f32 fit recovers the parameters to "
+              f"{FIT_NOISE}ν/σ_min(J)")
+
+        # 7. the posterior of one observation
+        sig = POST_SIGMA * np.abs(obs[0]).max()
+        # the posterior's MAP fit alone, as sample_posterior calls it (the
+        # fit's first call, its set-up included; the posterior reuses it)
+        timed("map_fit_s", lambda: vd.fit_parameters(pts_s, obs[:1],
+                                                     weights=np.full(N_SENS, 1 / sig),
+                                                     n_starts=8, seed=0))
+        post = timed("posterior_s", lambda: vd.sample_posterior(
+            pts_s, obs[0], sig, n_samples=POST_SAMPLES, n_chains=POST_CHAINS, seed=0))
+        # the chain steps alone: one run of the sampler from the posterior's
+        # last state with its tuned proposal
+        mcmc = make_mcmc_fn(vd.spaces, vd._modes, vd.n_modes, pts_s, n_steps=MCMC_STEPS)
+        gen_m = torch.Generator(device=dev)
+        gen_m.manual_seed(SEED + 7)
+        _, n_acc_m = timed("mcmc_s", lambda: mcmc(
+            obs[0], np.full(N_SENS, sig), post["chains"][-1], post["proposal_chol"],
+            post["proposal_scale"], generator=gen_m))
+        lo_q, hi_q = np.quantile(post["samples"], [0.0005, 0.9995], axis=0)
+        inside = (p_true[0] >= lo_q) & (p_true[0] <= hi_q)
+        say(f"analytics posterior: {POST_CHAINS} chains x {POST_SAMPLES} kept steps "
+            f"(σ {sig:.4e}): {analytics['posterior_s']:.3f} s (after its MAP fit's first call, "
+            f"{analytics['map_fit_s']:.3f} s); the sampler alone {MCMC_STEPS} steps in "
+            f"{analytics['mcmc_s']:.3f} s, {MCMC_STEPS / analytics['mcmc_s']:.1f} steps/s "
+            f"({MCMC_STEPS * POST_CHAINS / analytics['mcmc_s']:.6g} chain steps/s, acceptance "
+            f"{float(n_acc_m.double().mean()) / MCMC_STEPS:.4f}); r_hat "
+            f"{np.round(post['r_hat'], 4).tolist()}, acceptance {post['acceptance']:.4f}, "
+            f"ess {np.round(post['ess'], 1).tolist()}; true p in the 99.9 % intervals "
+            f"{inside.tolist()}")
+        check(bool((post["r_hat"] <= 1.05).all()), "posterior r_hat <= 1.05")
+        check(0.1 <= post["acceptance"] <= 0.6, "posterior acceptance in [0.1, 0.6]")
+        check(bool(inside.all()), "the true parameters inside each marginal's 99.9 % interval")
+
+        # 8. exact Sobol' indices, aggregated and at the sensors
+        sob = timed("sobol_s", lambda: vd.sobol(second_order=True))
+        sob_p = timed("sobol_points_s", lambda: vd.sobol(pts_s, second_order=True))
+        mean_c, cov_c = vd.output_covariance(pts_s)
+        check(float(sob["first"].sum()) <= 1 + 1e-9 and bool((sob_p["first"].sum(0)
+                                                             <= 1 + 1e-9).all()),
+              "Σ first-order indices <= 1")
+        check(bool((sob["total"] >= sob["first"] - 1e-12).all()
+                   and (sob_p["total"] >= sob_p["first"] - 1e-12).all()),
+              "total indices >= first-order ones")
+        check(bool((np.abs(np.diag(cov_c) - sob_p["variance"])
+                    <= 1e-12 * np.abs(sob_p["variance"])).all()),
+              "output_covariance's diagonal is the per-output variance")
+        # the Monte-Carlo check: the serving phase's moments over s_big
+        # (var_mc) weighted by the lumped masses w = 1ᵀW against the exact
+        # lumped value, Σ w_i Var_exact(u_i) / vol, within MC_SIGMAS standard
+        # errors (per-sample g_b = (f_b − f̄)ᵀ M0 diag(w) M0ᵀ (f_b − f̄) / vol
+        # over the kernel's factors, in f64) plus the device f32 reduction's
+        # allowance of the serving phase (VAR_REL of the lumped E[u²]); the
+        # aggregated Sobol' variance integrates the same variance with the
+        # consistent mass: its gap to the lumped value is printed
+        V0 = vd.spaces[0]
+        vol = float(np.sum(V0.q_weights))
+        w_l = mass_matrix(V0).sum(axis=0)
+        M0h = vd._modes[0].double().cpu().numpy()
+        stats = vd._factor_stats()
+        Pm = np.prod([m for m, _ in stats], axis=0)
+        Kc = _mixed_product(stats, range(NUM_PARAMS)) - np.outer(Pm, Pm)
+        var_exact = np.einsum("ki,ki->i", Kc @ M0h, M0h)
+        V_lump = float(w_l @ var_exact) / vol
+        V_mc = float(w_l @ var.numpy()) / vol
+        E2_lump = float(w_l @ (var.numpy() + mean.numpy() ** 2)) / vol
+        G_w = torch.as_tensor((M0h * w_l) @ M0h.T / vol, device=dev)
+        fac_fn = fs.FusedSweep(grid, tabs, None, vd.n_modes)
+        fbar = None
+        g_sum = g_sq = 0.0
+        for pass_ in (0, 1):
+            acc = torch.zeros(K, dtype=torch.float64, device=dev)
+            for r0 in range(0, B_BIG, B_FIELDS):
+                f = fac_fn(s_big[r0 : r0 + B_FIELDS]).double()[:, : vd.n_modes]
+                if pass_ == 0:
+                    acc += f.sum(0)
+                    continue
+                fc = f - fbar
+                g = ((fc @ G_w) * fc).sum(1)
+                g_sum += float(g.sum())
+                g_sq += float((g * g).sum())
+            if pass_ == 0:
+                fbar = acc / B_BIG
+        g_mean = g_sum / B_BIG
+        se = (max(g_sq / B_BIG - g_mean ** 2, 0.0) / B_BIG) ** 0.5
+        tol_mc = MC_SIGMAS * se + VAR_REL * E2_lump + abs(V_lump - float(sob["variance"]))
+        say(f"analytics sobol: aggregated variance {float(sob['variance']):.9e}, first "
+            f"{np.round(sob['first'], 6).tolist()}, total {np.round(sob['total'], 6).tolist()}, "
+            f"Σ first {float(sob['first'].sum()):.9f}; at {N_SENS} sensors Σ first max "
+            f"{float(sob_p['first'].sum(0).max()):.9f}; {analytics['sobol_s']:.3f} s + "
+            f"{analytics['sobol_points_s']:.3f} s (host f64)")
+        say(f"analytics sobol vs Monte Carlo ({B_BIG} samples): lumped exact {V_lump:.9e} "
+            f"(consistent-mass Sobol' gap {V_lump - float(sob['variance']):+.3e}); moments' "
+            f"lumped {V_mc:.9e} (|Δ| {abs(V_mc - V_lump):.3e}); f64 mean of g_b {g_mean:.9e} "
+            f"(|Δ| {abs(g_mean - V_lump):.3e}), standard error {se:.3e}; bound {tol_mc:.3e} "
+            f"({MC_SIGMAS} SE + {VAR_REL:g} E[u²] + the quadrature gap)")
+        check(abs(g_mean - V_lump) <= MC_SIGMAS * se, "f64 Monte-Carlo variance vs exact")
+        check(abs(V_mc - float(sob["variance"])) <= tol_mc,
+              "the moments' Monte-Carlo variance agrees with the exact aggregated variance")
+
+        # 9. D-optimal sensor design
+        cands = np.linspace(0.01, 0.99, N_CANDIDATES)
+        idx_s, pts_d = timed("design_s", lambda: vd.design_sensors(cands, N_DESIGN))
+        Jc = vd64.sensors_jacobian(pts_d)(np.full((1, NUM_PARAMS), 0.5)).cpu().numpy()[0]
+        det = float(np.linalg.det(Jc.T @ Jc))
+        say(f"analytics design: {N_DESIGN} of {N_CANDIDATES} candidates in "
+            f"{analytics['design_s']:.3f} s: indices {idx_s.tolist()}, points "
+            f"{np.round(pts_d, 4).tolist()}, det(JᵀJ) at the box centre {det:.6e}")
+        check(len(set(idx_s.tolist())) == N_DESIGN and det > 0, "design picks 8 distinct sensors")
+        say(f"analytics seconds: {json.dumps({k: round(v, 4) for k, v in analytics.items()})}")
+        del vd64, vd_d, vd_fix
+
     # -------------------------------------------------------------- train
     # the training half of the main path: the port alone trains the bench
     # vademecum (host f64 build, f32 enrichment on the card, two f64
@@ -1510,6 +1885,28 @@ def main() -> int:
         check(np.array_equal(r10, dd10) and np.array_equal(b10, eta10 * dd10)
               and bool((b10 >= fem10).all()),
               "the served residuals and error bounds are the certifier's")
+        # Certifier.save → load: the reloaded certifier's residuals and
+        # bounds at the 16 fixed corners equal the calibrated one's
+        tmp_c = Path(tempfile.mkdtemp(prefix="chip_smoke_cert_"))
+        try:
+            t0 = time.perf_counter()
+            cert.save(tmp_c / "cert_d10.npz", spaces=Vs10)
+            step("certifier_save_s", t0)
+            size_c = (tmp_c / "cert_d10.npz").stat().st_size
+            t0 = time.perf_counter()
+            cert_re = Certifier.load(tmp_c / "cert_d10.npz", Vs10, chunk=ind.chunk, device=dev)
+            step("certifier_load_s", t0)
+        finally:
+            shutil.rmtree(tmp_c, ignore_errors=True)
+        c16 = corners10[sub]
+        check(np.array_equal(cert_re.residuals(c16), cert.residuals(c16))
+              and np.array_equal(cert_re.bound(c16), cert.bound(c16))
+              and cert_re.eta == cert.eta,
+              "Certifier.save → load: equal residuals and bounds at the 16 corners")
+        say(f"certify certifier snapshot: {size_c / 2**30:.3f} GiB, save "
+            f"{steps['certifier_save_s']:.3f} s, load {steps['certifier_load_s']:.3f} s; "
+            "residuals and bounds at the 16 fixed corners equal bit for bit")
+        del cert_re
         serve_trained("fused_sweep_fields_f32_d10",
                       "parallel/vademecum.py::make_sweep_fn (committed rank-2717 d=10 "
                       "vademecum)", vd10, corners10, float(fem10.max()))

@@ -18,10 +18,14 @@ anchored-ANOVA start, :mod:`.anova`; the residual screener's verification
 from 8 parameters on); dense verification against per-sample FEM
 (:func:`.models.problems.elliptic_dense_verifier`); residual indicators,
 calibrated and guaranteed error bounds (:mod:`.parallel.certify`); the weights brought
-across from the JAX package's saved states (:mod:`.convert`); and the
+across from the JAX package's saved states (:mod:`.convert`); the
 batched field / sensor / moment sweeps (:mod:`.parallel.vademecum`,
 :mod:`.serving`) whose hot loop is one hand-written CUDA kernel
-(:mod:`.ops.fused_sweep`, ``csrc/fused_sweep.cu``).
+(:mod:`.ops.fused_sweep`, ``csrc/fused_sweep.cu``); and the rest of
+serving: save/load, errors, the parameter Jacobian, calibration by a
+batched Gauss–Newton fit or an MCMC posterior (:mod:`.parallel.bayes`),
+exact Sobol' indices (:mod:`.uq`), fixed-parameter slices and derivative
+fields (:mod:`.fem.derivative`).
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a CUDA device they raise.

@@ -6,6 +6,10 @@ arrays ``m0 … m{d−1}`` (padded mode buffers, (n_max, n_d) each),
 (``pgdrome_tpu/recipes.py:693-700``).  For the parametric-elliptic
 frontier states the dim-0 modes live in the energy basis of
 ``precondition_dim0``, so serving them needs the same host build.
+
+Its deployed snapshots (``Vademecum.save``, ``Certifier.save``) are HDF5
+files; the port writes the same keys to ``.npz`` and reads both
+(:func:`read_snapshot`).  ``h5py`` is imported only to read an HDF5 file.
 """
 
 from __future__ import annotations
@@ -45,6 +49,61 @@ def load_state_npz(path) -> PGDResult:
             [z[f"m{d}"] for d in range(nd)], z["n_modes"], z["amplitudes"],
             z["alpha"], z["fp_its"], z["normU0"],
         )
+
+
+_H5_SUFFIXES = (".h5", ".hdf5")
+
+
+def read_h5_snapshot(path) -> dict:
+    """The JAX package's HDF5 snapshot (``Vademecum.save`` or
+    ``Certifier.save``) as a dict under the keys of the port's ``.npz``:
+    every file attribute and dataset by name, and the ``degree`` attribute
+    of a dataset ``<name>_{d}`` as ``degree_{d}``.  Needs ``h5py``,
+    imported here; without it this raises ``ImportError``."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(
+            f"{path}: reading an HDF5 snapshot needs h5py, which is not "
+            "installed; save it again as .npz with the port, or install h5py"
+        ) from e
+    out = {}
+    with h5py.File(Path(path), "r") as f:
+        for k, v in f.attrs.items():
+            out[k] = np.asarray(v)
+        for name, ds in f.items():
+            out[name] = np.asarray(ds)
+            if "degree" in ds.attrs:
+                out["degree_" + name.rsplit("_", 1)[1]] = np.asarray(ds.attrs["degree"])
+    return out
+
+
+def read_snapshot(path, spaces, kind="vademecum") -> dict:
+    """A deployed snapshot as a dict of host arrays — the port's ``.npz``,
+    or the JAX package's HDF5 file by its suffix (``.h5`` / ``.hdf5``,
+    :func:`read_h5_snapshot`) — validated against ``spaces``: one space per
+    saved dim, and each dim's mesh vertices (``coords_{d}``) and degree
+    (``degree_{d}``), which a ``kind="vademecum"`` snapshot always holds and
+    a ``"certifier"`` one where it was saved with its spaces."""
+    path = Path(path)
+    if path.suffix.lower() in _H5_SUFFIXES:
+        z = read_h5_snapshot(path)
+    else:
+        with np.load(path) as f:
+            z = {k: f[k] for k in f.files}
+    nd = int(z["num_dims"])
+    if len(spaces) != nd:
+        raise ValueError(f"expected {nd} spaces, got {len(spaces)}")
+    for d in range(nd):
+        if kind != "vademecum" and f"coords_{d}" not in z:
+            continue
+        saved = np.asarray(z[f"coords_{d}"])
+        have = spaces[d].mesh().coordinates()
+        if saved.shape != have.shape or not np.allclose(saved, have):
+            raise ValueError(f"space {d} mesh does not match the saved {kind}")
+        if int(z[f"degree_{d}"]) != spaces[d].degree:
+            raise ValueError(f"space {d} degree mismatch")
+    return z
 
 
 def frontier_spaces(num_params, n_x=1024, n_p=128):

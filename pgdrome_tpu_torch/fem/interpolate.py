@@ -34,6 +34,8 @@ def _locate_1d(mesh, x, xp):
 
 def _shape_1d_x(degree, xi, xp):
     """Lagrange basis values at local coordinates xi: (..., degree+1)."""
+    if degree == 0:
+        return xp.ones_like(xi)[..., None]
     if degree == 1:
         return xp.stack([1.0 - xi, xi], -1)
     if degree == 2:
@@ -45,9 +47,32 @@ def _shape_1d_x(degree, xi, xp):
     raise NotImplementedError(f"1D degree {degree}")
 
 
-def eval_dofs_at_points(V, dofs, points, xp=np):
+def _dshape_1d_x(degree, xi, xp):
+    """d/dξ of the Lagrange basis at local coordinates xi: (..., degree+1)."""
+    if degree == 0:
+        return xp.zeros_like(xi)[..., None]
+    if degree == 1:
+        return xp.stack([-xp.ones_like(xi), xp.ones_like(xi)], -1)
+    if degree == 2:
+        return xp.stack([4.0 * xi - 3.0, 4.0 - 8.0 * xi, 4.0 * xi - 1.0], -1)
+    raise NotImplementedError(f"1D degree {degree}")
+
+
+def _cell_widths(mesh, cell, like, xp):
+    """Width h of each located cell, as an array like ``like``."""
+    if xp is torch:
+        verts = mesh.coordinates_device(like.device, like.dtype)[:, 0]
+    else:
+        verts = np.asarray(mesh.coordinates()[:, 0])
+    return verts[cell + 1] - verts[cell]
+
+
+def eval_dofs_at_points(V, dofs, points, xp=np, derivative=False):
     """Evaluate a FE function (dof vector ``dofs`` on the 1D space ``V``)
-    at ``points`` of shape (...,) or (..., 1); returns (...,)."""
+    at ``points`` of shape (...,) or (..., 1); returns (...,).
+    ``derivative=True`` evaluates d/dx instead: the reference-cell
+    derivative over h, one-sided at cell boundaries (a vertex belongs to
+    the cell on its right, the right end to the last cell)."""
     if xp is torch:
         pts = torch.as_tensor(points)
         dofs = torch.as_tensor(dofs, device=pts.device)
@@ -59,7 +84,11 @@ def eval_dofs_at_points(V, dofs, points, xp=np):
     if pts.ndim > 1 and pts.shape[-1] == 1:
         pts = pts[..., 0]
     cell, xi = _locate_1d(V.mesh(), pts, xp)
-    basis = _shape_1d_x(V.degree, xi, xp)  # (..., nl)
+    if derivative:
+        h = _cell_widths(V.mesh(), cell, xi, xp)
+        basis = _dshape_1d_x(V.degree, xi, xp) / h[..., None]
+    else:
+        basis = _shape_1d_x(V.degree, xi, xp)  # (..., nl)
     return (dofs[ed[cell]] * basis).sum(-1)
 
 

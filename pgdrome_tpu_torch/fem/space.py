@@ -1,9 +1,12 @@
-"""Function spaces: P1/P2 Lagrange on 1D intervals (counterpart of the
-interval part of ``pgdrome_tpu/fem/space.py``).
+"""Function spaces: P1/P2 Lagrange and DG0/DG1 on 1D intervals
+(counterpart of the interval part of ``pgdrome_tpu/fem/space.py``).
 
 Dof layout is deterministic and coordinate-sorted: for P2, vertex i is dof
 2i and the midpoint of cell e is dof 2e+1, so the dofs of cell c start at
-``degree·c`` — the layout the fused sweep kernel relies on.  Per-cell
+``degree·c`` — the layout the fused sweep kernel relies on.  A DG(k) space
+numbers its dofs cell by cell, cell c owning ``(k+1)·c … (k+1)·c + k`` at
+the local nodes ξ = 1/2 (k = 0) or ξ = 0, 1 (k = 1), as the JAX package's
+DG dofmap does — the layout derivative fields are served in.  Per-cell
 quadrature (points, weights×|J|, basis values and global gradients) is
 tabulated once on the host for assembly.
 """
@@ -16,6 +19,9 @@ import torch
 from pgdrome_tpu_torch.fem.mesh import Mesh
 
 _CG_FAMILIES = {"P", "CG", "Lagrange"}
+_DG_FAMILIES = {"DG", "Discontinuous Lagrange"}
+# local DG node positions on the reference cell, by degree
+_DG_NODES = {0: np.array([0.5]), 1: np.array([0.0, 1.0])}
 
 
 def gauss_legendre_01(n: int):
@@ -28,7 +34,10 @@ def _shape_1d(degree: int, xi: np.ndarray):
     """Values and d/dxi of the 1D Lagrange basis at reference coords
     xi ∈ [0, 1].  Returns (vals, grads), each (ndof_local, nq)."""
     xi = np.asarray(xi)
-    if degree == 1:
+    if degree == 0:
+        vals = np.ones((1,) + xi.shape)
+        grads = np.zeros((1,) + xi.shape)
+    elif degree == 1:
         vals = np.stack([1.0 - xi, xi])
         grads = np.stack([-np.ones_like(xi), np.ones_like(xi)])
     elif degree == 2:
@@ -47,17 +56,20 @@ def _shape_1d(degree: int, xi: np.ndarray):
 
 
 class FunctionSpace:
-    """Scalar P1/P2 Lagrange space on an interval mesh.
+    """Scalar P1/P2 Lagrange or DG0/DG1 space on an interval mesh.
 
     Parity: dolfin.FunctionSpace(mesh, family, degree), as in the JAX
-    package; only the 1D continuous part is ported."""
+    package; only the 1D part is ported."""
+
+    value_size = 1  # scalar spaces only
 
     def __init__(self, mesh: Mesh, family: str = "P", degree: int = 1):
-        if family not in _CG_FAMILIES:
-            raise ValueError(f"unsupported family '{family}' (P1/P2 only)")
+        if family not in _CG_FAMILIES | _DG_FAMILIES:
+            raise ValueError(f"unsupported family '{family}' (P or DG)")
         if mesh.topology_dim() != 1:
             raise NotImplementedError("only 1D interval meshes are ported")
         self._mesh = mesh
+        self.family = "DG" if family in _DG_FAMILIES else "P"
         self.degree = int(degree)
         self._build_dofmap()
         self._tabulate_quadrature()
@@ -67,7 +79,18 @@ class FunctionSpace:
         mesh, deg = self._mesh, self.degree
         cells = mesh.cells()
         coords = mesh.coordinates()
-        if deg == 1:
+        if self.family == "DG":
+            if deg not in _DG_NODES:
+                raise NotImplementedError("1D DG degree must be 0 or 1")
+            loc = _DG_NODES[deg]
+            ncells = mesh.num_cells()
+            self.element_dofs = np.arange(ncells * loc.size, dtype=np.int32).reshape(
+                ncells, loc.size)
+            a = coords[cells[:, 0], 0]
+            b = coords[cells[:, 1], 0]
+            self.dof_coords = (a[:, None] + (b - a)[:, None] * loc[None, :]).reshape(-1, 1)
+            self.ndofs = self.element_dofs.size
+        elif deg == 1:
             self.element_dofs = cells.astype(np.int32)
             self.dof_coords = coords.copy()
             self.ndofs = mesh.num_vertices()
@@ -122,4 +145,4 @@ class FunctionSpace:
         return self.dof_coords
 
     def __repr__(self):
-        return f"FunctionSpace(P{self.degree}, ndofs={self.dim()}, tdim=1)"
+        return f"FunctionSpace({self.family}{self.degree}, ndofs={self.dim()}, tdim=1)"

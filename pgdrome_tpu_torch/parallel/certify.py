@@ -1,6 +1,7 @@
 """A-posteriori error indicators and certificates for served vademecums
 (counterpart of ``pgdrome_tpu/parallel/certify.py`` but its transient
-family and the HDF5 ``Certifier.save`` / ``load``).
+family; ``Certifier.save`` writes ``.npz``, ``load`` also reads the JAX
+package's HDF5 snapshots).
 
 The per-sample algebraic residual of the separated weak form,
 
@@ -240,6 +241,8 @@ def _indicator_from_dd(spaces, G_dd_host, B_dd_host, bufs_host, M, T, R,
     indicator.chunk = chunk
     indicator.n_modes = M
     indicator.dd_residual = dd_residual
+    # the host tables, for Certifier.save
+    indicator._tables = (G_dd_host, B_dd_host, bufs_host, M, T, R)
     return indicator
 
 
@@ -352,6 +355,67 @@ class Certifier:
                 "components need a Dim0Transform (tf/nodal_tf)"
             )
         return out[norm]
+
+    def save(self, filepath, spaces=None):
+        """Single-file ``.npz`` snapshot of the dd residual tables and the
+        calibration, so a deployed vademecum serves certified bounds
+        without the operator stacks: ``M``, ``T``, ``R``, ``num_dims``,
+        ``n_calibration``, ``G_dd``, ``B_dd``, ``buf_{d}`` (d ≥ 1) and, where
+        set, ``eta``, ``safety``, ``cal_box`` and ``cal_res_range`` — the
+        keys of the JAX package's HDF5 snapshot.  ``spaces`` adds each
+        dim's mesh coordinates and degree (``coords_{d}``, ``degree_{d}``)
+        for :meth:`load` to validate.  The attached guaranteed bound is not
+        saved."""
+        tables = getattr(self._indicator, "_tables", None)
+        if tables is None:
+            raise ValueError("this certifier's indicator carries no dd tables: "
+                             "build it with make_residual_indicator")
+        G_dd, B_dd, bufs, M, T, R = tables
+        arrays = {"M": np.int64(M), "T": np.int64(T), "R": np.int64(R),
+                  "num_dims": np.int64(len(bufs) + 1),
+                  "n_calibration": np.int64(self.n_calibration),
+                  "G_dd": np.asarray(G_dd), "B_dd": np.asarray(B_dd)}
+        for d, b in enumerate(bufs):
+            arrays[f"buf_{d + 1}"] = np.asarray(b)
+        for key in ("eta", "safety", "cal_box", "cal_res_range"):
+            if getattr(self, key) is not None:
+                arrays[key] = np.asarray(getattr(self, key), dtype=np.float64)
+        for d, V in enumerate(spaces or ()):
+            arrays[f"coords_{d}"] = V.mesh().coordinates()
+            arrays[f"degree_{d}"] = np.int64(V.degree)
+        with open(filepath, "wb") as f:  # a file object keeps the exact name
+            np.savez(f, **arrays)
+
+    @classmethod
+    def load(cls, filepath, spaces, chunk=None, device="cuda"):
+        """Rebuild from :meth:`save`, or from the JAX package's HDF5
+        snapshot (a ``.h5`` / ``.hdf5`` path, through ``h5py``), validated
+        against ``spaces``: the parameter tables' dof counts always, the
+        meshes and degrees where the snapshot holds them.  The indicator
+        runs on ``device`` with ``chunk`` samples a pass (default as
+        :func:`make_residual_indicator`'s)."""
+        from pgdrome_tpu_torch.convert import read_snapshot
+
+        z = read_snapshot(filepath, spaces, kind="certifier")
+        nd = int(z["num_dims"])
+        bufs = [np.asarray(z[f"buf_{d}"]) for d in range(1, nd)]
+        # the parameter tables are interpolated through spaces[d]'s dofmap:
+        # a size mismatch would gather garbage
+        for d in range(1, nd):
+            if bufs[d - 1].shape[1] != spaces[d].dim():
+                raise ValueError(
+                    f"space {d} has {spaces[d].dim()} dofs but the saved certifier "
+                    f"tables have {bufs[d - 1].shape[1]} — wrong parameter space "
+                    "for this snapshot")
+        ind = _indicator_from_dd(spaces, np.asarray(z["G_dd"]), np.asarray(z["B_dd"]), bufs,
+                                 int(z["M"]), int(z["T"]), int(z["R"]), chunk, device=device)
+        out = cls(ind, eta=float(z["eta"]) if "eta" in z else None,
+                  safety=float(z["safety"]) if "safety" in z else None)
+        out.n_calibration = int(z["n_calibration"])
+        out.cal_box = np.asarray(z["cal_box"]) if "cal_box" in z else None
+        if "cal_res_range" in z:
+            out.cal_res_range = tuple(float(v) for v in np.asarray(z["cal_res_range"]))
+        return out
 
 
 def make_screener(sep, spaces, n_modes_cap, chunk=2048, device="cuda"):

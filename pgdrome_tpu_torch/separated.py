@@ -901,18 +901,47 @@ def combine_results(base: PGDResult, delta: PGDResult, scale: float) -> PGDResul
     )
 
 
-def evaluate_modes_1d(V, modes_buf: torch.Tensor, points: torch.Tensor):
+def make_evaluator(result_modes, n_modes):
+    """Rank-1 reconstruction over the first (fixed) dimension for a batch
+    of parameter factor rows: ``reconstruct(free_factors (B, ≥ n_modes)) →
+    (B, n0)``, the first ``n_modes`` entries of each row (the product over
+    the free dims of each mode's values) times the first ``n_modes`` dim-0
+    modes; the buffer's padding past ``n_modes`` never enters."""
+    n = int(n_modes)
+    modes0 = result_modes[0][:n]  # (n_modes, n0)
+
+    def reconstruct(free_factors):
+        f = torch.as_tensor(free_factors).to(modes0.device, modes0.dtype)
+        return f[..., :n] @ modes0
+
+    return reconstruct
+
+
+def evaluate_modes_1d(V, modes_buf: torch.Tensor, points: torch.Tensor,
+                      derivative: bool = False):
     """Evaluate all buffered modes of a 1D space at a batch of points:
     (npoints,) → (npoints, n_max), computed in ``modes_buf``'s dtype on its
     device.  Cell locate by binary search over the vertices (any grid),
     then the 2–3 dof rows of each point's cell gathered and weighted by
-    the Lagrange basis."""
-    from pgdrome_tpu_torch.fem.interpolate import _locate_1d, _shape_1d_x
+    the Lagrange basis.  ``derivative=True`` evaluates d(mode)/dp instead:
+    the reference-basis derivative over the cell width, one-sided at cell
+    boundaries (a grid node takes the cell on its right, the right end the
+    last cell) — the factor derivative of the parameter Jacobian."""
+    from pgdrome_tpu_torch.fem.interpolate import (
+        _cell_widths,
+        _dshape_1d_x,
+        _locate_1d,
+        _shape_1d_x,
+    )
 
     pts = torch.as_tensor(points).to(device=modes_buf.device,
                                       dtype=modes_buf.dtype)
     cell, xi = _locate_1d(V.mesh(), pts, torch)
-    basis = _shape_1d_x(V.degree, xi, torch)  # (B, nl)
+    if derivative:
+        h = _cell_widths(V.mesh(), cell, xi, torch)
+        basis = _dshape_1d_x(V.degree, xi, torch) / h[..., None]
+    else:
+        basis = _shape_1d_x(V.degree, xi, torch)  # (B, nl)
     local = V.element_dofs_device(modes_buf.device)[cell]  # (B, nl)
     gathered = modes_buf.T[local]  # (B, nl, n_max)
     return torch.einsum("bl,bln->bn", basis, gathered)

@@ -15,10 +15,26 @@ decomposition, so the container holds the trained modes on the device
   factor moments and finished on the host in f64;
 * :meth:`Vademecum.residuals` / :meth:`Vademecum.error_bound` — certified
   error queries through an attached
-  :class:`~pgdrome_tpu_torch.parallel.certify.Certifier`.
+  :class:`~pgdrome_tpu_torch.parallel.certify.Certifier`;
+* :meth:`Vademecum.errors` — relative L2 errors against FOM fields;
+* :meth:`Vademecum.sensors_jacobian` — analytic parameter sensitivities
+  at sensor points;
+* :meth:`Vademecum.fit_parameters` / :meth:`Vademecum.sample_posterior`
+  / :meth:`Vademecum.design_sensors` — calibration from sensor data
+  (batched Gauss–Newton, a random-walk Metropolis posterior) and
+  D-optimal sensor placement;
+* :meth:`Vademecum.sobol`, :meth:`Vademecum.sobol_group`,
+  :meth:`Vademecum.output_covariance`, :meth:`Vademecum.main_effect` —
+  exact variance-based sensitivity through the separated structure
+  (:mod:`pgdrome_tpu_torch.uq`, host f64);
+* :meth:`Vademecum.fix_parameters` and :meth:`Vademecum.derivative` — new
+  vademecums serving a fixed-parameter slice or the d/dx field;
+* :meth:`Vademecum.save` / :meth:`Vademecum.load` — a single-file ``.npz``
+  snapshot (``load`` also reads the JAX package's HDF5 snapshots).
 
 Energy-basis solves (``precondition_dim0``) pass their transform once at
-construction.  HDF5 ``save``/``load`` are not ported yet.
+construction.  Sweeps return tensors on the vademecum's device; the host
+analytics (fit, posterior, Sobol', design) return numpy arrays.
 """
 
 from __future__ import annotations
@@ -29,9 +45,12 @@ import numpy as np
 import torch
 
 from pgdrome_tpu_torch.config import get_device, use_full_f32_matmul
+from pgdrome_tpu_torch.parallel.vademecum import param_box, parse_prior
 from pgdrome_tpu_torch.separated import PGDResult, host_f64
 
 use_full_f32_matmul()
+
+_NP_TO_TORCH = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64}
 
 
 def _to_host(y, copy_stream):
@@ -100,6 +119,11 @@ def _stream_pipeline(fn, samples, chunk, depth, consumer, device):
     return results
 
 
+def _prior_key(prior, d_p):
+    """The cache-key bytes of a ``(p_prior, gamma)`` prior (b"" for none)."""
+    return b"" if prior is None else b"".join(a.tobytes() for a in parse_prior(prior, d_p))
+
+
 class Vademecum:
     """A trained PGD decomposition packaged for batch serving.
 
@@ -141,6 +165,32 @@ class Vademecum:
         self._moments_fn = None
         self._certifier = None
 
+    @property
+    def num_dims(self):
+        return len(self._modes)
+
+    def _cached(self, key, build):
+        """The LRU entry ``key`` of :attr:`_sensor_cache`, built by
+        ``build()`` on a miss."""
+        fn = self._sensor_cache.get(key)
+        if fn is None:
+            fn = build()
+            self._sensor_cache[key] = fn
+            while len(self._sensor_cache) > self._sensor_cache_max:
+                self._sensor_cache.popitem(last=False)
+        else:
+            self._sensor_cache.move_to_end(key)
+        return fn
+
+    def _derived(self, spaces, modes):
+        """A new vademecum over ``spaces`` with ``modes`` (full dofs,
+        trimmed) and this one's traces, method, dtype and device."""
+        res = PGDResult(modes=modes, n_modes=self.n_modes,
+                        amplitudes=self.result.amplitudes, alpha=self.result.alpha,
+                        fp_its=self.result.fp_its, normU0=self.result.normU0)
+        return Vademecum(spaces, res, method=self._method, dtype=self._modes[0].dtype,
+                         device=self.device)
+
     def _sweep(self, out_dtype=None):
         from pgdrome_tpu_torch.parallel.vademecum import make_sweep_fn
 
@@ -175,17 +225,21 @@ class Vademecum:
         from pgdrome_tpu_torch.parallel.vademecum import make_sensor_sweep_fn
 
         pts = np.asarray(points, dtype=np.float64)
-        key = (pts.tobytes(), pts.shape)
-        fn = self._sensor_cache.get(key)
-        if fn is None:
-            fn = make_sensor_sweep_fn(self.spaces, self._modes, self.n_modes,
-                                      pts, method=self._method)
-            self._sensor_cache[key] = fn
-            while len(self._sensor_cache) > self._sensor_cache_max:
-                self._sensor_cache.popitem(last=False)
-        else:
-            self._sensor_cache.move_to_end(key)
-        return fn
+        return self._cached((pts.tobytes(), pts.shape), lambda: make_sensor_sweep_fn(
+            self.spaces, self._modes, self.n_modes, pts, method=self._method))
+
+    def sensors_jacobian(self, points):
+        """The parameter-sensitivity sweep for a fixed point set: returns
+        fn(samples (B, d−1)) → (B, n_pts, d−1), ∂(response)/∂p_j in column
+        j — analytic through the rank-1 structure, one differentiated
+        factor per column
+        (:func:`~pgdrome_tpu_torch.parallel.vademecum.make_sensor_jacobian_fn`).
+        Cached beside :meth:`sensors`, in the same LRU."""
+        from pgdrome_tpu_torch.parallel.vademecum import make_sensor_jacobian_fn
+
+        pts = np.asarray(points, dtype=np.float64)
+        return self._cached(("jac", pts.tobytes(), pts.shape), lambda: make_sensor_jacobian_fn(
+            self.spaces, self._modes, self.n_modes, pts))
 
     def sensors_stream(self, points, samples, consumer=None,
                        chunk=8_388_608, depth=2):
@@ -280,3 +334,461 @@ class Vademecum:
         """Calibrated per-sample error bounds η·residual, host (B,) float64
         (an attached, calibrated certifier required)."""
         return self._require_certifier().bound(samples)
+
+    # ------------------------------------------------------------- errors
+
+    def errors(self, samples, fom_fields):
+        """Relative L2 errors ‖u − fom‖/‖fom‖ of the served fields against
+        precomputed FOM fields, (B,) float64 on the vademecum's device.
+        The fields come from this vademecum's own sweep (its ``method``:
+        the field kernel on the card)."""
+        from pgdrome_tpu_torch.parallel.vademecum import rel_l2_errors
+
+        return rel_l2_errors(self.fields(samples), fom_fields)
+
+    # -------------------------------------------------------- calibration
+
+    def fit_parameters(self, points, observations, p0=None, n_starts=8,
+                       seed=0, n_iter=30, damping=1e-9, weights=None,
+                       prior=None, return_covariance=False):
+        """Identify the parameters behind observed sensor values: batched,
+        box-projected, damped Gauss–Newton on ‖W(sensor(p) − obs)‖²
+        (+ ‖Γ(p − p_prior)‖²) with the analytic Jacobian
+        (:func:`~pgdrome_tpu_torch.parallel.vademecum.make_fit_fn`); every
+        (observation × start) problem advances in the same batched steps.
+
+        points: sensor locations (as for :meth:`sensors`); observations:
+        (B, n_out), cast to the serving dtype; p0: optional explicit starts
+        (B, d_p) — otherwise ``n_starts`` Latin-hypercube starts per
+        observation (``scipy.stats.qmc``, ``seed``), shrunk 2 % off the box
+        edges, are raced and the lowest regularised cost wins (the
+        least-squares landscape of a many-mode vademecum is multimodal).
+        ``weights``: (n_out,) per-observation weights; ``prior=(p_prior,
+        gamma)``: Tikhonov pull toward p_prior.
+
+        Returns host arrays ``(p_hat (B, d_p), resnorm (B,))`` in the
+        serving dtype; with ``return_covariance=True`` also the linearised
+        posterior covariance ``cov (B, d_p, d_p)`` = σ̂²(JᵀJ [+ Γ²])⁻¹ at
+        p_hat, σ̂² = resnorm²/(n_out − d_p) (needs n_out > d_p)."""
+        from scipy.stats import qmc
+
+        from pgdrome_tpu_torch.parallel.vademecum import make_fit_fn
+
+        d_p = self.num_dims - 1
+        pp, g2 = parse_prior(prior, d_p) if prior is not None else (None, None)
+        pts = np.asarray(points, dtype=np.float64)
+        key = ("fit", pts.tobytes(), pts.shape, int(n_iter), float(damping),
+               (np.asarray(weights, np.float64).tobytes() if weights is not None else b""),
+               _prior_key(prior, d_p))
+        fn = self._cached(key, lambda: make_fit_fn(
+            self.spaces, self._modes, self.n_modes, pts, n_iter=n_iter, damping=damping,
+            weights=weights, prior=prior))
+        obs = torch.as_tensor(observations, dtype=self._modes[0].dtype, device=self.device)
+        if obs.ndim != 2:
+            raise ValueError(f"observations must be (B, n_out), got {tuple(obs.shape)}")
+        B = int(obs.shape[0])
+        lo, hi = param_box(self.spaces)
+        if p0 is not None:
+            p0 = torch.as_tensor(p0)
+            if tuple(p0.shape) != (B, d_p):
+                raise ValueError(f"p0 must be ({B}, {d_p}), got {tuple(p0.shape)}")
+            p_hat, res = (a.cpu().numpy() for a in fn(obs, p0))
+        else:
+            S = int(n_starts)
+            starts = qmc.LatinHypercube(d=d_p, seed=seed).random(S)
+            # 2 % off the box edges: the clip boundary is a fixed point of
+            # the projected steps, edge starts waste their run there
+            starts = lo + (0.02 + 0.96 * starts) * (hi - lo)
+            p_all, r_all = fn(obs.repeat_interleave(S, dim=0), np.tile(starts, (B, 1)))
+            p_all = p_all.cpu().numpy().reshape(B, S, d_p)
+            r_all = r_all.cpu().numpy().reshape(B, S)
+            # the winner by the objective each start minimised: with a prior,
+            # starts at near-equal data residual differ in the prior's term
+            cost_all = r_all ** 2
+            if prior is not None:
+                cost_all = cost_all + np.sum(g2 * (p_all - pp) ** 2, axis=-1)
+            best = np.argmin(cost_all, axis=1)
+            idx = np.arange(B)
+            p_hat, res = p_all[idx, best], r_all[idx, best]
+        if not return_covariance:
+            return p_hat, res
+        n_out = int(obs.shape[1])
+        if n_out <= d_p:
+            raise ValueError(f"return_covariance needs n_out > d_p "
+                             f"({n_out} sensors for {d_p} parameters)")
+        J = host_f64(self.sensors_jacobian(points)(p_hat))  # (B, n_out, d_p)
+        if weights is not None:
+            # resnorm is the weighted norm; weight J to match
+            J = J * np.asarray(weights, np.float64).reshape(-1)[None, :, None]
+        JtJ = np.einsum("bod,boe->bde", J, J)
+        if prior is not None:
+            # the regularised objective's curvature: without the prior's
+            # precision a set well-posed only through it is near-singular
+            JtJ = JtJ + np.diag(g2)[None]
+        sigma2 = res.astype(np.float64) ** 2 / (n_out - d_p)
+        return p_hat, res, sigma2[:, None, None] * np.linalg.inv(JtJ)
+
+    def sample_posterior(self, points, observation, sigma, n_samples=1000,
+                         n_chains=64, burn=0.5, n_adapt=4, adapt_steps=150,
+                         seed=0, prior=None, target_accept=0.3):
+        """Sample the Bayesian posterior of the parameters given one observed
+        sensor vector: batched random-walk Metropolis over the vademecum
+        (:func:`~pgdrome_tpu_torch.parallel.bayes.make_mcmc_fn`), all
+        ``n_chains`` chains advancing together.
+
+        Model: obs = sensor(p) + N(0, diag(σ²)), p uniform on the parameter
+        box, optionally × the Gaussian ``prior=(p_prior, gamma)`` of
+        :meth:`fit_parameters` (whose optimum is this posterior's mode).
+        ``sigma``: scalar or (n_out,).
+
+        Pipeline: (1) the MAP by :meth:`fit_parameters` and the Laplace
+        proposal shape (JᵀΣ⁻¹J + Γ²)⁻¹, capped at the box scale; (2)
+        ``n_adapt`` rounds of ``adapt_steps`` steps tune the global step
+        scale to ``target_accept`` and re-estimate the shape from the pooled
+        walkers; (3) the main run, its first ``burn`` fraction discarded.
+        Adaptation stops before the kept samples, so they are one Markov
+        chain.  The host numpy generator ``default_rng(seed)`` draws the
+        chain starts and seeds each run's ``torch.Generator`` on the
+        vademecum's device.
+
+        Returns a dict: ``samples (n_samples·n_chains, d_p)``, ``chains
+        (n_samples, n_chains, d_p)``, ``acceptance``, ``r_hat (d_p,)`` and
+        ``ess (d_p,)`` (:func:`~pgdrome_tpu_torch.uq.split_rhat`,
+        :func:`~pgdrome_tpu_torch.uq.effective_sample_size` — check r_hat ≤
+        1.05 before trusting intervals), ``p_map``, ``proposal_scale`` and
+        ``proposal_chol``.  Accuracy follows the serving dtype."""
+        from pgdrome_tpu_torch.parallel.bayes import make_mcmc_fn
+        from pgdrome_tpu_torch.uq import effective_sample_size, split_rhat
+
+        if n_chains < 2:
+            raise ValueError("n_chains must be >= 2 (R-hat needs them)")
+        if n_samples < 4:
+            raise ValueError("n_samples must be >= 4")
+        obs = np.asarray(observation, np.float64).reshape(-1)
+        n_out = obs.shape[0]
+        d_p = self.num_dims - 1
+        sig = np.broadcast_to(np.asarray(sigma, np.float64).reshape(-1), (n_out,)).copy()
+        if np.any(sig <= 0):
+            raise ValueError("sigma must be positive")
+        lo, hi = param_box(self.spaces)
+        rng = np.random.default_rng(seed)
+
+        # --- MAP + Laplace proposal shape --------------------------------
+        p_map, _ = self.fit_parameters(points, obs[None], weights=1.0 / sig,
+                                       prior=prior, n_starts=8, seed=seed)
+        p_map = np.asarray(p_map, np.float64)[0]
+        J = host_f64(self.sensors_jacobian(points)(p_map[None]))[0]  # (n_out, d_p)
+        Jw = J / sig[:, None]
+        H = Jw.T @ Jw
+        if prior is not None:
+            H = H + np.diag(parse_prior(prior, d_p)[1])
+        # Laplace covariance; a box-scaled diagonal where the information
+        # matrix is (near-)singular
+        jitter = 1e-12 * max(np.trace(H) / d_p, 1e-300)
+        try:
+            cov0 = np.linalg.inv(H + jitter * np.eye(d_p))
+        except np.linalg.LinAlgError:
+            cov0 = np.diag(((hi - lo) / 20.0) ** 2)
+        if not np.all(np.isfinite(cov0)):
+            cov0 = np.diag(((hi - lo) / 20.0) ** 2)
+        # cap the proposal at the box scale: a flat likelihood direction
+        # must not fling every proposal out of the box
+        box_var = ((hi - lo) / 2.0) ** 2
+        s = np.sqrt(np.minimum(np.diag(cov0), box_var) / np.maximum(np.diag(cov0), 1e-300))
+        cov0 = cov0 * np.outer(s, s)
+
+        def _chol(C):
+            C = 0.5 * (C + C.T)
+            eps = 1e-12 * max(np.trace(C) / d_p, 1e-300)
+            for _ in range(8):
+                try:
+                    return np.linalg.cholesky(C + eps * np.eye(d_p))
+                except np.linalg.LinAlgError:
+                    eps *= 100.0
+            return np.diag(np.sqrt(np.maximum(np.diag(C), 1e-300)))
+
+        chol = _chol(cov0)
+        scale = 2.38 / np.sqrt(d_p)
+
+        # --- chain starts: MAP + proposal-shaped scatter, kept in the box --
+        starts = p_map[None, :] + rng.standard_normal((int(n_chains), d_p)) @ chol.T
+        margin = 1e-6 * (hi - lo)
+        state = np.clip(starts, lo + margin, hi - margin)
+        pts = np.asarray(points, dtype=np.float64)
+        prior_key = _prior_key(prior, d_p)
+
+        def run(steps, state):
+            fn = self._cached(("mcmc", pts.tobytes(), pts.shape, int(steps), prior_key),
+                              lambda: make_mcmc_fn(self.spaces, self._modes, self.n_modes, pts,
+                                                   n_steps=int(steps), prior=prior))
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(int(rng.integers(0, 2**31 - 1)))
+            chain, n_acc = fn(obs, sig, state, chol, scale, generator=gen)
+            return host_f64(chain), float(n_acc.double().mean()) / steps
+
+        # --- adaptation: tune the scale to target_accept, re-estimate the
+        # proposal shape from the pooled walkers ---------------------------
+        for _ in range(int(n_adapt)):
+            chain, acc = run(adapt_steps, state)
+            state = chain[-1]
+            scale *= float(np.exp(1.5 * (acc - target_accept)))
+            scale = float(np.clip(scale, 1e-4, 1e2))
+            cov_emp = np.cov(chain[adapt_steps // 2:].reshape(-1, d_p).T).reshape(d_p, d_p)
+            if np.all(np.isfinite(cov_emp)) and np.trace(cov_emp) > 0:
+                chol = _chol(cov_emp)
+
+        # --- main run -----------------------------------------------------
+        n_burn = int(np.ceil(float(burn) * n_samples))
+        n_total = int(n_samples) + n_burn
+        chain, acc = run(n_total, state)
+        kept = chain[n_burn:]
+        return {
+            "samples": kept.reshape(-1, d_p),
+            "chains": kept,
+            "acceptance": acc,
+            "r_hat": split_rhat(kept),
+            "ess": effective_sample_size(kept),
+            "p_map": p_map,
+            "proposal_scale": scale,
+            "proposal_chol": chol,
+        }
+
+    def design_sensors(self, candidates, k, samples=None):
+        """D-optimal sensor placement: greedily pick ``k`` of the
+        ``candidates`` (as for :meth:`sensors`) maximising det(JᵀJ) of the
+        resulting calibration problem, J the analytic sensitivities averaged
+        (in the Gram) over ``samples`` (default: the box centre).  Greedy
+        with the information-matrix update det(M + A_c) = det(M)·det(I +
+        M⁻¹A_c), M started at ε·I.  Returns ``(indices (k,), points (k,
+        …))``."""
+        cands = np.asarray(candidates, np.float64)
+        n_cand = cands.shape[0]
+        k = int(k)
+        if not 1 <= k <= n_cand:
+            raise ValueError(f"k must be in 1..{n_cand}, got {k}")
+        d_p = self.num_dims - 1
+        if samples is None:
+            lo, hi = param_box(self.spaces)
+            samples = (0.5 * (lo + hi))[None, :]
+        J = host_f64(self.sensors_jacobian(candidates)(np.asarray(samples, np.float64)))
+        vs = max(1, J.shape[1] // n_cand)  # outputs per point
+        # per-candidate information atoms, sample-averaged
+        A = np.einsum("sod,soe->ode", J, J) / J.shape[0]
+        A = A.reshape(n_cand, vs, d_p, d_p).sum(axis=1)
+        chosen = []
+        eps = 1e-12 * (np.trace(A, axis1=1, axis2=2).max() + 1e-300)
+        M = np.eye(d_p) * eps
+        avail = np.ones(n_cand, dtype=bool)
+        for _ in range(k):
+            gain = np.linalg.det(np.eye(d_p)[None]
+                                 + np.einsum("de,cef->cdf", np.linalg.inv(M), A))
+            gain[~avail] = -np.inf
+            c = int(np.argmax(gain))
+            chosen.append(c)
+            avail[c] = False
+            M = M + A[c]
+        idx = np.asarray(chosen)
+        return idx, cands[idx]
+
+    # ---------------------------------------------------------- slicing
+
+    def _fixed_weights(self, fixed):
+        """Validate ``fixed`` {parameter index → value} and return it with
+        the (n_modes,) host f64 product of the fixed factors' values."""
+        from pgdrome_tpu_torch.separated import evaluate_modes_1d
+
+        d_p = self.num_dims - 1
+        fixed = {int(j): float(v) for j, v in dict(fixed).items()}
+        if not fixed:
+            raise ValueError("fixed must name at least one parameter dim")
+        if not all(0 <= j < d_p for j in fixed):
+            raise ValueError(f"parameter indices must be in 0..{d_p - 1}")
+        if len(fixed) >= d_p:
+            raise ValueError("at least one parameter dim must stay free (to evaluate "
+                             "at a single full parameter point, use fields/sensors)")
+        lo, hi = param_box(self.spaces)
+        w = np.ones(self.n_modes, np.float64)
+        for j, v in fixed.items():
+            V = self.spaces[1 + j]
+            if not lo[j] <= v <= hi[j]:
+                raise ValueError(f"fixed value {v} for parameter {j} is outside its "
+                                 f"box [{lo[j]}, {hi[j]}]")
+            vals = evaluate_modes_1d(V, torch.from_numpy(host_f64(self._modes[1 + j])),
+                                     torch.tensor([v], dtype=torch.float64))
+            w *= vals.numpy().reshape(-1)
+        return fixed, w
+
+    def fix_parameters(self, fixed):
+        """Partial evaluation: fold the fixed parameter dims into the dim-0
+        modes and return a lower-dimensional vademecum over the remaining
+        parameters, u(·; p_free | p_fixed) — exact, it is the evaluation of
+        the separated factors.  ``fixed``: {parameter index (0-based) →
+        value in its box}; at least one parameter stays free.  Every
+        serving path of the result runs at full rate (its fields through
+        the field kernel with one parameter dim fewer per fixed one)."""
+        fixed, w = self._fixed_weights(fixed)
+        keep = [j for j in range(self.num_dims - 1) if j not in fixed]
+        dt = self._modes[0].dtype
+        new0 = torch.from_numpy(host_f64(self._modes[0]) * w[:, None]).to(dt)
+        return self._derived([self.spaces[0]] + [self.spaces[1 + j] for j in keep],
+                             [new0] + [self._modes[1 + j] for j in keep])
+
+    # ------------------------------------------------------------ Sobol'
+
+    def sobol(self, points=None, densities=None, second_order=False):
+        """Exact Sobol' indices of the served solution, closed-form through
+        the separated structure (:mod:`pgdrome_tpu_torch.uq`): no sampling,
+        no FOM solves.
+
+        points: sensor points → per-output indices ``(d_p, n_out)`` with the
+        per-output mean and variance; None → generalised indices of the
+        whole field (variance integrated against the dim-0 mass measure
+        over the domain volume): scalar variance and indices, and the mean
+        field.  densities: optional per-parameter unnormalised densities
+        (None = uniform; scalar / callable / fem Function), parameters
+        independent.  Returns ``{'mean', 'variance', 'first' (d_p, …),
+        'total' (d_p, …)}``, with ``second_order`` also ``'second' (d_p,
+        d_p, …)``.  Host f64."""
+        from pgdrome_tpu_torch.uq import sobol_from_stats
+
+        stats = self._factor_stats(densities)
+        if points is not None:
+            return sobol_from_stats(stats, table=self._sobol_table(points),
+                                    second_order=second_order)
+        out = sobol_from_stats(stats, out_gram=self._output_gram(),
+                               second_order=second_order)
+        fbar = np.ones(self.n_modes)
+        for m, _ in stats:
+            fbar *= m
+        out["mean"] = fbar @ host_f64(self._modes[0])
+        return out
+
+    def sobol_group(self, group, points=None, densities=None):
+        """Closed and total Sobol' indices of a group of parameters
+        (0-based), :func:`pgdrome_tpu_torch.uq.sobol_group`; the points and
+        densities of :meth:`sobol`.  Returns ``{'variance', 'closed',
+        'total'}``."""
+        from pgdrome_tpu_torch.uq import sobol_group
+
+        stats = self._factor_stats(densities)
+        if points is not None:
+            return sobol_group(stats, group, table=self._sobol_table(points))
+        return sobol_group(stats, group, out_gram=self._output_gram())
+
+    def output_covariance(self, points, densities=None):
+        """Exact mean and covariance matrix of the sensor responses under
+        the parameter measure, ``(mean (n_out,), cov (n_out, n_out))``
+        (:func:`pgdrome_tpu_torch.uq.output_covariance`); its diagonal is
+        :meth:`sobol`'s per-output variance."""
+        from pgdrome_tpu_torch.uq import output_covariance
+
+        return output_covariance(self._factor_stats(densities), self._sobol_table(points))
+
+    def main_effect(self, j, values, points, densities=None):
+        """Closed-form main-effect curve of parameter ``j`` at the sensor
+        ``points``: ``(mean (n_out,), effect (n_values, n_out))`` with
+        effect[v] = E[u | p_j = values[v]] − E[u]
+        (:func:`pgdrome_tpu_torch.uq.main_effect`)."""
+        from pgdrome_tpu_torch.separated import evaluate_modes_1d
+        from pgdrome_tpu_torch.uq import main_effect
+
+        stats = self._factor_stats(densities)
+        j = int(j)
+        if not 0 <= j < len(stats):
+            raise ValueError(f"j must be in 0..{len(stats) - 1}")
+        vals = evaluate_modes_1d(self.spaces[1 + j],
+                                 torch.from_numpy(host_f64(self._modes[1 + j])),
+                                 torch.as_tensor(np.asarray(values, np.float64)))
+        return main_effect(stats, j, vals.numpy().T, self._sobol_table(points))
+
+    def _factor_stats(self, densities=None):
+        from pgdrome_tpu_torch.uq import factor_stats
+
+        return factor_stats(self.spaces[1:], [host_f64(m) for m in self._modes[1:]],
+                            self.n_modes, densities=densities)
+
+    def _sobol_table(self, points):
+        """(R, n_out) f64 dim-0 mode values at the sensor points."""
+        from pgdrome_tpu_torch.parallel.vademecum import sensor_table
+
+        return sensor_table(self.spaces[0], torch.from_numpy(host_f64(self._modes[0])),
+                            np.asarray(points, dtype=np.float64))
+
+    def _output_gram(self):
+        """(R, R) f64 Gram of the dim-0 modes under the spatial mass
+        measure over the domain volume (the aggregated variance is the
+        spatial mean of the pointwise variance); the banded mass matrix is
+        applied sparse."""
+        import scipy.sparse as sp
+
+        from pgdrome_tpu_torch.fem.assembly import mass_matrix
+
+        V0 = self.spaces[0]
+        W = sp.csr_matrix(mass_matrix(V0))
+        U = host_f64(self._modes[0])
+        return U @ (W @ U.T) / float(np.sum(V0.q_weights))
+
+    # -------------------------------------------------------- derivatives
+
+    def _dim0_mode_map(self, map_fn):
+        """A new vademecum with every dim-0 mode replaced by
+        ``map_fn(Function) -> Function`` (applied once per mode); all its
+        serving paths serve the mapped quantity at full sweep rate."""
+        from pgdrome_tpu_torch.fem.function import Function
+
+        V0 = self.spaces[0]
+        modes0 = host_f64(self._modes[0])
+        dfs = [map_fn(Function(V0, modes0[k])) for k in range(modes0.shape[0])]
+        dmodes = np.stack([np.asarray(f.array) for f in dfs])
+        return self._derived([dfs[0].function_space()] + self.spaces[1:],
+                             [dmodes] + list(self._modes[1:]))
+
+    def derivative(self, direction: int = 0):
+        """The derivative vademecum: a new container over the DG(degree−1)
+        space with every dim-0 mode replaced by its exact d/dx
+        (:func:`pgdrome_tpu_torch.fem.derivative.derivative_function`,
+        once per mode), so fields, sensors, streams and moments serve the
+        derivative field at full sweep rate.  1D dim-0 spaces:
+        ``direction`` 0."""
+        from pgdrome_tpu_torch.fem.derivative import derivative_function
+
+        return self._dim0_mode_map(lambda f: derivative_function(f, direction=direction))
+
+    # -------------------------------------------------------- persistence
+
+    def save(self, filepath):
+        """Single-file ``.npz`` snapshot of the deployed decomposition:
+        ``n_modes``, ``num_dims``, ``amplitudes``, ``alpha`` and per dim d
+        ``modes_{d}`` (full dofs, serving dtype), ``coords_{d}`` (the mesh
+        vertices, for validation at :meth:`load`) and ``degree_{d}`` — the
+        keys of the JAX package's HDF5 snapshot.  An attached certifier is
+        not saved (see :meth:`Certifier.save
+        <pgdrome_tpu_torch.parallel.certify.Certifier.save>`)."""
+        arrays = {"n_modes": np.int64(self.n_modes), "num_dims": np.int64(self.num_dims),
+                  "amplitudes": np.asarray(self.result.amplitudes),
+                  "alpha": np.asarray(self.result.alpha)}
+        for d, (V, m) in enumerate(zip(self.spaces, self._modes)):
+            arrays[f"modes_{d}"] = m.detach().cpu().numpy()
+            arrays[f"coords_{d}"] = V.mesh().coordinates()
+            arrays[f"degree_{d}"] = np.int64(V.degree)
+        with open(filepath, "wb") as f:  # a file object keeps the exact name
+            np.savez(f, **arrays)
+
+    @classmethod
+    def load(cls, filepath, spaces, method="auto", device="cuda"):
+        """Rebuild from :meth:`save`, or from the JAX package's HDF5
+        snapshot (a ``.h5`` / ``.hdf5`` path, read through ``h5py``:
+        :func:`pgdrome_tpu_torch.convert.read_h5_snapshot`).  ``spaces``
+        must match the saved meshes and degrees.  The serving dtype is the
+        saved modes'."""
+        from pgdrome_tpu_torch.convert import read_snapshot
+
+        z = read_snapshot(filepath, spaces)
+        nd = int(z["num_dims"])
+        modes = [np.asarray(z[f"modes_{d}"]) for d in range(nd)]
+        n_modes = int(z["n_modes"])
+        res = PGDResult(modes=[torch.from_numpy(m) for m in modes], n_modes=n_modes,
+                        amplitudes=np.asarray(z["amplitudes"]), alpha=np.asarray(z["alpha"]),
+                        fp_its=np.zeros(n_modes, dtype=np.int64), normU0=1.0)
+        return cls(spaces, res, method=method, dtype=_NP_TO_TORCH[modes[0].dtype],
+                   device=device)

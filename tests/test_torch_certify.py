@@ -16,7 +16,11 @@ where the f32 mode evaluation is exact in both.
   reference: equal dicts, η, calibration records, bounds and warnings;
 - ``guaranteed_field_bound``: within 1e-6 relative, λ_min to 1e-12;
 - ``validate_spd_family`` raises where the reference raises;
-- ``Vademecum.attach_certifier`` wired as the reference's.
+- ``Vademecum.attach_certifier`` wired as the reference's;
+- ``Certifier.save`` / ``load``: the ``.npz`` round trip gives the same
+  residuals and bounds bit for bit; an HDF5 snapshot written by the JAX
+  package's ``Certifier.save`` loads into the port alike; wrong spaces are
+  refused.
 
 ``PYTHONPATH=. python tests/test_torch_certify.py`` computes, with the JAX
 package on the CPU, the d=10 reference figures that ``chip_smoke.py``'s
@@ -316,6 +320,43 @@ def test_vademecum_attach_certifier(solved, jax_side):
     for vd in (jvd, tvd):
         np.testing.assert_array_equal(vd.residuals(s["samples"]), res)
         np.testing.assert_array_equal(vd.error_bound(s["samples"]), 1.5 * res)
+
+
+def test_certifier_save_load(solved, jax_side, tmp_path, monkeypatch):
+    s = solved
+    ind = TC.make_residual_indicator(s["pc"], s["Vs"], s["t"], device="cpu")
+    cert = TC.Certifier(ind)
+    q = s["samples"]
+    cert.calibrate(q, np.linspace(1e-6, 2e-6, len(q)))
+    want_res, want_bound = cert.residuals(q), cert.bound(q)
+    for path, spaces in ((tmp_path / "c.npz", s["Vs"]), (tmp_path / "bare.npz", None)):
+        cert.save(path, spaces=spaces)
+        again = TC.Certifier.load(path, s["Vs"], chunk=ind.chunk, device="cpu")
+        assert (again.eta, again.safety, again.n_calibration, again.cal_res_range) == (
+            cert.eta, cert.safety, cert.n_calibration, cert.cal_res_range)
+        np.testing.assert_array_equal(again.cal_box, cert.cal_box)
+        np.testing.assert_array_equal(again.residuals(q), want_res)
+        np.testing.assert_array_equal(again.bound(q), want_bound)
+    # the JAX package's HDF5 writer on the same tables
+    h5 = tmp_path / "c.h5"
+    JC.Certifier(ind, eta=cert.eta).save(str(h5), spaces=jax_side["Vs"])
+    from_h5 = TC.Certifier.load(h5, s["Vs"], device="cpu")
+    assert from_h5.eta == cert.eta and from_h5.cal_box is None
+    np.testing.assert_array_equal(from_h5.residuals(q), want_res)
+    uncal = TC.Certifier.load(tmp_path / "c.npz", s["Vs"], device="cpu")
+    with pytest.raises(ValueError, match="expected"):
+        TC.Certifier.load(tmp_path / "c.npz", s["Vs"][:-1], device="cpu")
+    _, small = parametric_elliptic(n_x=64, n_p=8, num_params=NP, degree_x=2)
+    with pytest.raises(ValueError, match="does not match"):
+        TC.Certifier.load(tmp_path / "c.npz", small, device="cpu")
+    with pytest.raises(ValueError, match="dofs"):
+        TC.Certifier.load(tmp_path / "bare.npz", small, device="cpu")
+    assert uncal.eta == cert.eta
+    with pytest.raises(ValueError, match="no dd tables"):
+        TC.Certifier(lambda x: x).save(tmp_path / "x.npz")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TC.Certifier.load(tmp_path / "c.npz", s["Vs"])
 
 
 def d10_reference():

@@ -144,7 +144,11 @@ def test_fem_solver(degree_x):
 
 
 def test_rejects_unported_spaces():
+    # DG0/DG1 are ported (the derivative vademecum's spaces); DG2, P3 and
+    # unknown families are not
     with pytest.raises(ValueError):
-        TSpace(TMesh(4, 0.0, 1.0), "DG", 0)
+        TSpace(TMesh(4, 0.0, 1.0), "Q", 1)
+    with pytest.raises(NotImplementedError):
+        TSpace(TMesh(4, 0.0, 1.0), "DG", 2)
     with pytest.raises(NotImplementedError):
         TSpace(TMesh(4, 0.0, 1.0), "P", 3)

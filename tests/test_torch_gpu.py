@@ -621,3 +621,89 @@ def test_anova_init_served_by_kernel(cuda):
     f64 = _fields64(Vs, res, tf, samples.astype(np.float64))
     err = np.linalg.norm(out.cpu().double().numpy() - f64, axis=1) / np.linalg.norm(f64, axis=1)
     assert err.max() < 1e-6
+
+
+def _d5_on_card(cuda):
+    from pgdrome_tpu_torch.convert import frontier_vademecum
+
+    state = Path(__file__).resolve().parent.parent / "states" / "frontier_d5_state.npz"
+    return frontier_vademecum(state, 5, device=cuda)
+
+
+@pytest.mark.parametrize("kind", ["fixed_np3", "derivative_dg1"])
+def test_slice_and_derivative_served_by_kernel(cuda, kind):
+    # the committed d=5 vademecum's fixed-parameter slice (NP = 3) and its
+    # derivative vademecum (DG1 dim-0 table, n0 = 2048) through the field
+    # kernels: within 2γ_c of the plain version on the same tables,
+    # c = K + 4·NP
+    vd = _d5_on_card(cuda)
+    new = vd.fix_parameters({1: 40 / 128, 3: 88 / 128}) if kind == "fixed_np3" else vd.derivative()
+    NP = len(new.spaces) - 1
+    assert isinstance(new._sweep(), fs.FusedSweep)
+    assert (NP, new._modes[0].shape[1]) == ((3, 2049) if kind == "fixed_np3" else (5, 2048))
+    samples = np.random.default_rng(8).uniform(0.0, 1.0, size=(3000, NP)).astype(np.float32)
+    samples[0], samples[1] = 0.0, 1.0
+    fs.reset_launch_counts()
+    out = new.fields(torch.as_tensor(samples, device=cuda))
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES["fields_f32"] == 1 and fs.STAGE_LAUNCHES["gemm"] >= 1
+    modes = [m.cpu().numpy() for m in new._modes]
+    plain = fs.make_fused_sweep(new.spaces, modes, new.n_modes, device="cpu")(
+        torch.as_tensor(samples))
+    bound = _gamma_bound(new.spaces, modes, new.n_modes, samples, new.n_modes + 4 * NP)
+    assert bool(((out.cpu().double() - plain.double()).abs() <= 2 * bound).all())
+
+
+def test_save_load_on_card(cuda, tmp_path):
+    from pgdrome_tpu_torch.serving import Vademecum
+
+    vd = _d5_on_card(cuda)
+    vd.save(tmp_path / "d5.npz")
+    again = Vademecum.load(tmp_path / "d5.npz", vd.spaces, device=cuda)
+    assert isinstance(again._sweep(), fs.FusedSweep) and again._modes[0].is_cuda
+    s = torch.rand((4096, 5), generator=torch.Generator(device=cuda).manual_seed(3), device=cuda)
+    assert torch.equal(again.fields(s), vd.fields(s))
+
+
+def _linear_vademecum(dtype, device, method):
+    """u(x; p, q) = x·p + x²·q, linear in the parameters."""
+    from pgdrome_tpu_torch.convert import result_from_numpy
+    from pgdrome_tpu_torch.serving import Vademecum
+
+    Vx, Vp, Vq = (FunctionSpace(IntervalMesh(n, 0.0, 1.0), "P", k)
+                  for n, k in ((8, 2), (16, 1), (16, 1)))
+    x, p, q = (V.dof_coords[:, 0] for V in (Vx, Vp, Vq))
+    modes = [np.stack([x, x ** 2]), np.stack([p, np.ones_like(p)]),
+             np.stack([np.ones_like(q), q])]
+    return Vademecum([Vx, Vp, Vq], result_from_numpy(modes, 2, *[np.ones(2)] * 3),
+                     method=method, dtype=dtype, device=device)
+
+
+def test_fit_and_mcmc_on_card_vs_f64(cuda):
+    # the f32 fit and sampler on the card against the same calls in f64
+    # with method='torch' on the CPU: p̂ within 1e-4 (f32 normal equations),
+    # the chains fed the same draws take the same accept decisions and stay
+    # within 1e-5
+    from pgdrome_tpu_torch.parallel.bayes import make_mcmc_fn
+
+    pts = np.array([0.2, 0.45, 0.7, 0.95])
+    vd32 = _linear_vademecum(torch.float32, cuda, "auto")
+    vd64 = _linear_vademecum(torch.float64, "cpu", "torch")
+    p_true = np.array([[0.3, 0.7], [0.62, 0.18], [0.5, 0.5]])
+    obs = vd64.sensors(pts)(p_true).numpy()
+    p32, r32 = vd32.fit_parameters(pts, obs, n_iter=30)
+    p64, r64 = vd64.fit_parameters(pts, obs, n_iter=30)
+    np.testing.assert_allclose(p64, p_true, atol=1e-9)
+    np.testing.assert_allclose(p32, p64, atol=1e-4)
+    rng = np.random.default_rng(4)
+    n_steps, C = 30, 8
+    eps, e = rng.standard_normal((n_steps, C, 2)), rng.exponential(size=(n_steps, C))
+    p0 = np.clip(p_true[0] + 0.02 * rng.standard_normal((C, 2)), 0.0, 1.0)
+    args = (obs[0], np.full(4, 0.01), p0, np.diag([0.02, 0.02]), 1.0)
+    c32, a32 = make_mcmc_fn(vd32.spaces, vd32._modes, 2, pts, n_steps=n_steps)(
+        *args, eps=eps, e=e)
+    c64, a64 = make_mcmc_fn(vd64.spaces, vd64._modes, 2, pts, n_steps=n_steps)(
+        *args, eps=eps, e=e)
+    assert c32.is_cuda and torch.equal(a32.cpu(), a64)
+    assert 0 < int(a64.sum()) < n_steps * C
+    np.testing.assert_allclose(c32.cpu().double().numpy(), c64.numpy(), atol=1e-5)

@@ -10,6 +10,11 @@ to 5e-7·max|ref|.  At K=640 the port's f32 sums are held to the rounding
 bound γ_c·(|F|·|M0|), c = K + 4·NP roundings per output, computed in f64
 from the same tables.  Moments agree to 1e-6·max|mean| (mean) and
 1e-6·max(mean²) (variance, which cancels C − f̄f̄ᵀ in f64 on the host).
+
+``save`` / ``load``: the port's ``.npz`` round trip serves the same fields
+bit for bit; a JAX ``.h5`` snapshot (written by the JAX package through
+h5py) loads into the port with the same modes, bit for bit, and both
+packages' loaders validate meshes and degrees alike.
 """
 
 from pathlib import Path
@@ -227,3 +232,73 @@ def test_frontier_moments(frontier):
     scale = np.abs(np.asarray(jm)).max()
     assert np.abs(tm.numpy() - np.asarray(jm)).max() <= MOM_TOL * scale
     assert np.abs(tv.numpy() - np.asarray(jv)).max() <= MOM_TOL * scale ** 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_save_load_round_trip(tmp_path, dtype):
+    _, make = _toy(3, seed=14)
+    tvd = Vademecum(make("auto").spaces, make("auto").result, dtype=dtype, device="cpu")
+    path = tmp_path / "vd.npz"
+    tvd.save(path)
+    again = Vademecum.load(path, tvd.spaces, device="cpu")
+    assert again.n_modes == tvd.n_modes and again._modes[0].dtype == dtype
+    for a, b in zip(again._modes, tvd._modes):
+        assert torch.equal(a, b)
+    np.testing.assert_array_equal(again.result.amplitudes, tvd.result.amplitudes)
+    np.testing.assert_array_equal(again.result.alpha, tvd.result.alpha)
+    s = _samples(23, 3, seed=15)
+    assert torch.equal(again.fields(s), tvd.fields(s))
+    # a derivative vademecum (DG1 dim 0) round-trips over its own spaces
+    d = tvd.derivative()
+    d.save(tmp_path / "d.npz")
+    assert torch.equal(Vademecum.load(tmp_path / "d.npz", d.spaces, device="cpu").fields(s),
+                       d.fields(s))
+    with pytest.raises(ValueError, match="expected 4 spaces"):
+        Vademecum.load(path, tvd.spaces[:3], device="cpu")
+    _, other = t_elliptic(n_x=41, n_p=16, num_params=3)
+    with pytest.raises(ValueError, match="mesh does not match"):
+        Vademecum.load(path, other, device="cpu")
+
+
+def test_load_jax_h5_snapshot(tmp_path):
+    jvd, make = _toy(2, seed=16)
+    path = tmp_path / "vd.h5"
+    jvd.save(str(path))
+    spaces = make("auto").spaces
+    tvd = Vademecum.load(path, spaces, device="cpu")
+    assert tvd.n_modes == jvd.n_modes and tvd._modes[0].dtype == torch.float32
+    for a, b in zip(tvd._modes, jvd._modes):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    s = _samples(17, 2, seed=17)
+    _close(tvd.fields(s).numpy(), np.asarray(jvd.fields(jnp.asarray(s))), F32_TOL)
+    # both loaders refuse a wrong degree alike
+    from pgdrome_tpu.fem.mesh import IntervalMesh as JMesh
+    from pgdrome_tpu.fem.space import FunctionSpace as JSpace
+    from pgdrome_tpu_torch.fem.mesh import IntervalMesh as TMesh
+    from pgdrome_tpu_torch.fem.space import FunctionSpace as TSpace
+
+    j_bad = [JSpace(JMesh(40, 0.0, 1.0), "P", 1)] + list(jvd.spaces[1:])
+    t_bad = [TSpace(TMesh(40, 0.0, 1.0), "P", 1)] + list(spaces[1:])
+    with pytest.raises(ValueError, match="degree mismatch"):
+        JVademecum.load(str(path), j_bad)
+    with pytest.raises(ValueError, match="degree mismatch"):
+        Vademecum.load(path, t_bad, device="cpu")
+
+
+def test_load_without_cuda_raises(tmp_path, monkeypatch):
+    _, make = _toy(2, seed=19)
+    tvd = make("auto")
+    tvd.save(tmp_path / "vd.npz")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Vademecum.load(tmp_path / "vd.npz", tvd.spaces)
+    assert Vademecum.load(tmp_path / "vd.npz", tvd.spaces, device="cpu").device.type == "cpu"
+
+
+def test_h5_without_h5py_raises(tmp_path, monkeypatch):
+    import sys
+
+    _, make = _toy(2, seed=18)
+    monkeypatch.setitem(sys.modules, "h5py", None)  # import h5py now fails
+    with pytest.raises(ImportError, match="needs h5py"):
+        Vademecum.load(tmp_path / "missing.h5", make("auto").spaces, device="cpu")
