@@ -106,7 +106,7 @@ def read_snapshot(path, spaces, kind="vademecum") -> dict:
     return z
 
 
-def frontier_spaces(num_params, n_x=1024, n_p=128):
+def frontier_build(num_params, n_x=1024, n_p=128):
     """The spaces and the dim-0 transform of a parametric-elliptic frontier
     state: ``parametric_elliptic(n_x, n_p, num_params, degree_x=2)`` built
     and preconditioned on the host in f64.  Returns ``(spaces, tf)``."""
@@ -117,6 +117,32 @@ def frontier_spaces(num_params, n_x=1024, n_p=128):
                                       degree_x=2)
     _, tf = precondition_dim0(sep, np.float64)
     return spaces, tf
+
+
+def load_dual_states(paths, sep, Vx, sensors):
+    """The committed adjoint states of the goal-oriented frontier
+    (``states/frontier_dual_d10_s{0,1}.npz``, one per sensor, as
+    :func:`~pgdrome_tpu_torch.recipes.goal_oriented_frontier` checkpoints
+    them) with what serving them needs: per sensor x0 of ``sensors``,
+    ``(res_z, tf_z, l)`` — the state, the dim-0 transform of its adjoint
+    problem (``adjoint_problem(sep, l)`` preconditioned on the host in
+    f64, as the recipe solved it) and the point functional l over ``Vx``.
+    ``sep``: the host-f64 un-boosted primal problem of the build."""
+    from pgdrome_tpu_torch.dual import adjoint_problem, point_functional
+    from pgdrome_tpu_torch.separated import precondition_dim0
+
+    if len(paths) != len(sensors):
+        raise ValueError(f"{len(paths)} dual states for {len(sensors)} sensors")
+    out = []
+    for path, x0 in zip(paths, sensors):
+        l = point_functional(Vx, x0)
+        _, tf_z = precondition_dim0(adjoint_problem(sep, l), np.float64)
+        res_z = load_state_npz(path)
+        if res_z.modes[0].shape[1] != len(tf_z.interior):
+            raise ValueError(f"{path}: dim-0 modes of {res_z.modes[0].shape[1]} dofs do not "
+                             f"fit the adjoint build's {len(tf_z.interior)}")
+        out.append((res_z, tf_z, l))
+    return out
 
 
 def frontier_vademecum(path, num_params, n_x=1024, n_p=128, device="cuda",
@@ -131,7 +157,7 @@ def frontier_vademecum(path, num_params, n_x=1024, n_p=128, device="cuda",
     from pgdrome_tpu_torch.serving import Vademecum
 
     device = get_device(device)  # raise before the host build, not after
-    spaces, tf = frontier_spaces(num_params, n_x=n_x, n_p=n_p)
+    spaces, tf = frontier_build(num_params, n_x=n_x, n_p=n_p)
     result = load_state_npz(path)
     return Vademecum(spaces, result, dim0_transform=tf, method=method,
                      dtype=dtype, device=device)

@@ -86,7 +86,16 @@
 // for an f64 product, 7.14e-7 for an f32 FMA kernel) was 8.25e-7 at 16 k,
 // 1.02e-6 at 32 k and 1.10e-6 at 64 k: the sum cancels heavily, so a
 // biased accumulator error shows where a rounding bound does not.  Hence
-// 16 k.
+// 16 k.  The group partials are summed in f32 over at most K_CHUNK = 512 k
+// (16 stages): above K = 1024 each block sums one 512-k chunk
+// (blockIdx.y), stores its f32 partial tile to a scratch buffer, and
+// partial_sum_kernel adds the chunks in f64, rounding once.  A linear f32
+// sum over all 170 groups of the d=10 vademecum (K = 2717) served 1.127e-6
+// against FEM at its inset corners, where the f64 product of the same f32
+// tables gives 8.88e-7 (PERF.md 6.1): the sum's reach, not the split, set
+// the error.  At K <= 1024 there is one chunk and the kernel stores the
+// total as before, bit for bit.  The narrow product (stage 1) flushes its
+// shared accumulator to the same kind of scratch every 512 k.
 // The rounding of hi/lo is the integer form of cvt.rna.tf32.f32 (ties
 // away from zero), bit for bit the plain split_tf32 in ops/fused_sweep.py,
 // except that a value that would round to infinity is truncated instead.
@@ -341,8 +350,9 @@ template <int KS, int kMode, bool kStaged>
 __global__ void __launch_bounds__(factor_threads(kMode))
 sweep_factors_kernel(const float* __restrict__ samples, const float* __restrict__ grid,
                      const float* __restrict__ tslices, const float* __restrict__ mslices,
-                     float* __restrict__ out, float* __restrict__ out_lo, long long B, int NP,
-                     int ndofp, int n_modes, int ld, int S, int vec, int out_bf16) {
+                     float* __restrict__ out, float* __restrict__ out_lo,
+                     float* __restrict__ chunk_out, long long B, int NP, int ndofp, int n_modes,
+                     int ld, int S, int vec, int out_bf16, int chunk_slices) {
   constexpr int kThreads = factor_threads(kMode);
   constexpr int L = KS / 4;             // lanes per sample row
   constexpr int kRowsPerPass = kThreads / L;
@@ -461,6 +471,14 @@ sweep_factors_kernel(const float* __restrict__ samples, const float* __restrict_
               *reinterpret_cast<float4*>(acc + c) = a;
             }
           }
+          if (chunk_out != nullptr && (q + 1) % chunk_slices == 0 && q + 1 < n_active) {
+            // the end of a k-chunk: its f32 partial out, a fresh accumulator
+            float* dst = chunk_out + ((long long)(q / chunk_slices) * B + tile0 + c0 + tid) * n0;
+            for (int c = 0; c < n0; ++c) {
+              dst[c] = acc[c];
+              acc[c] = 0.0f;
+            }
+          }
         }
         __syncthreads();
       }
@@ -476,10 +494,13 @@ sweep_factors_kernel(const float* __restrict__ samples, const float* __restrict_
 
   if constexpr (kMode == kNarrow) {
     // each row's accumulator was written by thread (row % kThreads) alone
+    const long long last = n_active > 0 ? (n_active - 1) / chunk_slices : 0;
     for (int r = tid; r < rows; r += kThreads) {
       const float* acc = s_acc + r * ldacc;
       const long long at = (tile0 + r) * n0;
-      if (out_bf16) {
+      if (chunk_out != nullptr) {  // the last chunk's partial
+        for (int c = 0; c < n0; ++c) chunk_out[last * B * n0 + at + c] = acc[c];
+      } else if (out_bf16) {
         __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(out) + at;
         for (int c = 0; c < n0; ++c) o[c] = __float2bfloat16_rn(acc[c]);
       } else {
@@ -614,7 +635,8 @@ sweep_gemm_kernel(const __grid_constant__ CUtensorMap a_hi,
                   const __grid_constant__ CUtensorMap a_lo,
                   const __grid_constant__ CUtensorMap b_hi,
                   const __grid_constant__ CUtensorMap b_lo, OutT* __restrict__ out,
-                  long long rows, int n0, int n_kb, int n_tiles) {
+                  float* __restrict__ part, long long rows, int n0, int n_kb, int kb_chunk,
+                  int n_tiles) {
   constexpr int S = kStages;
   constexpr int R = kBN / 2;  // accumulator floats per thread
   extern __shared__ uint8_t smem_raw[];
@@ -622,6 +644,10 @@ sweep_gemm_kernel(const __grid_constant__ CUtensorMap a_hi,
   const uint32_t bars = base + S * kStageBytes;  // full[S], then empty[S]
   const int tid = threadIdx.x, wg = tid / 128;
   const int m_tile = blockIdx.x / n_tiles, n_tile = blockIdx.x - m_tile * n_tiles;
+  // this block's k-chunk: boxes kb0 .. kb0 + n_local - 1 (all of them when
+  // there is one chunk)
+  const int kb0 = blockIdx.y * kb_chunk;
+  const int n_local = min(n_kb - kb0, kb_chunk);
 
   if (tid == 0) {
     for (int s = 0; s < S; ++s) {
@@ -635,12 +661,12 @@ sweep_gemm_kernel(const __grid_constant__ CUtensorMap a_hi,
   if (wg == 0) {  // producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
     if (tid == 0) {
-      for (int kb = 0; kb < n_kb; ++kb) {
+      for (int kb = 0; kb < n_local; ++kb) {
         const int s = kb % S;
         if (kb >= S) mbar_wait(bars + 8 * (S + s), ((kb / S) - 1) & 1);
         const uint32_t st = base + s * kStageBytes, full = bars + 8 * s;
         mbar_expect_tx(full, kStageBytes);
-        const int k = kb * kBoxK, ra = m_tile * kBM, rb = n_tile * kBN;
+        const int k = (kb0 + kb) * kBoxK, ra = m_tile * kBM, rb = n_tile * kBN;
         tma_load_2d(st, &a_hi, full, k, ra);
         tma_load_2d(st + kATileBytes, &a_lo, full, k, ra);
         tma_load_2d(st + 2 * kATileBytes, &b_hi, full, k, rb);
@@ -659,7 +685,7 @@ sweep_gemm_kernel(const __grid_constant__ CUtensorMap a_hi,
   float acc[R], tot[R];
 #pragma unroll
   for (int i = 0; i < R; ++i) acc[i] = tot[i] = 0.0f;
-  const int n_groups = n_kb * kGroups;
+  const int n_groups = n_local * kGroups;
   for (int g = 0; g < n_groups; ++g) {
     const int kb = g / kGroups, half = g % kGroups, s = kb % S;
     if (half == 0) mbar_wait(bars + 8 * s, (kb / S) & 1);
@@ -678,6 +704,7 @@ sweep_gemm_kernel(const __grid_constant__ CUtensorMap a_hi,
   // columns 8j + 2(lane%4) (+1) in registers 4j (+1), (+2, +3 for row+8)
   const int w = (tid % 128) / 32, lane = tid % 32;
   const long long r0 = (long long)m_tile * kBM + c * 64 + 16 * w + lane / 4;
+  float* prows = part == nullptr ? nullptr : part + (long long)blockIdx.y * rows * n0;
 #pragma unroll
   for (int j = 0; j < kBN / 8; ++j) {
     const int col = n_tile * kBN + 8 * j + 2 * (lane % 4);
@@ -685,10 +712,31 @@ sweep_gemm_kernel(const __grid_constant__ CUtensorMap a_hi,
     for (int h = 0; h < 2; ++h) {
       const long long row = r0 + 8 * h;
       if (row >= rows) continue;
+      if (prows != nullptr) {  // this chunk's f32 partial
+        float* prow = prows + row * n0;
+        if (col < n0) prow[col] = tot[4 * j + 2 * h];
+        if (col + 1 < n0) prow[col + 1] = tot[4 * j + 2 * h + 1];
+        continue;
+      }
       OutT* orow = out + row * n0;
       if (col < n0) store<OutT>(orow + col, tot[4 * j + 2 * h]);
       if (col + 1 < n0) store<OutT>(orow + col + 1, tot[4 * j + 2 * h + 1]);
     }
+  }
+}
+
+// out[i] = sum over c of part[c, i], c ascending, in f64, rounded once to
+// OutT (through f32, as the plain version rounds): the chunk partials of
+// the GEMM or of the narrow product.
+template <typename OutT>
+__global__ void __launch_bounds__(256)
+partial_sum_kernel(const float* __restrict__ part, OutT* __restrict__ out, int n_chunks,
+                   long long count) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < count;
+       i += (long long)gridDim.x * blockDim.x) {
+    double s = 0.0;
+    for (int c = 0; c < n_chunks; ++c) s += (double)part[c * count + i];
+    store<OutT>(out + i, (float)s);
   }
 }
 
@@ -733,7 +781,8 @@ int tile_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, long long ro
 
 template <typename OutT>
 int launch_gemm(const void* f_hi, const void* f_lo, const void* t_hi, const void* t_lo,
-                void* out, long long rows, int Kp, int n0, cudaStream_t stream) {
+                void* out, void* part, long long rows, int Kp, int n0, int k_chunk,
+                cudaStream_t stream) {
   EncodeTiled encode;
   int rc = encoder(&encode);
   if (rc != 0) return rc;
@@ -750,8 +799,11 @@ int launch_gemm(const void* f_hi, const void* f_lo, const void* t_hi, const void
   const long long blocks = (rows + kBM - 1) / kBM * n_tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const int n_kb = (Kp + kBoxK - 1) / kBoxK;
-  kernel<<<(unsigned)blocks, kGemmThreads, kGemmSmem, stream>>>(
-      a_hi, a_lo, b_hi, b_lo, static_cast<OutT*>(out), rows, n0, n_kb, n_tiles);
+  const int kb_chunk = part == nullptr ? n_kb : k_chunk / kBoxK;
+  const dim3 grid((unsigned)blocks, (unsigned)((n_kb + kb_chunk - 1) / kb_chunk));
+  kernel<<<grid, kGemmThreads, kGemmSmem, stream>>>(
+      a_hi, a_lo, b_hi, b_lo, static_cast<OutT*>(out), static_cast<float*>(part), rows, n0,
+      n_kb, kb_chunk, n_tiles);
   return (int)cudaGetLastError();
 }
 
@@ -764,8 +816,9 @@ struct FactorArgs {
   const float* mslices;
   float* out;
   float* out_lo;
+  float* chunk_out;
   long long B;
-  int NP, ndofp, n_modes, ld, S, vec, out_bf16;
+  int NP, ndofp, n_modes, ld, S, vec, out_bf16, chunk_slices;
 };
 
 template <int KS, int kMode, bool kStaged>
@@ -775,9 +828,9 @@ int launch_factors(const FactorArgs& a, int smem, cudaStream_t stream) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (a.B + a.S - 1) / a.S;
-  kernel<<<(unsigned)blocks, factor_threads(kMode), smem, stream>>>(a.samples, a.grid, a.tslices, a.mslices,
-                                                       a.out, a.out_lo, a.B, a.NP, a.ndofp,
-                                                       a.n_modes, a.ld, a.S, a.vec, a.out_bf16);
+  kernel<<<(unsigned)blocks, factor_threads(kMode), smem, stream>>>(
+      a.samples, a.grid, a.tslices, a.mslices, a.out, a.out_lo, a.chunk_out, a.B, a.NP, a.ndofp,
+      a.n_modes, a.ld, a.S, a.vec, a.out_bf16, a.chunk_slices);
   return (int)cudaGetLastError();
 }
 
@@ -807,17 +860,25 @@ extern "C" {
 //   mslices set:               out (B, ld = n0 <= 32), F . M0, f32 or
 //                              (out_bf16) bf16; mslices (n_slices, ks,
 //                              round4(n0)) the M0 rows, zero at or past
-//                              n_modes.
+//                              n_modes.  With chunk_out set, the product
+//                              is summed in k-chunks of chunk_slices
+//                              slices: chunk c's f32 partial goes to
+//                              chunk_out (n_chunks, B, n0), n_chunks =
+//                              ceil(ceil(n_modes / ks) / chunk_slices), and
+//                              out is not written (pgd_partial_sum adds
+//                              them).
 // Columns k >= n_modes of F are zero.  rows: sample rows per block, a
 // multiple of factor_threads (512 for the narrow product, else 1024);
 // staged: the tables go through shared memory (else ks
 // must be 32 and the gathers read tslices in global memory).  All arrays
 // C-contiguous on the current device, tslices and mslices 16-byte aligned.
 int pgd_sweep_factors(const void* samples, const void* grid, const void* tslices,
-                      const void* mslices, void* out, void* out_lo, long long B, int NP,
-                      int ndofp, int K, int n_modes, int ld, int ks, int rows, int staged,
-                      int out_bf16, void* stream) {
+                      const void* mslices, void* out, void* out_lo, void* chunk_out, long long B,
+                      int NP, int ndofp, int K, int n_modes, int ld, int ks, int rows,
+                      int staged, int out_bf16, int chunk_slices, void* stream) {
   const int mode = mslices ? kNarrow : out_lo ? kSplit : kFactors;
+  if (chunk_out != nullptr && (mode != kNarrow || chunk_slices < 1))
+    return (int)cudaErrorInvalidValue;
   if (B < 0 || NP < 1 || NP > kMaxNP || ndofp < 2 || K < 1 || n_modes < 0 || n_modes > K ||
       rows < factor_threads(mode) || rows % factor_threads(mode) != 0 || !aligned16(tslices) ||
       (mode == kFactors && ld != K) ||
@@ -830,8 +891,10 @@ int pgd_sweep_factors(const void* samples, const void* grid, const void* tslices
   if ((B + rows - 1) / rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const FactorArgs a = {static_cast<const float*>(samples), static_cast<const float*>(grid),
                         static_cast<const float*>(tslices), static_cast<const float*>(mslices),
-                        static_cast<float*>(out), static_cast<float*>(out_lo), B, NP, ndofp,
-                        n_modes, ld, rows, ld % 4 == 0 && aligned16(out), out_bf16};
+                        static_cast<float*>(out), static_cast<float*>(out_lo),
+                        static_cast<float*>(chunk_out), B, NP, ndofp, n_modes, ld, rows,
+                        ld % 4 == 0 && aligned16(out), out_bf16,
+                        chunk_out != nullptr ? chunk_slices : 1};
   auto st = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case kFactors: return factors_for_mode<kFactors>(a, ks, staged, (int)smem, st);
@@ -848,16 +911,43 @@ long long pgd_factor_smem(int NP, int ndofp, int ks, int rows, int n0, int stage
 
 // Stage 2.  f_hi, f_lo (rows, Kp) f32: the split factors; t_hi, t_lo
 // (n0, Kp) f32: the split M0^T with rows k >= n_modes zero; out (rows, n0)
-// f32 (out_bf16 == 0) or bf16.  Kp is a multiple of 8.
+// f32 (out_bf16 == 0) or bf16.  Kp is a multiple of 8.  With part set, the
+// blocks of blockIdx.y = c sum k in [c k_chunk, (c + 1) k_chunk) only
+// (k_chunk a multiple of 32) and store their f32 partials to part
+// (ceil(Kp / k_chunk), rows, n0) instead of out (pgd_partial_sum adds
+// them).
 int pgd_sweep_gemm(const void* f_hi, const void* f_lo, const void* t_hi, const void* t_lo,
-                   void* out, long long rows, int Kp, int n0, int out_bf16, void* stream) {
+                   void* out, void* part, long long rows, int Kp, int n0, int k_chunk,
+                   int out_bf16, void* stream) {
   if (rows < 0 || Kp < 8 || Kp % 8 != 0 || n0 < 1 || rows > 0xffffffffLL ||
-      !aligned16(f_hi) || !aligned16(f_lo) || !aligned16(t_hi) || !aligned16(t_lo))
+      !aligned16(f_hi) || !aligned16(f_lo) || !aligned16(t_hi) || !aligned16(t_lo) ||
+      (part != nullptr && (k_chunk < kBoxK || k_chunk % kBoxK != 0)))
     return (int)cudaErrorInvalidValue;
   if (rows == 0) return (int)cudaGetLastError();
   auto st = static_cast<cudaStream_t>(stream);
-  return out_bf16 ? launch_gemm<__nv_bfloat16>(f_hi, f_lo, t_hi, t_lo, out, rows, Kp, n0, st)
-                  : launch_gemm<float>(f_hi, f_lo, t_hi, t_lo, out, rows, Kp, n0, st);
+  return out_bf16 ? launch_gemm<__nv_bfloat16>(f_hi, f_lo, t_hi, t_lo, out, part, rows, Kp, n0,
+                                               k_chunk, st)
+                  : launch_gemm<float>(f_hi, f_lo, t_hi, t_lo, out, part, rows, Kp, n0,
+                                       k_chunk, st);
+}
+
+// The f64 sum of chunk partials.  part (n_chunks, count) f32; out (count)
+// f32 (out_bf16 == 0) or bf16: out[i] = sum_c part[c, i], c ascending.
+int pgd_partial_sum(const void* part, void* out, int n_chunks, long long count, int out_bf16,
+                    void* stream) {
+  if (n_chunks < 1 || count < 0) return (int)cudaErrorInvalidValue;
+  if (count == 0) return (int)cudaGetLastError();
+  const long long want = (count + 255) / 256;
+  const unsigned blocks = (unsigned)(want < 132 * 16 ? want : 132 * 16);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto p = static_cast<const float*>(part);
+  if (out_bf16)
+    partial_sum_kernel<__nv_bfloat16><<<blocks, 256, 0, st>>>(
+        p, static_cast<__nv_bfloat16*>(out), n_chunks, count);
+  else
+    partial_sum_kernel<float><<<blocks, 256, 0, st>>>(p, static_cast<float*>(out), n_chunks,
+                                                      count);
+  return (int)cudaGetLastError();
 }
 
 // Dynamic shared memory of a GEMM launch, in bytes (ptxas -v reports

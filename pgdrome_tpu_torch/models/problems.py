@@ -1,7 +1,10 @@
 """Predefined separated model problems — the parametric-elliptic family
-(counterpart of ``pgdrome_tpu/models/problems.py``: ``box_corners``,
+and the transient family on intervals (counterpart of
+``pgdrome_tpu/models/problems.py``: ``box_corners``,
 ``parametric_elliptic``, ``elliptic_fem_solver``,
-``elliptic_dense_verifier``, ``corner_seeded_init``).
+``elliptic_dense_verifier``, ``corner_seeded_init``,
+``moving_heat_source``, ``transient_parametric_conductivity``,
+``transient_conductivity_fom``, ``transient_dense_verifier``).
 
 Builders return a :class:`~pgdrome_tpu_torch.separated.SeparatedProblem`
 of host arrays plus the per-dim function spaces.
@@ -22,7 +25,7 @@ from pgdrome_tpu_torch.fem.assembly import (
     stiffness_matrix,
     load_vector,
 )
-from pgdrome_tpu_torch.separated import SeparatedProblem
+from pgdrome_tpu_torch.separated import SeparatedProblem, host_f64
 
 
 def box_corners(lo, hi, num_params: int, idx=None):
@@ -327,3 +330,370 @@ def corner_seeded_init(target_corners, p_lo, p_hi, q: int = 6,
         return tuple(out)
 
     return init
+
+
+def moving_heat_source(
+    n_x: int = 120,
+    n_t: int = 80,
+    n_P: int = 10,
+    n_v: int = 16,
+    v_range=(0.5, 1.0),
+    P_range=(0.5, 1.0),
+    af: float = 0.08,
+    xc0: float = 0.15,
+    rho_cp: float = 1.0,
+    k: float = 0.05,
+    source_rank: int = 40,
+    separation: str = "greedy",
+    separation_tol: float = 1e-5,
+    dtype=None,
+):
+    """Moving heat-source welding/AM surrogate: space ⊗ time ⊗ power ⊗
+    velocity.
+
+        rho·cp ∂T/∂t − k ∂²T/∂x² = P · g(x − v·t),
+        g = exp(−(x − xc0 − v·t)²/af²),  T(t=0) = 0 (lift external)
+
+    The non-separable moving source is factorized into rank-1 (x,t,v)
+    terms — ``separation='greedy'`` (ALS CP sweep, `source_rank` terms) or
+    ``'hierarchical'`` (two-level SVD, far better accuracy per term for
+    transport-like sources); the power dimension enters linearly.  Time
+    uses FD upwind (backward-Euler equivalent, reference test_heat1D.py
+    FDtime semantics).
+
+    Returns (problem, spaces, source_factors, separation_rel_error)."""
+    from pgdrome_tpu_torch.ops.fd import FD_matrices
+    from pgdrome_tpu_torch.utils.separation import (
+        separate,
+        separate_hierarchical,
+        separation_error,
+    )
+
+    Vx = FunctionSpace(IntervalMesh(n_x, 0.0, 1.0), "P", 1)
+    Vt = FunctionSpace(IntervalMesh(n_t, 0.0, 1.0), "P", 1)
+    VP = FunctionSpace(IntervalMesh(n_P, *P_range), "P", 1)
+    Vv = FunctionSpace(IntervalMesh(n_v, *v_range), "P", 1)
+
+    Mx, Kx = mass_matrix(Vx), stiffness_matrix(Vx)
+    t_grid = Vt.tabulate_dof_coordinates()[:, 0]
+    M_t, _, D1_up = FD_matrices(t_grid)
+    MP = mass_matrix(VP)
+    Mv = mass_matrix(Vv)
+
+    ops = [
+        np.stack([rho_cp * Mx, k * Kx]),
+        np.stack([D1_up, M_t]),
+        np.stack([MP, MP]),
+        np.stack([Mv, Mv]),
+    ]
+
+    # separate g(x - v t) over the (x, t, v) tensor grid
+    x_grid = Vx.tabulate_dof_coordinates()[:, 0]
+    v_grid = Vv.tabulate_dof_coordinates()[:, 0]
+    X, Tm, Vm = np.meshgrid(x_grid, t_grid, v_grid, indexing="ij")
+    g = np.exp(-((X - xc0 - Vm * Tm) ** 2) / af**2)
+    if separation == "hierarchical":
+        # separation_tol bounds the per-level SVD truncation: the knob
+        # that matters once the solver cascade passes the separation floor
+        factors = separate_hierarchical(g, tol=separation_tol,
+                                        max_terms=source_rank)
+    else:
+        factors = separate(g, source_rank, tol=1e-12)
+    sep_err = separation_error(g, factors)
+    R = factors[0].shape[0]
+
+    bP = load_vector(VP, lambda P: P)  # power enters linearly
+    rhs = [
+        factors[0] @ Mx.T,           # (R, n_x): weak x factors  M_x g_r
+        factors[1] @ M_t.T,          # (R, n_t): FD-time mass weighting
+        np.tile(bP[None, :], (R, 1)),
+        factors[2] @ Mv.T,
+    ]
+
+    bc_dofs = [
+        np.array([], dtype=np.int64),
+        np.array([0], dtype=np.int64),  # IC at t = 0
+        np.array([], dtype=np.int64),
+        np.array([], dtype=np.int64),
+    ]
+    mass = [Mx, M_t, MP, Mv]
+
+    dt = dtype or np.float64
+    prob = SeparatedProblem(
+        ops=[np.asarray(o, dtype=dt) for o in ops],
+        rhs=[np.asarray(r, dtype=dt) for r in rhs],
+        mass=[np.asarray(m, dtype=dt) for m in mass],
+        bc_dofs=bc_dofs,
+    )
+    return prob, [Vx, Vt, VP, Vv], factors, sep_err
+
+
+def transient_parametric_conductivity(
+    n_x: int = 128,
+    n_t: int = 64,
+    n_p: int = 32,
+    num_params: int = 2,
+    p_range=(0.0, 1.0),
+    rho_cp: float = 1.0,
+    lt: float = 1.0,
+    dtype=None,
+):
+    """OPERATOR-parametric transient heat: dims x ⊗ t ⊗ p_1..p_P with
+
+        rho·cp ∂u/∂t − ∇·(κ(x; p) ∇u) = q(x)·s(t),
+        κ(x; p) = 1 + Σ_i p_i sin²(iπx)/(2P),  u(0)=u(1)=0,  u(t=0)=0
+
+    — the transient family whose PARAMETERS sit in the operator (the
+    elliptic vademecum's κ driven through an upwind time stencil), so an
+    exact closed form of the outputs does not apply and they need the
+    backward-in-time adjoint.  q = Gaussian bump, s = sin ramp
+    (rank-1 separated source, EXACT — unlike :func:`moving_heat_source`
+    the truth has no source-separation floor, so this isolates the
+    operator-parametric question).
+
+    Parameter dims are collocation-lumped: at every parameter grid
+    point the tensor system IS the masked space-time FEM/FD system
+    (same cancellation argument as :func:`parametric_elliptic`), which
+    :func:`transient_conductivity_fom` solves exactly for truth.
+
+    Returns ``(SeparatedProblem, [Vx, Vt, Vp...])``."""
+    from pgdrome_tpu_torch.ops.fd import FD_matrices
+
+    Vx = FunctionSpace(IntervalMesh(n_x, 0.0, 1.0), "P", 1)
+    Vt = FunctionSpace(IntervalMesh(n_t, 0.0, lt), "P", 1)
+    Vp = [
+        FunctionSpace(IntervalMesh(n_p, p_range[0], p_range[1]), "P", 1)
+        for _ in range(num_params)
+    ]
+
+    Mx = mass_matrix(Vx)
+    K0 = stiffness_matrix(Vx)
+    Kw = [
+        stiffness_matrix(
+            Vx,
+            weight=(lambda i: (lambda x: np.sin((i + 1) * np.pi * x) ** 2
+                               / (2 * num_params)))(i),
+        )
+        for i in range(num_params)
+    ]
+    t_grid = Vt.tabulate_dof_coordinates()[:, 0]
+    M_t, _, D1_up = FD_matrices(t_grid)
+    Mp = [mass_matrix(v) for v in Vp]
+    Mp_w = [mass_matrix(v, weight=lambda p: p) for v in Vp]
+    Mp_op = [np.diag(m.sum(axis=1)) for m in Mp]
+    Mp_w_op = [np.diag(m.sum(axis=1)) for m in Mp_w]
+
+    T = 2 + num_params
+    ops = [
+        np.stack([rho_cp * Mx, K0] + Kw),
+        np.stack([D1_up] + [M_t] * (1 + num_params)),
+    ]
+    for j in range(num_params):
+        mats = []
+        for t in range(T):
+            mats.append(Mp_w_op[j] if t == 2 + j else Mp_op[j])
+        ops.append(np.stack(mats))
+
+    xc, a = 0.4, 0.1
+    q_x = load_vector(Vx, lambda x: np.exp(-((x - xc) ** 2) / a ** 2))
+    q_t = M_t @ np.sin(np.pi * t_grid / lt)
+    rhs = [q_x[None, :], q_t[None, :]] + [
+        np.diag(Mp_op[j])[None, :] for j in range(num_params)
+    ]
+
+    bc_x = DirichletBC(Vx, 0.0, lambda x, onb: onb)
+    bc_dofs = ([bc_x.dofs, np.array([0], dtype=np.int64)]
+               + [np.array([], dtype=np.int64)] * num_params)
+    mass = [Mx, M_t] + Mp
+
+    dt = dtype or np.float64
+    prob = SeparatedProblem(
+        ops=[np.asarray(o, dtype=dt) for o in ops],
+        rhs=[np.asarray(r, dtype=dt) for r in rhs],
+        mass=[np.asarray(m, dtype=dt) for m in mass],
+        bc_dofs=bc_dofs,
+    )
+    return prob, [Vx, Vt] + Vp
+
+
+def transient_conductivity_fom(sep, Vs):
+    """Exact f64 space-time FOM for
+    :func:`transient_parametric_conductivity`: returns
+    ``solve(p) -> (n_x, n_t)`` solving the MASKED kron system
+
+        [Σ_t θ_t(p) A_t^x ⊗ A_t^τ]  (collocation weights cancel)
+
+    by sparse LU — bit-consistent with what the separated solver's
+    per-grid-point semantics converge to, so corrected-output errors
+    measured against it are solver truth (the source is rank-1 exact;
+    no separation floor).  θ read off the collocation diagonals by P1
+    interpolation (exact at grid points)."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    num_params = sep.num_dims - 2
+    Ax = np.asarray(sep.ops[0], dtype=np.float64)
+    At = np.asarray(sep.ops[1], dtype=np.float64)
+    T = Ax.shape[0]
+    mx = np.asarray(sep.bc_masks[0], dtype=np.float64)
+    mt = np.asarray(sep.bc_masks[1], dtype=np.float64)
+    m = (mx[:, None] * mt[None, :]).ravel()
+    bx = np.asarray(sep.rhs[0], dtype=np.float64)[0]
+    bt = np.asarray(sep.rhs[1], dtype=np.float64)[0]
+    b = (np.outer(bx, bt).ravel()) * m
+    grids = [Vs[2 + j].tabulate_dof_coordinates()[:, 0]
+             for j in range(num_params)]
+    w = [np.diagonal(np.asarray(sep.ops[2 + j], dtype=np.float64)[0])
+         for j in range(num_params)]
+    thetas = [
+        np.diagonal(np.asarray(sep.ops[2 + j], dtype=np.float64),
+                    axis1=1, axis2=2) / w[j][None, :]
+        for j in range(num_params)
+    ]
+    kron_terms = [
+        sp.kron(sp.csr_matrix(Ax[t] * mx[:, None] * mx[None, :]),
+                sp.csr_matrix(At[t] * mt[:, None] * mt[None, :]),
+                format="csr")
+        for t in range(T)
+    ]
+    eye_bc = sp.diags(1.0 - m)
+
+    def solve(p):
+        th = np.ones(T)
+        for j in range(num_params):
+            for t in range(T):
+                th[t] *= np.interp(p[j], grids[j], thetas[j][t])
+        A = eye_bc.copy()
+        for t in range(T):
+            A = A + th[t] * kron_terms[t]
+        u = spla.spsolve(A.tocsc(), b)
+        return u.reshape(Ax.shape[1], At.shape[1])
+
+    return solve
+
+
+def transient_dense_verifier(sep, Vs, factors, *, af: float = 0.08,
+                             xc0: float = 0.15, true_source: bool = True,
+                             n_random: int = 6, seeds=(7, 101)):
+    """Dense held-out verifier for :func:`moving_heat_source` results:
+    the reference ``PGDErrorComputation`` discipline (model.py:1768-1825)
+    for the TRANSIENT family, mirroring
+    :func:`elliptic_dense_verifier`'s role for the elliptic one.
+
+    Per sample (an on-grid ``(P, v)`` pair) the full-order model is the
+    SPARSE SPACE-TIME solve  A u = b(P, v)  with the problem's own
+    backward-Euler-equivalent operator
+    ``A = Σ_t kron(ops[0][t], ops[1][t])`` (parameter-independent for
+    this family — one LU factorization serves every sample) and the load
+    built from the EXACT Gaussian ``P·g(x − xc0 − v·t)`` when
+    ``true_source`` (default: measures the END-TO-END error including
+    the source-separation truncation) or from the separated ``factors``
+    otherwise (isolates the solver error from the separation floor).
+
+    Returns ``verify(result) -> {"corners", "interior", "max",
+    "worst_points", "worst_errors"}`` over the 4 parameter-box corners
+    plus ``n_random`` random on-grid samples per seed, with
+    ``verify.sample_errors(result, idx_pairs)`` as the per-point
+    feedback channel (``idx_pairs``: integer ``(ip, iv)`` grid indices).
+    Results must be NODAL-basis (the
+    :func:`~pgdrome_tpu_torch.recipes.two_stage_minres` convention);
+    ``worst_points`` are physical ``(P, v)`` values ranked worst-first,
+    plug-compatible with the corner seeding of
+    :func:`~pgdrome_tpu_torch.recipes.adaptive_cascade`.  Mode buffers may
+    be host arrays or tensors."""
+    from scipy import sparse as sps
+    from scipy.sparse import linalg as spla
+
+    if len(Vs) != 4:
+        raise ValueError(
+            "transient_dense_verifier covers the moving_heat_source "
+            "family: spaces (x, t, P, v)"
+        )
+    nx, nt = sep.sizes[0], sep.sizes[1]
+    # the per-sample operator drops the parameter mass factors, which is
+    # only valid when they ARE the mass (pointwise coefficient 1)
+    for d in (2, 3):
+        od = np.asarray(sep.ops[d], dtype=np.float64)
+        md = np.asarray(sep.mass[d], dtype=np.float64)
+        for t in range(od.shape[0]):
+            if not np.allclose(od[t], md, rtol=0.0,
+                               atol=1e-12 * np.abs(md).max()):
+                raise ValueError(
+                    f"parameter dim {d} operator term {t} is not the "
+                    "mass: the space-time FOM would need per-sample "
+                    "operator coefficients"
+                )
+    ops0 = np.asarray(sep.ops[0], dtype=np.float64)
+    ops1 = np.asarray(sep.ops[1], dtype=np.float64)
+    A = sum(
+        sps.kron(sps.csr_matrix(ops0[t]), sps.csr_matrix(ops1[t]))
+        for t in range(ops0.shape[0])
+    ).tolil()
+    ic_rows = [ix * nt for ix in range(nx)]
+    for rr in ic_rows:
+        A.rows[rr] = [rr]
+        A.data[rr] = [1.0]
+    lu = spla.splu(A.tocsr().tocsc())
+
+    Mx = np.asarray(sep.mass[0], dtype=np.float64)
+    Mt = np.asarray(sep.ops[1][1], dtype=np.float64)
+    MxF = np.asarray(factors[0], dtype=np.float64) @ Mx.T  # (R, nx)
+    MtF = np.asarray(factors[1], dtype=np.float64) @ Mt.T  # (R, nt)
+    x_grid = Vs[0].tabulate_dof_coordinates()[:, 0]
+    t_grid = Vs[1].tabulate_dof_coordinates()[:, 0]
+    P_grid = Vs[2].tabulate_dof_coordinates()[:, 0]
+    v_grid = Vs[3].tabulate_dof_coordinates()[:, 0]
+
+    def _errors(res, idx_pairs):
+        K = res.n_modes
+        m0 = host_f64(res.modes[0])[:K]
+        m1 = host_f64(res.modes[1])[:K]
+        errs = []
+        for ip, iv in idx_pairs:
+            P_val = P_grid[ip]
+            if true_source:
+                g = np.exp(
+                    -((x_grid[:, None] - xc0 - v_grid[iv] * t_grid[None, :])
+                      ** 2) / af ** 2
+                )
+                b = P_val * (Mx @ g @ Mt.T).ravel()
+            else:
+                w = P_val * np.asarray(factors[2], dtype=np.float64)[:, iv]
+                b = np.einsum("r,ri,rj->ij", w, MxF, MtF).ravel()
+            b[ic_rows] = 0.0
+            u_fom = lu.solve(b).reshape(nx, nt)
+            fac = host_f64(res.modes[2])[:K, ip] * host_f64(res.modes[3])[:K, iv]
+            u = np.einsum("k,ki,kj->ij", fac, m0, m1)
+            errs.append(np.linalg.norm(u - u_fom) / np.linalg.norm(u_fom))
+        return np.asarray(errs)
+
+    def sample_errors(res, idx_pairs):
+        """Per-sample relative space-time L2 errors vs the sparse FOM at
+        integer (ip, iv) grid-index pairs."""
+        return _errors(res, np.asarray(idx_pairs, dtype=np.int64))
+
+    n_P, n_v = len(P_grid), len(v_grid)
+    corner_idx = [(0, 0), (0, n_v - 1), (n_P - 1, 0), (n_P - 1, n_v - 1)]
+
+    def verify(res):
+        ec = _errors(res, corner_idx)
+        mc = float(ec.max())
+        mi = 0.0
+        for seed in seeds:
+            rng = np.random.default_rng(seed)
+            if n_random:
+                idx = np.stack(
+                    [rng.integers(1, n_P - 1, size=n_random),
+                     rng.integers(1, n_v - 1, size=n_random)], axis=1
+                )
+                mi = max(mi, float(_errors(res, idx).max()))
+        order = np.argsort(ec)[::-1]
+        pts = np.array([[P_grid[i], v_grid[j]] for i, j in corner_idx])
+        return {
+            "corners": mc, "interior": mi, "max": max(mc, mi),
+            "worst_points": pts[order], "worst_errors": ec[order],
+        }
+
+    verify.sample_errors = sample_errors
+    verify.corner_indices = corner_idx
+    return verify

@@ -24,6 +24,10 @@ hi/lo halves, into a scratch buffer whose rows are K rounded up to a
 multiple of 8, and a TMA + wgmma GEMM multiplies it by the split,
 transposed, masked M0 table in three tf32 passes; the wrapper walks the
 batch in row chunks so the scratch stays under :data:`SCRATCH_BYTES`.
+Above K = :data:`SPLIT_K_MIN` both products sum over k in chunks of
+:data:`K_CHUNK`: each chunk's f32 partial goes to a scratch buffer and a
+third kernel adds the partials in f64 (:func:`chunked_product` is the
+plain version of that order).
 The kernels are built with ``nvcc`` into a plain C shared library at first
 use and called through ``ctypes`` on PyTorch's current stream.
 :func:`fused_sweep` takes the plain version only for tensors on the CPU; a
@@ -63,15 +67,23 @@ BUILD_TIMEOUT_S = 600
 LAUNCHES = {"fields_f32": 0, "fields_bf16": 0, "sensors": 0, "factors": 0}
 # launches per kernel route: the staged factor kernel writing F or its
 # split (factors_stage), the staged fused narrow product (sensor_fused),
-# the factor kernel on the global route, any mode (factors_global), and
-# the tensor-core GEMM (gemm)
-STAGE_LAUNCHES = {"factors_stage": 0, "sensor_fused": 0, "factors_global": 0, "gemm": 0}
+# the factor kernel on the global route, any mode (factors_global),
+# the tensor-core GEMM (gemm), and the f64 sum of k-chunk partials
+# (partial_sum)
+STAGE_LAUNCHES = {"factors_stage": 0, "sensor_fused": 0, "factors_global": 0, "gemm": 0,
+                  "partial_sum": 0}
 
 # outputs up to this wide are the fused narrow product (the sensor wiring)
 SENSORS_MAX = 32
 # bytes of F scratch (both tf32 halves) one row chunk may hold
 SCRATCH_BYTES = 1 << 30
 GEMM_ROWS = 128  # output rows of one GEMM block; chunks are multiples of it
+# the f32 sum over k: up to SPLIT_K_MIN modes in one running sum (the
+# kernels' order before the chunked sum, kept bit for bit), above it in
+# K_CHUNK-long f32 partials added in f64 (csrc/fused_sweep.cu's header)
+SPLIT_K_MIN = 1024
+K_CHUNK = 512
+K_GROUP = 16  # k per fresh tensor-core accumulator (the kernel's kGroupK)
 K_ALIGN = 8  # F and table rows are padded to a multiple of this (TMA, k8 steps)
 _MAX_NP = 16
 
@@ -151,12 +163,15 @@ def _library():
         info = _LAST_BUILD if _LAST_BUILD is not None else build()
         lib = ctypes.CDLL(str(info.path))
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.pgd_sweep_factors.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, i, i, i, i, i, p]
+        lib.pgd_sweep_factors.argtypes = [p, p, p, p, p, p, p, ll, i, i, i, i, i, i, i, i, i,
+                                          i, p]
         lib.pgd_sweep_factors.restype = i
         lib.pgd_factor_smem.argtypes = [i, i, i, i, i, i]
         lib.pgd_factor_smem.restype = ll
-        lib.pgd_sweep_gemm.argtypes = [p, p, p, p, p, ll, i, i, i, p]
+        lib.pgd_sweep_gemm.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, p]
         lib.pgd_sweep_gemm.restype = i
+        lib.pgd_partial_sum.argtypes = [p, p, i, ll, i, p]
+        lib.pgd_partial_sum.restype = i
         lib.pgd_sweep_gemm_smem.argtypes = []
         lib.pgd_sweep_gemm_smem.restype = i
         lib.pgd_error_string.argtypes = [i]
@@ -243,12 +258,56 @@ def split_table(m0: torch.Tensor, n_modes: int):
     return hi.contiguous(), lo.contiguous()
 
 
-def row_chunks(B: int, K: int):
+def k_chunks(K: int) -> int:
+    """How many k-chunks a product over K modes is summed in: 1 up to
+    :data:`SPLIT_K_MIN`, else ceil(K / :data:`K_CHUNK`)."""
+    return 1 if int(K) <= SPLIT_K_MIN else -(-int(K) // K_CHUNK)
+
+
+def sum_roundings(K: int) -> int:
+    """The f32 roundings an output's sum over K modes goes through, as the
+    γ_c bounds count them: K in one running sum, else :data:`K_CHUNK`
+    within a chunk (a generous count: the grouped sum takes K_GROUP +
+    K_CHUNK / K_GROUP) plus one per chunk (the f64 additions and the final
+    rounding to f32)."""
+    n_ch = k_chunks(K)
+    return int(K) if n_ch == 1 else K_CHUNK + n_ch
+
+
+def chunked_product(fac, m0):
+    """fac (B, K) · m0 (K, n0) in the kernels' summation order: one
+    ``torch.matmul`` when K ≤ :data:`SPLIT_K_MIN` or the operands are not
+    float32; else, per :data:`K_CHUNK` of k, f32 ``torch.matmul`` products
+    of :data:`K_GROUP` k each (the GEMM's fresh accumulators) added in f32
+    in k order, and the chunk partials added in f64 in chunk order and
+    rounded once to f32.  Each output then goes through at most
+    K_CHUNK / K_GROUP + K_GROUP + n_chunks f32 roundings, not K.  (One f32
+    ``torch.matmul`` per 512-k chunk is not enough on an H100: cuBLAS's
+    order served the d=10 fields at 1.208e-6 against FEM, the grouped sum
+    at 9.02e-7.)"""
+    K = fac.shape[-1]
+    if fac.dtype != torch.float32 or k_chunks(K) == 1:
+        return torch.matmul(fac, m0)
+    acc = None
+    for k0 in range(0, K, K_CHUNK):
+        tot = None
+        for g0 in range(k0, min(K, k0 + K_CHUNK), K_GROUP):
+            p = torch.matmul(fac[..., g0:g0 + K_GROUP], m0[g0:g0 + K_GROUP])
+            tot = p if tot is None else tot.add_(p)
+        acc = tot.double() if acc is None else acc.add_(tot.double())
+    return acc.to(torch.float32)
+
+
+def row_chunks(B: int, K: int, n0: int = 0):
     """The wrapper's walk over a batch: (start, stop) row ranges covering
     [0, B) in order, each a multiple of :data:`GEMM_ROWS` rows (but the
-    last) whose F scratch, 8·Kp bytes a row, fits :data:`SCRATCH_BYTES`
-    (one 128-row tile at least)."""
-    per_row = 8 * padded_k(K)
+    last) whose F scratch, 8·Kp bytes a row, and (above
+    :data:`SPLIT_K_MIN`) the f32 partials of its ``n0`` outputs,
+    4·n_chunks·n0 bytes a row, fit :data:`SCRATCH_BYTES` (one 128-row tile
+    at least)."""
+    kp = padded_k(K)
+    n_ch = k_chunks(kp)
+    per_row = 8 * kp + (4 * n_ch * int(n0) if n_ch > 1 else 0)
     rows = max(GEMM_ROWS, SCRATCH_BYTES // per_row // GEMM_ROWS * GEMM_ROWS)
     return [(r0, min(B, r0 + rows)) for r0 in range(0, int(B), rows)]
 
@@ -372,7 +431,7 @@ def fused_sweep_plain(samples, grid, tabs, m0, n_modes, out_dtype=None):
         return fac
     m0 = m0.to(dt).clone()
     m0[n_modes:] = 0.0  # padded rows never contribute
-    out = torch.matmul(fac, m0)
+    out = chunked_product(fac, m0)
     return out if out_dtype is None else out.to(out_dtype)
 
 
@@ -404,23 +463,51 @@ def _stream(dev):
 def _launch_factors(samples, grid, tabs, n_modes, plan, sliced, out, out_lo=None,
                     m0_slices=None):
     """One factor-kernel launch over checked operands: F, its split or
-    (``m0_slices``) the fused narrow product into ``out``."""
+    (``m0_slices``) the fused narrow product into ``out`` — above
+    :data:`SPLIT_K_MIN` modes summed in k-chunks whose f32 partials
+    :func:`partial_sum` adds."""
     dev = samples.device
     B, NP = samples.shape
     _, ndofp, K = tabs.shape
+    part, chunk_slices = None, 1
+    if m0_slices is not None and k_chunks(K) > 1:
+        chunk_slices = K_CHUNK // plan.ks
+        n_active = -(-int(n_modes) // plan.ks)
+        n_ch = max(1, -(-n_active // chunk_slices))
+        part = torch.empty((n_ch, B, out.shape[1]), dtype=torch.float32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         rc = lib.pgd_sweep_factors(
             samples.data_ptr(), grid.data_ptr(), sliced.data_ptr(),
             None if m0_slices is None else m0_slices.data_ptr(), out.data_ptr(),
-            None if out_lo is None else out_lo.data_ptr(), B, NP, ndofp, K, int(n_modes),
+            None if out_lo is None else out_lo.data_ptr(),
+            None if part is None else part.data_ptr(), B, NP, ndofp, K, int(n_modes),
             int(out.shape[1]), plan.ks, plan.rows, int(plan.route == "staged"),
-            int(out.dtype == torch.bfloat16), _stream(dev),
+            int(out.dtype == torch.bfloat16), chunk_slices, _stream(dev),
         )
     _raise_on(rc, lib, "sweep factor kernel")
     key = ("factors_global" if plan.route == "global"
            else "sensor_fused" if m0_slices is not None else "factors_stage")
     STAGE_LAUNCHES[key] += 1
+    if part is not None:
+        partial_sum(part, out)
+
+
+def partial_sum(part, out):
+    """The f64 sum of k-chunk partials on the card: ``out`` (…) =
+    Σ_c ``part``[c] in chunk order, rounded once to f32 (and to bf16 for a
+    bfloat16 ``out``); ``part`` (n_chunks, …) float32."""
+    dev = out.device
+    _check(part, "part", dev, part.dim())
+    _check(out, "out", dev, out.dim(), out.dtype)
+    if part.shape[1:] != out.shape:
+        raise ValueError(f"partials {tuple(part.shape)} do not fit out {tuple(out.shape)}")
+    lib = _library()
+    with torch.cuda.device(dev):
+        rc = lib.pgd_partial_sum(part.data_ptr(), out.data_ptr(), int(part.shape[0]),
+                                 out.numel(), int(out.dtype == torch.bfloat16), _stream(dev))
+    _raise_on(rc, lib, "partial sum")
+    STAGE_LAUNCHES["partial_sum"] += 1
 
 
 def factors_stage(samples, grid, tabs, n_modes, out, out_lo=None, plan=None, sliced=None):
@@ -450,7 +537,9 @@ def gemm_stage(f_hi, f_lo, t_hi, t_lo, out):
     """Stage 2 on the card: ``out`` (rows, n0) = F · M0 in three tf32
     passes, from the split factors ``f_hi``/``f_lo`` (rows, Kp) and the
     split table ``t_hi``/``t_lo`` (n0, Kp) of :func:`split_table`; ``out``
-    float32 or bfloat16 (the store rounds).  rows ≥ 1."""
+    float32 or bfloat16 (the store rounds).  Above :data:`SPLIT_K_MIN`
+    the GEMM writes one f32 partial per :data:`K_CHUNK` of k into a
+    scratch buffer and :func:`partial_sum` adds them.  rows ≥ 1."""
     dev = out.device
     for name, t in (("f_hi", f_hi), ("f_lo", f_lo), ("t_hi", t_hi), ("t_lo", t_lo)):
         _check(t, name, dev, 2)
@@ -467,14 +556,20 @@ def gemm_stage(f_hi, f_lo, t_hi, t_lo, out):
         raise TypeError(f"out must be float32 or bfloat16, got {out.dtype}")
     if Kp % K_ALIGN:
         raise ValueError(f"Kp={Kp} must be a multiple of {K_ALIGN}")
+    n_ch = k_chunks(Kp)
+    part = (torch.empty((n_ch, rows, n0), dtype=torch.float32, device=dev) if n_ch > 1
+            else None)
     lib = _library()
     with torch.cuda.device(dev):
         rc = lib.pgd_sweep_gemm(
             f_hi.data_ptr(), f_lo.data_ptr(), t_hi.data_ptr(), t_lo.data_ptr(),
-            out.data_ptr(), rows, Kp, n0, int(out.dtype == torch.bfloat16), _stream(dev),
+            out.data_ptr(), None if part is None else part.data_ptr(), rows, Kp, n0, K_CHUNK,
+            int(out.dtype == torch.bfloat16), _stream(dev),
         )
     _raise_on(rc, lib, "sweep GEMM")
     STAGE_LAUNCHES["gemm"] += 1
+    if part is not None:
+        partial_sum(part, out)
 
 
 def _check_tables(grid, tabs, n_modes):
@@ -512,7 +607,7 @@ def _gemm_product(sweep, samples, bf16):
     t_hi, t_lo = sweep.table
     out = torch.empty((B, t_hi.shape[0]), dtype=torch.bfloat16 if bf16 else torch.float32,
                       device=dev)
-    chunks = row_chunks(B, K)
+    chunks = row_chunks(B, K, t_hi.shape[0])
     f_hi = torch.empty((chunks[0][1], padded_k(K)), dtype=torch.float32, device=dev)
     f_lo = torch.empty_like(f_hi)
     for r0, r1 in chunks:
@@ -554,13 +649,16 @@ class FusedSweep:
     with no dim-0 table).  On the card the factor kernel's plan and sliced
     tables are made once, here, with the sliced M0 of a narrow product
     (n0 ≤ :data:`SENSORS_MAX`) or the GEMM's split M0 table of a wider one;
-    ``m0`` itself serves the plain version on the CPU."""
+    ``m0`` itself serves the plain version on the CPU.  ``launches``
+    counts this sweep's wiring calls that launched, as :data:`LAUNCHES`
+    does across sweeps."""
 
     def __init__(self, grid, tabs, m0, n_modes, out_dtype=None):
         _check_dtype(m0, out_dtype)
         self.grid, self.tabs, self.m0 = grid, tabs, m0
         self.n_modes = int(n_modes)
         self.out_dtype = out_dtype
+        self.launches = 0
         self.plan = self.sliced = self.m0_slices = self.table = None
         if tabs.device.type != "cuda":
             return
@@ -607,11 +705,13 @@ class FusedSweep:
                                    device=s.device)
             out = _gemm_product(self, s, bf16)
             LAUNCHES["fields_bf16" if bf16 else "fields_f32"] += 1
+            self.launches += 1
             return out
         if B:
             _launch_factors(s, self.grid, self.tabs, self.n_modes, self.plan, self.sliced,
                             out, m0_slices=self.m0_slices)
             LAUNCHES[wiring] += 1
+            self.launches += 1
         return out
 
 

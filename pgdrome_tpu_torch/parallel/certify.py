@@ -1,7 +1,6 @@
 """A-posteriori error indicators and certificates for served vademecums
-(counterpart of ``pgdrome_tpu/parallel/certify.py`` but its transient
-family; ``Certifier.save`` writes ``.npz``, ``load`` also reads the JAX
-package's HDF5 snapshots).
+(counterpart of ``pgdrome_tpu/parallel/certify.py``; ``Certifier.save``
+writes ``.npz``, ``load`` also reads the JAX package's HDF5 snapshots).
 
 The per-sample algebraic residual of the separated weak form,
 
@@ -26,6 +25,9 @@ invariant to boundary-boosted measures.
   only the worst few need FEM (``recipes.highd_frontier`` from 8 params).
 * :func:`validate_spd_family` / :func:`guaranteed_field_bound` — the
   zero-calibration A(p) ⪰ K0 field-error bound.
+* :func:`make_transient_residual_indicator` /
+  :func:`make_transient_certifier` — the moving-heat-source family's
+  space-time residual, a host f64 quadratic form.
 
 Host samples come in as (B, num_params) arrays; every result is a host
 float64 array.  The device work runs on ``device`` (CUDA by default,
@@ -55,6 +57,8 @@ __all__ = [
     "screened_verify",
     "validate_spd_family",
     "guaranteed_field_bound",
+    "make_transient_residual_indicator",
+    "make_transient_certifier",
 ]
 
 # the dd indicator keeps about this many (chunk, T·M, n0) f32 arrays alive
@@ -716,3 +720,99 @@ def guaranteed_field_bound(sep, spaces, result, tf=None, *, nodal_tf=None,
     bound.indicator = ind
     bound.caveat = GUARANTEE_CAVEAT
     return bound
+
+
+# ------------------------------------------------- transient (space-time)
+
+def make_transient_residual_indicator(sep, spaces, result, factors):
+    """Per-sample relative residual of the transient moving-heat-source
+    family (dims (x, t, P, v) with a parameter-independent space-time
+    operator and a P-linear separated source) — the certification
+    counterpart of ``transient_dense_verifier``, on the host in f64.
+
+    Per sample the full-order system is A u = b(P, v) with A = Σ_t
+    kron(ops0_t, ops1_t) and the initial-condition rows pinned to the
+    identity (the verifier's FOM).  The served solution is Σ_k w_k(P, v)
+    X_k ⊗ T_k, so the residual is a sum of rank-1 space-time terms
+    (source, A·u with the IC rows masked, the IC rows), and its norm is
+    the quadratic form ‖r‖² = zᵀQz, Q = (S_x S_xᵀ) ∘ (S_t S_tᵀ) built
+    once: no space-time vector per sample.  The form cancels from ‖b‖²
+    down to ‖r‖², so f64 rounding floors the relative residual at about
+    √(K_tot·1e-16); below it the indicator saturates (it only ever
+    overestimates).
+
+    Returns ``indicator(samples (B, 2) = (P, v)) → (B,) float64``; its
+    ``_tables`` is None (:meth:`Certifier.save` does not cover this
+    family)."""
+    if sep.num_dims != 4:
+        raise ValueError("make_transient_residual_indicator covers the moving_heat_source "
+                         "family: dims (x, t, P, v)")
+    for d in (2, 3):
+        od, md = host_f64(sep.ops[d]), host_f64(sep.mass[d])
+        for t in range(od.shape[0]):
+            if not np.allclose(od[t], md, rtol=0.0, atol=1e-12 * np.abs(md).max()):
+                raise ValueError(
+                    f"parameter dim {d} operator term {t} is not the mass: the per-sample "
+                    "space-time system would need per-sample operator coefficients"
+                )
+    M = int(result.n_modes)
+    ops0, ops1 = host_f64(sep.ops[0]), host_f64(sep.ops[1])  # (T, nx, nx), (T, nt, nt)
+    T = ops0.shape[0]
+    X = host_f64(result.modes[0])[:M]
+    Tm = host_f64(result.modes[1])[:M]
+    Mx = host_f64(sep.mass[0])
+    Mt = ops1[1]  # the family's time mass (as the verifier takes it)
+    Fx, Ft, Fv = (np.asarray(f, dtype=np.float64) for f in factors[:3])
+    R = Fx.shape[0]
+
+    # rank-1 space and time vector stacks, blocks [A terms | IC | rhs]
+    SA_blocks, SB_blocks = [], []
+    for t in range(T):
+        SA_blocks.append(X @ ops0[t].T)
+        bt = Tm @ ops1[t].T
+        bt[:, 0] = 0.0  # the IC rows are masked out of A·u
+        SB_blocks.append(bt)
+    SA_blocks.append(X)  # the IC identity rows: u(x, t=0)
+    e0 = np.zeros((M, Tm.shape[1]))
+    e0[:, 0] = Tm[:, 0]
+    SB_blocks.append(e0)
+    SA_blocks.append(Fx @ Mx.T)  # the source (Mx F_r) ⊗ (Mt G_r)
+    br = Ft @ Mt.T
+    br[:, 0] = 0.0  # the FOM zeroes the rhs IC rows
+    SB_blocks.append(br)
+    SA, SB = np.concatenate(SA_blocks), np.concatenate(SB_blocks)
+    Q = (SA @ SA.T) * (SB @ SB.T)
+    K_tot = Q.shape[0]
+    Q_rr = Q[K_tot - R:, K_tot - R:]
+    VP, Vv = spaces[2], spaces[3]
+    mP = torch.from_numpy(host_f64(result.modes[2])[:M])
+    mv = torch.from_numpy(host_f64(result.modes[3])[:M])
+    tFv = torch.from_numpy(Fv)
+
+    def indicator(samples):
+        samples = np.asarray(samples, dtype=np.float64)
+        if samples.ndim != 2 or samples.shape[1] != 2:
+            raise ValueError(f"samples must be (B, 2) = (P, v), got {samples.shape}")
+        P_val, v_val = torch.from_numpy(samples[:, 0]), torch.from_numpy(samples[:, 1])
+        w = (evaluate_modes_1d(VP, mP, P_val) * evaluate_modes_1d(Vv, mv, v_val)).numpy()
+        rho = samples[:, :1] * evaluate_modes_1d(Vv, tFv, v_val).numpy()  # (B, R)
+        z = np.concatenate([np.tile(-w, (1, T)), -w, rho], axis=1)  # (B, K_tot)
+        r2 = np.einsum("bi,bi->b", z @ Q, z)
+        b2 = np.einsum("bi,bi->b", rho @ Q_rr, rho)
+        # clip at the form's own f64 rounding, never negative or NaN
+        floor = K_tot * 1e-16 * np.abs(b2)
+        return np.sqrt(np.maximum(r2, floor) / b2)
+
+    indicator.n_modes = M
+    indicator.chunk = None
+    indicator._tables = None
+    return indicator
+
+
+def make_transient_certifier(sep, spaces, result, factors, eta=None):
+    """:func:`make_transient_residual_indicator` in a :class:`Certifier`;
+    calibrate it on FOM-verified pairs (``transient_dense_verifier(...)
+    .sample_errors`` takes integer grid-index pairs: the certifier takes
+    the physical (P, v))."""
+    return Certifier(make_transient_residual_indicator(sep, spaces, result, factors),
+                     eta=eta)

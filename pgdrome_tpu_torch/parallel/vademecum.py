@@ -10,7 +10,9 @@ large batch of parameter samples.  Each builder returns a function of a
   tables lie on the CPU).  Uniform P1/P2 parameter grids, float32 only.
 * ``method="torch"`` — plain PyTorch: per-dim mode evaluation by gather
   (:func:`~pgdrome_tpu_torch.separated.evaluate_modes_1d`), factor product
-  and ``torch.matmul``; any grid, any float dtype.
+  and ``torch.matmul`` (in f32 above 1024 modes summed as the kernels sum,
+  :func:`~pgdrome_tpu_torch.ops.fused_sweep.chunked_product`); any grid,
+  any float dtype.
 * ``method="auto"`` — the kernel, unless the JAX package's gate would also
   refuse it (non-uniform grid, degree outside {1, 2}, float64 modes) or the
   tables lie on the CPU.  A failed build or launch is never a reason: it
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from pgdrome_tpu_torch.config import use_full_f32_matmul
+from pgdrome_tpu_torch.ops.fused_sweep import chunked_product
 from pgdrome_tpu_torch.separated import evaluate_modes_1d
 
 use_full_f32_matmul()
@@ -113,7 +116,7 @@ def make_sweep_fn(spaces, modes, n_modes, method="torch", out_dtype=None):
 
     def sweep(samples):
         fac = _factors(spaces, modes, _as_samples(samples, modes0), mask)
-        out = fac @ modes0
+        out = chunked_product(fac, modes0)
         return out if out_dtype is None else out.to(out_dtype)
 
     return sweep
@@ -158,7 +161,8 @@ def make_sensor_sweep_fn(spaces, modes, n_modes, points, method="auto",
     mask = _mode_mask(modes0, n_modes)
 
     def sweep(samples):
-        return _factors(spaces, modes, _as_samples(samples, modes0), mask) @ table
+        return chunked_product(_factors(spaces, modes, _as_samples(samples, modes0), mask),
+                               table)
 
     return sweep
 

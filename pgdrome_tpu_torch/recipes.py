@@ -1,6 +1,7 @@
 """End-to-end solver recipes (counterpart of ``pgdrome_tpu/recipes.py``:
 ``_to_nodal``, ``residual_cascade``, ``adaptive_cascade``,
-``two_stage_elliptic``, ``highd_frontier``).
+``two_stage_elliptic``, ``two_stage_minres``, ``adaptive_minres``,
+``highd_frontier``, ``goal_oriented_frontier``).
 
 :func:`two_stage_elliptic` is the north-star vademecum pipeline: an
 energy-basis f32 greedy stage on the device, f64-exact residual restarts
@@ -12,6 +13,10 @@ them), and :func:`highd_frontier` packages it for the d-parameter elliptic
 vademecum: dense FEM verification below 8 parameters, the residual
 screener's (:func:`screened_verification`, :func:`screened_final`) from
 8 on, and optionally the anchored-ANOVA start (:mod:`.anova`).
+:func:`goal_oriented_frontier` certifies outputs with adjoint
+vademecums (:mod:`.dual`); :func:`two_stage_minres` and
+:func:`adaptive_minres` train the transient (non-symmetric) family on the
+normal equations.
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ from pgdrome_tpu_torch.separated import (
     compress_modes,
     galerkin_update,
     host_f64,
+    ne_dim_base,
+    normal_equations,
     pad_rhs_bucket,
     precondition_dim,
     precondition_dim0,
@@ -296,6 +303,138 @@ def two_stage_elliptic(sep: SeparatedProblem, n_stage1: int = 64,
         res = compress_modes(res, mass_c, n_deploy, n_iters=20)
     res = galerkin_update(sep_pc, res)
     return res, tf
+
+
+def two_stage_minres(sep: SeparatedProblem, n_stage1: int = 128,
+                     n_stage2: int = 64, precondition_dims=(0, 1),
+                     tol_fp: float = 1e-6, max_fp_it: int = 50,
+                     dtype=np.float32, extra_stages=(), rhs_comp: bool = False,
+                     device="cuda"):
+    """The transient (non-symmetric) minimal-residual pipeline.
+
+    ``sep``: the host-f64 separated problem.  Greedy Galerkin has no
+    minimisation principle on non-symmetric operators (upwind time), so
+    each stage solves the normal equations in the f32-stable recipe
+    (:func:`_minres_stage`: diag-sum congruence bases on
+    ``precondition_dims``, mid-sweep Euclidean renormalisation, Cholesky
+    solves) on ``device``, and an f64-exact residual re-solve restarts the
+    f32 amplitude floor.  ``extra_stages``: further restart budgets (each
+    f64 restart attacks the previous stage's own f32 floor).
+    ``rhs_comp``: contract the residual stages' rhs stacks in
+    double-f32 (their rescaled rows cancel in the load contraction);
+    stage 1 stays plain.  Returns the combined, Galerkin-updated result in
+    nodal bases for every dim."""
+    device = get_device(device)
+    res = _minres_stage(sep, n_stage1, precondition_dims, tol_fp, max_fp_it, dtype,
+                        False, device)
+    for b in (n_stage2,) + tuple(extra_stages):
+        sep_res, s_res = residual_problem(sep, res)
+        delta = _minres_stage(sep_res, b, precondition_dims, tol_fp, max_fp_it, dtype,
+                              rhs_comp, device)
+        res = combine_results(res, delta, s_res)
+    return galerkin_update(sep, res)
+
+
+def _minres_stage(problem, n_max, precondition_dims, tol_fp, max_fp_it, dtype, comp,
+                  device):
+    """One f32-stable minimal-residual stage: the normal equations, the
+    diag-sum congruence bases (:func:`~pgdrome_tpu_torch.separated.ne_dim_base`)
+    on ``precondition_dims``, mid-sweep renormalisation and Cholesky
+    solves, the result mapped back to nodal bases."""
+    ne = normal_equations(problem)
+    tfs = []
+    for d in precondition_dims:
+        ne, tfd = precondition_dim(ne, dim=d, dtype=np.float64,
+                                   base=ne_dim_base(problem, d))
+        tfs.append(tfd)
+    # the fixed-point cap, not tol_fp, sets the stage's time: the f32
+    # relative stop's floor is above 1e-5
+    s = SeparatedPGD(ne, n_max=n_max, tol=0.0, tol_fp=tol_fp, max_fp_it=max_fp_it,
+                     solver="chol", residual_check=False, dtype=dtype,
+                     renorm_sweep=True, rhs_comp=comp, device=device)
+    return _to_nodal(s.solve_fused(), tfs)
+
+
+def adaptive_minres(sep: SeparatedProblem, verify, *,
+                    bound: float = 1e-6, n_stage1: int = 128,
+                    stage_budget: int = 128, max_stages: int = 12,
+                    precondition_dims=(0, 1),
+                    rhs_comp="auto", rhs_comp_below: float = 1e-4,
+                    stall_stages: int = 3, tol_fp: float = 1e-6,
+                    max_fp_it: int = 50, dtype=np.float32,
+                    rhs_bucket: int | None = None, log=None,
+                    init_result: PGDResult | None = None,
+                    checkpoint=None, device="cuda"):
+    """Error-driven transient cascade: :func:`two_stage_minres`'s restart
+    stacking continued until a verified bound (the minres counterpart of
+    :func:`adaptive_cascade`).
+
+    Restart stacking is the lever above ~1e-4; compensated dd rhs stages
+    hurt there but are needed once the ~1.5e-6 rhs-cancellation floor
+    appears, so ``rhs_comp="auto"`` engages dd only below
+    ``rhs_comp_below`` (1e-4 here, not :func:`adaptive_cascade`'s 1e-5;
+    True/False force it).  Each stage's Galerkin-updated span is verified
+    (``verify``, e.g. :func:`~pgdrome_tpu_torch.models.problems.transient_dense_verifier`:
+    true-source by default, so the bound includes the source-separation
+    truncation); the cascade continues from the raw combination.
+    ``verify`` / ``init_result`` / ``checkpoint`` / ``stall_stages`` as in
+    :func:`adaptive_cascade`; the solves run on ``device``.  Returns
+    ``(best_result, history)`` with nodal-basis results."""
+    device = get_device(device)
+
+    def _split(v):
+        if isinstance(v, dict):
+            return float(v["corners"]), float(v["interior"])
+        return float(v), float(v)
+
+    say = log or (lambda *a: None)
+    history = []
+    best_err, best_res, best_stage = np.inf, None, 0
+    corners = interior = np.inf
+    res = None
+    for si in range(1, max_stages + 1):
+        t0 = time.perf_counter()
+        comp = False
+        if si == 1:
+            res = init_result if init_result is not None else _minres_stage(
+                sep, n_stage1, precondition_dims, tol_fp, max_fp_it, dtype, False, device)
+        else:
+            if isinstance(rhs_comp, bool):
+                comp = rhs_comp
+            else:  # "auto": dd only in the cancellation-bound region
+                comp = (max(corners, interior) < rhs_comp_below
+                        and np.dtype(dtype) != np.float64)
+            sep_res, s_res = residual_problem(sep, res)
+            if rhs_bucket:
+                sep_res = pad_rhs_bucket(sep_res, rhs_bucket)
+            delta = _minres_stage(sep_res, stage_budget, precondition_dims, tol_fp,
+                                  max_fp_it, dtype, comp, device)
+            res = combine_results(res, delta, s_res)
+        res_g = galerkin_update(sep, res)
+        v = verify(res_g)
+        corners, interior = _split(v)
+        mx = max(corners, interior)
+        entry = {"stage": si, "rank": res.n_modes, "corners": corners,
+                 "interior": interior, "max": mx, "rhs_comp": comp,
+                 "stage_s": round(time.perf_counter() - t0, 2)}
+        if isinstance(v, dict):
+            for audit_key in ("screened", "eta", "measured_max", "estimated_max"):
+                if audit_key in v:
+                    entry[audit_key] = v[audit_key]
+        history.append(entry)
+        say(f"adaptive minres stage {si}: rank {res.n_modes} corners {corners:.2e} "
+            f"interior {interior:.2e}" + (" [dd]" if comp else ""))
+        if checkpoint is not None:
+            checkpoint(history[-1], res)
+        if mx < best_err:
+            best_err, best_res, best_stage = mx, res_g, si
+        if mx < bound:
+            break
+        if si - best_stage >= stall_stages:
+            say(f"adaptive minres stalled: best {best_err:.2e} at stage {best_stage}, "
+                f"no improvement for {stall_stages} stages")
+            break
+    return best_res, history
 
 
 def frontier_setup(num_params, boost, *, n_x=1024, n_p=128):
@@ -594,3 +733,209 @@ def highd_frontier(num_params, *, bound=1e-6, n_x=1024, n_p=128,
         with open(artifact_path, "w") as f:
             json.dump(report, f, indent=1)
     return best, report
+
+
+def goal_oriented_frontier(num_params, sensors, primal_result, *,
+                           bound=1e-6, n_x=1024, n_p=128,
+                           dual_stage1=128, dual_budget=128,
+                           max_dual_stages=8, minutes=None,
+                           n_corners=0, n_edge=48, n_random=64,
+                           seeds=(7, 101, 1234), dtype=np.float32,
+                           state_prefix=None, log=None,
+                           artifact_path=None, device="cuda"):
+    """Goal-oriented output certification at the dimensionality frontier,
+    the companion of :func:`highd_frontier` for outputs: per sensor, an
+    adjoint-vademecum :func:`adaptive_cascade` whose per-stage error is the
+    FEM-verified corrected-output error, so it stops as soon as the
+    outputs clear ``bound``, boosts while the output corners bind and
+    corner-seeds at the worst measured points.
+
+    s_corr = l·u_r + z_r·r has error (z − z_r)·r (:mod:`~pgdrome_tpu_torch.dual`),
+    so a modest dual on a rank-walled primal certifies outputs far below
+    the field error.  ``primal_result``: the raw or Galerkin-updated
+    frontier primal in the preconditioned dim-0 basis of the canonical
+    (8, 6)-boosted build (a :func:`highd_frontier` state); it is
+    Galerkin-updated on that build first.  ``sensors``: dim-0 sensor
+    coordinates x0.  The FEM truth (all 2^d inset corners when
+    ``n_corners=0``, else that many, plus per-seed interior and edge
+    draws) is solved once and serves every sensor and stage.  The dual
+    solves run on ``device``; ``state_prefix``: each sensor's raw dual is
+    saved to ``{state_prefix}_s{j}.npz`` after every stage.
+
+    Returns ``(duals, report)``: per sensor ``(res_z, tf_z)`` and the
+    artifact dict (per-stage corrected-error history, estimate
+    effectivity, timing), written as JSON to ``artifact_path``."""
+    import warnings
+
+    from pgdrome_tpu_torch.dual import DualCorrector, adjoint_problem, point_functional
+    from pgdrome_tpu_torch.models.problems import (
+        box_corners,
+        elliptic_fem_solver,
+        parametric_elliptic,
+    )
+
+    device = get_device(device)
+    say = log or (lambda *a: None)
+    t_run0 = time.perf_counter()
+    d = num_params
+
+    (sep_pc, tf_u), status = frontier_setup(d, (8.0, 6), n_x=n_x, n_p=n_p)
+    say(f"setup cache {status} (boost (8.0, 6))")
+    sep_plain, Vs = parametric_elliptic(n_x=n_x, n_p=n_p, num_params=d, degree_x=2)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*boundary_boost compounds.*")
+        sep_b16, _ = parametric_elliptic(n_x=n_x, n_p=n_p, num_params=d, degree_x=2,
+                                         boundary_boost=(16.0, 6))
+
+    res_u = galerkin_update(sep_pc, primal_result)
+    Vx = Vs[0]
+    grid = Vs[1].tabulate_dof_coordinates()[:, 0]
+    lo, hi = grid[1], grid[-2]
+
+    # the shared verification set and its one FEM truth sweep
+    samples, is_boundary = goal_verification_set(d, grid, n_corners=n_corners,
+                                                 n_edge=n_edge, n_random=n_random,
+                                                 seeds=seeds)
+    fem_solve = elliptic_fem_solver(Vx, d)
+    ls = [point_functional(Vx, x0) for x0 in sensors]
+    t0 = time.perf_counter()
+    s_true = np.zeros((len(samples), len(ls)))
+    for si, p in enumerate(samples):
+        u_t = fem_solve(p)
+        for j, l in enumerate(ls):
+            s_true[si, j] = l @ u_t
+    out_floor = 1e-9 * max(np.abs(s_true).max(), 1e-300)
+    for j, x0 in enumerate(sensors):
+        if np.abs(s_true[:, j]).min() < out_floor:
+            raise ValueError(
+                f"sensor x0={x0} has (near-)zero true outputs on the verification set "
+                "(e.g. a Dirichlet-boundary sensor): relative output errors are undefined"
+            )
+    n_corner_rows = int(min(2 ** d, n_corners) if n_corners else 2 ** d)
+    say(f"fem truth: {len(samples)} samples ({n_corner_rows} corners) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    report = {
+        "num_params": d, "bound_target": float(bound),
+        "primal_rank": int(res_u.n_modes), "n_samples": int(len(samples)),
+        "n_corners": n_corner_rows, "seeds": list(seeds), "sensors": [],
+    }
+    # corner and edge rows count as corners, for the boost and the seeds
+    b_rows = np.nonzero(is_boundary)[0]
+    i_rows = np.nonzero(~is_boundary)[0]
+    duals = []
+    for j, x0 in enumerate(sensors):
+        say(f"=== sensor x0={x0} ===")
+        l = ls[j]
+        st = s_true[:, j]
+        adj_pc, tf_z = precondition_dim0(adjoint_problem(sep_plain, l), dtype=np.float64)
+        adj_b_pc, _ = precondition_dim0(adjoint_problem(sep_b16, l), dtype=np.float64)
+        last = {}
+        corr_cache = {}
+
+        def verify_outputs(res_zg, l=l, st=st, tf_z=tf_z, last=last, corr_cache=corr_cache):
+            dc = DualCorrector(sep_plain, Vs, l, res_u, tf_u, res_zg, tf_z, cache=corr_cache)
+            s_corr, s_plain, est = dc.corrected(samples, return_parts=True)
+            rel = np.abs(s_corr - st) / np.abs(st)
+            mc = float(rel[b_rows].max())
+            mi = float(rel[i_rows].max()) if len(i_rows) else 0.0
+            order = np.argsort(rel[b_rows])[::-1][:128]
+            te = st - s_plain
+            big = np.abs(te) > 1e-12 * np.abs(st).max()
+            last.update(plain_rel_max=float((np.abs(s_plain - st) / np.abs(st)).max()),
+                        eff_median=float(np.median(est[big] / te[big])))
+            return {"corners": mc, "interior": mi, "max": max(mc, mi),
+                    "worst_points": samples[b_rows][order],
+                    "worst_errors": rel[b_rows][order]}
+
+        def checkpoint(stage_line, raw, j=j):
+            if not state_prefix:
+                return
+            arrs = {f"m{dd}": host_f64(raw.modes[dd]) for dd in range(1 + d)}
+            np.savez(f"{state_prefix}_s{j}.npz", n_modes=raw.n_modes,
+                     amplitudes=np.asarray(raw.amplitudes), alpha=np.asarray(raw.alpha),
+                     fp_its=np.asarray(raw.fp_its), normU0=raw.normU0, **arrs)
+
+        t0 = time.perf_counter()
+        res_z, hist = adaptive_cascade(
+            adj_pc, verify_outputs, bound=bound, n_stage1=dual_stage1,
+            stage_budget=dual_budget, max_stages=max_dual_stages,
+            boost_problem=adj_b_pc, boost_margin=1.2, rhs_comp=True, dtype=dtype,
+            log=say, checkpoint=checkpoint, corner_seed_range=(lo, hi),
+            rhs_bucket=4096, minutes=minutes, device=device)
+        duals.append((res_z, tf_z))
+        best = min(h["max"] for h in hist)
+        sensor = {
+            "x0": float(x0), "dual_rank": int(res_z.n_modes),
+            "corrected_rel_max": float(best), "met_bound": bool(best < bound),
+            "plain_rel_max": last.get("plain_rel_max"),
+            "estimate_effectivity_median": last.get("eff_median"),
+            "history": [{k: (float(v) if isinstance(v, (int, float, np.floating)) else v)
+                         for k, v in h.items() if not isinstance(v, np.ndarray)}
+                        for h in hist],
+            "cascade_s": round(time.perf_counter() - t0, 1),
+        }
+        report["sensors"].append(sensor)
+        say(json.dumps({k: sensor[k] for k in ("x0", "dual_rank", "corrected_rel_max",
+                                               "met_bound")}))
+        if artifact_path:
+            with open(artifact_path, "w") as f:
+                json.dump(report, f, indent=1)
+
+    report["wall_s"] = round(time.perf_counter() - t_run0, 1)
+    report["corrected_rel_max"] = max(s["corrected_rel_max"] for s in report["sensors"])
+    if artifact_path:
+        with open(artifact_path, "w") as f:
+            json.dump(report, f, indent=1)
+    return duals, report
+
+
+def goal_verification_set(num_params, grid, *, n_corners=0, n_edge=48, n_random=64,
+                          seeds=(7, 101, 1234)):
+    """The output verification set of :func:`goal_oriented_frontier`, drawn
+    as the JAX package draws it: the inset box corners (all 2^d when
+    ``n_corners=0``, else the first and last and a seeded choice of the
+    rest), then per seed ``n_random`` interior grid points and ``n_edge``
+    points with a random subset of dims pinned to a face.  Returns
+    ``(samples, is_boundary)``, the corner and edge rows marked."""
+    d = num_params
+    lo, hi = grid[1], grid[-2]
+    n_c = 2 ** d
+    idx = np.arange(n_c)
+    if n_corners and n_c > n_corners:
+        rng_c = np.random.default_rng(0)
+        idx = np.concatenate([[0, n_c - 1],
+                              rng_c.choice(n_c - 2, size=n_corners - 2, replace=False) + 1])
+    from pgdrome_tpu_torch.models.problems import box_corners
+
+    sets = [("corners", box_corners(lo, hi, d, idx))]
+    for seed in seeds:
+        rng = np.random.default_rng(seed)
+        if n_random:
+            sets.append((f"interior_{seed}",
+                         grid[rng.integers(1, len(grid) - 1, size=(n_random, d))]))
+        if n_edge:
+            pts = grid[rng.integers(1, len(grid) - 1, size=(n_edge, d))]
+            for r in range(n_edge):
+                k = int(rng.integers(1, d)) if d > 1 else 1
+                dims = rng.choice(d, size=k, replace=False)
+                pts[r, dims] = np.where(rng.integers(0, 2, size=k) == 0, lo, hi)
+            sets.append((f"edges_{seed}", pts))
+    samples = np.concatenate([s for _, s in sets])
+    is_boundary = np.concatenate([np.full(len(s), name == "corners" or name.startswith("edges"))
+                                  for name, s in sets])
+    return samples, is_boundary
+
+
+def transient_verification_set(grid, num_params, *, n_random=16, seeds=(7, 101)):
+    """The verification set of the JAX package's transient goal-oriented
+    recipe (``transient_goal_oriented``): the parameter-box corners inset
+    by one grid cell, then ``n_random`` random interior grid points per
+    seed.  Returns (n, num_params) host f64 points."""
+    from pgdrome_tpu_torch.models.problems import box_corners
+
+    pts = [box_corners(grid[1], grid[-2], num_params)]
+    for seed in seeds:
+        rng = np.random.default_rng(seed)
+        pts.append(grid[rng.integers(1, len(grid) - 1, size=(n_random, num_params))])
+    return np.concatenate(pts)

@@ -436,23 +436,31 @@ def _inner_d(problem, d, u, v):
 
 
 def make_enrich_step(problem: SeparatedProblem, max_fp_it=50, tol_fp=1e-5,
-                     solver="lu", cg_iters=30, residual_check=True):
+                     solver="lu", cg_iters=30, residual_check=True, renorm_sweep=False):
     """The enrichment step on a device problem: ``enrich(modes, n_modes,
     init=None) → (new_modes, normU, alpha, fp_its, res)`` — the reference's
     FP_solve with the 'norm' stop and 'stiff' normalisation
     (solver.py:306-506).  ``new_modes`` are fresh buffers with the new mode
     at row ``n_modes``; ``normU``, ``alpha`` and ``res`` are 0-d tensors on
     the device, ``fp_its`` a Python int.  ``init``: optional per-dim
-    fixed-point seeds (masked and mass-normalised like the ones init)."""
+    fixed-point seeds (masked and normalised like the ones init).
+
+    ``renorm_sweep``: after each per-dim solve but the last, scale the
+    factor to unit Euclidean norm (and start from unit-norm factors), so
+    every Gram coefficient stays O(1) — in f32 the minres transient's mode
+    is ~1e-6 of its rhs, and its unnormalised Grams fall below the noise
+    floor; the 'norm' stop is then relative to the iterate's norm."""
     nd = problem.num_dims
     P = problem
+
+    def normalise(d, f):
+        return f / (torch.linalg.norm(f) if renorm_sweep else _norm_d(P, d, f))
 
     def init_modes():
         Fs = []
         for d in range(nd):
             f = torch.ones(P.sizes[d], dtype=P.ops[d].dtype, device=P.ops[d].device)
-            f = f * P.bc_masks[d]
-            Fs.append(f / _norm_d(P, d, f))
+            Fs.append(normalise(d, f * P.bc_masks[d]))
         return Fs
 
     def residual_norm(Fs, modes, mode_mask, dd_weights):
@@ -471,7 +479,27 @@ def make_enrich_step(problem: SeparatedProblem, max_fp_it=50, tol_fp=1e-5,
         for k in range(nd):
             Fs[k] = _solve_dim(P, k, Fs, modes, mode_mask, solver=solver,
                                cg_iters=cg_iters, dd_weights=dd_weights)
+            if renorm_sweep and k < nd - 1:
+                # Euclidean on purpose: the Gram coefficients are plain
+                # products with the O(1) operators, while a transformed
+                # mass can carry the congruence scale
+                nrm = torch.sqrt(Fs[k] @ Fs[k])
+                Fs[k] = Fs[k] / torch.where(nrm > 0, nrm, 1.0)
         return Fs
+
+    def stop_error(Fs_new, Fs):
+        # 'norm' stop (solver.py:812-871): product inner products
+        newnew = newold = oldold = 1.0
+        for d in range(nd):
+            newnew = newnew * _inner_d(P, d, Fs_new[d], Fs_new[d])
+            newold = newold * _inner_d(P, d, Fs_new[d], Fs[d])
+            oldold = oldold * _inner_d(P, d, Fs[d], Fs[d])
+        err = torch.sqrt(torch.abs(newnew + oldold - 2 * newold))
+        if renorm_sweep:
+            # unit-Euclidean factors on congruence-scaled masses make the
+            # absolute metric meaningless: relative to the iterate's norm
+            err = err / torch.sqrt(torch.clamp(newnew, min=1e-30))
+        return err
 
     def enrich(modes, n_modes, init=None):
         dt, dev = P.ops[0].dtype, P.ops[0].device
@@ -479,11 +507,8 @@ def make_enrich_step(problem: SeparatedProblem, max_fp_it=50, tol_fp=1e-5,
         if init is None:
             Fs = init_modes()
         else:
-            Fs = []
-            for d in range(nd):
-                f = torch.as_tensor(np.asarray(init[d])).to(dtype=dt).to(dev)
-                f = f * P.bc_masks[d]
-                Fs.append(f / _norm_d(P, d, f))
+            Fs = [normalise(d, torch.as_tensor(np.asarray(init[d])).to(dtype=dt).to(dev)
+                            * P.bc_masks[d]) for d in range(nd)]
         dd_weights = _DDWeights(P.rhs) if P.rhs[0].ndim == 3 else None
         if residual_check:
             res = residual_norm(Fs, modes, mode_mask, dd_weights)
@@ -495,15 +520,10 @@ def make_enrich_step(problem: SeparatedProblem, max_fp_it=50, tol_fp=1e-5,
         err, fp_its = math.inf, 0
         while err >= tol_fp and fp_its < max_fp_it:  # NaN stops, as in JAX
             Fs_new = fp_sweep(Fs, modes, mode_mask, dd_weights)
-            # 'norm' stop (solver.py:812-871): product inner products
-            newnew = newold = oldold = 1.0
-            for d in range(nd):
-                newnew = newnew * _inner_d(P, d, Fs_new[d], Fs_new[d])
-                newold = newold * _inner_d(P, d, Fs_new[d], Fs[d])
-                oldold = oldold * _inner_d(P, d, Fs[d], Fs[d])
+            err_t = stop_error(Fs_new, Fs)
             Fs = Fs_new
             fp_its += 1
-            err = torch.sqrt(torch.abs(newnew + oldold - 2 * newold)).item()  # the sync
+            err = err_t.item()  # the sync
 
         norm_Fs = torch.stack([_norm_d(P, d, Fs[d]) for d in range(nd)])
         normU = torch.prod(norm_Fs)
@@ -542,7 +562,9 @@ class SeparatedPGD:
     problem's).  ``fp_init``: ``"ones"``, ``"randomized"`` (the reference's
     get_Fsinit, seeded per mode) or ``fn(mode, sizes) → per-dim vectors``.
     A mode whose fixed point collapses (normU → 0/NaN) is retried
-    ``stall_retries`` times from a randomized init.  ``device``: CUDA by
+    ``stall_retries`` times from a randomized init.  ``renorm_sweep``: the
+    fixed point's mid-sweep renormalisation (:func:`make_enrich_step`).
+    ``device``: CUDA by
     default; without it this raises unless ``device="cpu"`` is asked for.
 
     ``rhs_f64`` / ``rhs_comp`` (exclusive; both need the host f64 problem):
@@ -558,7 +580,8 @@ class SeparatedPGD:
                  dtype=None, solver: str = "lu", cg_iters: int = 30,
                  residual_check: bool = True, fp_init="ones",
                  stall_retries: int = 1, rhs_f64: bool = False,
-                 rhs_comp: bool = False, device="cuda"):
+                 rhs_comp: bool = False, renorm_sweep: bool = False,
+                 device="cuda"):
         if solver not in ("lu", "cg", "chol"):
             raise ValueError(
                 f"unknown solver {solver!r}: expected 'lu', 'cg' or 'chol'"
@@ -597,7 +620,7 @@ class SeparatedPGD:
         self._stall_retries = stall_retries
         self._enrich = make_enrich_step(
             self.problem, max_fp_it=max_fp_it, tol_fp=tol_fp, solver=solver,
-            cg_iters=cg_iters, residual_check=residual_check,
+            cg_iters=cg_iters, residual_check=residual_check, renorm_sweep=renorm_sweep,
         )
 
     def _random_init(self, n, attempt):
@@ -698,6 +721,50 @@ class SeparatedPGD:
             alpha=alphas.cpu().numpy()[:n], fp_its=fps[:n],
             normU0=float(normUs[0]) if nrun else 1.0,
         )
+
+
+# ------------------------------------------------- minimal residual
+
+def normal_equations(sep: SeparatedProblem) -> SeparatedProblem:
+    """Minimal-residual PGD: the normal equations AᵀA u = Aᵀf of a host
+    problem, in host f64.
+
+    Greedy Galerkin PGD has no minimisation principle for non-symmetric
+    operators (upwind time, advection) and can converge slowly or stall;
+    on AᵀA it minimises the true residual monotonically.  The separated
+    structure stays: T lhs terms become T² (O_tdᵀ O_t'd per dim), R rhs
+    terms T·R (O_tdᵀ g_rd).  Condition numbers square — precondition
+    (:func:`precondition_dim` with :func:`ne_dim_base`) for f32 runs.
+    Dirichlet dofs are homogenised: constrained rows and columns are
+    zeroed first, so AᵀA is the masked system's."""
+    ops = [host_f64(o) for o in sep.ops]
+    rhs = [host_f64(r) for r in sep.rhs]
+    T, R = sep.num_terms, sep.num_rhs
+    new_ops, new_rhs = [], []
+    for d in range(sep.num_dims):
+        m = host_f64(sep.bc_masks[d])
+        O = ops[d] * m[None, :, None] * m[None, None, :]
+        g = rhs[d] * m[None, :]
+        new_ops.append(np.einsum("tik,uij->tukj", O, O).reshape(T * T, O.shape[1], O.shape[2]))
+        new_rhs.append(np.einsum("tik,ri->trk", O, g).reshape(T * R, O.shape[1]))
+    return SeparatedProblem(ops=new_ops, rhs=new_rhs, mass=[host_f64(m) for m in sep.mass],
+                            bc_dofs=list(sep.bc_dofs))
+
+
+def ne_dim_base(sep: SeparatedProblem, dim: int) -> np.ndarray:
+    """The SPD congruence base Σ_t O_tdᵀ O_td (bc-masked) for
+    preconditioning dim ``dim`` of a :func:`normal_equations` problem: by
+    Cauchy–Schwarz it bounds every cross term O_tᵀO_u, so
+    :func:`precondition_dim` with it makes the per-dim systems uniformly
+    well conditioned (the stack's first entry alone can be the weakest
+    term, e.g. mass² for the heat operator).  ``sep``: the problem before
+    the transform."""
+    m = host_f64(sep.bc_masks[dim])
+    B = np.zeros((sep.sizes[dim], sep.sizes[dim]))
+    for t in range(sep.num_terms):
+        O = host_f64(sep.ops[dim][t]) * m[:, None] * m[None, :]
+        B += O.T @ O
+    return B
 
 
 # ------------------------------------------------- host f64 post-process

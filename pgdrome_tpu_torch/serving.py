@@ -16,6 +16,8 @@ decomposition, so the container holds the trained modes on the device
 * :meth:`Vademecum.residuals` / :meth:`Vademecum.error_bound` — certified
   error queries through an attached
   :class:`~pgdrome_tpu_torch.parallel.certify.Certifier`;
+* :meth:`Vademecum.corrected_sensors` — goal-oriented (dual-corrected)
+  outputs through an attached :class:`~pgdrome_tpu_torch.dual.DualCorrector`;
 * :meth:`Vademecum.errors` — relative L2 errors against FOM fields;
 * :meth:`Vademecum.sensors_jacobian` — analytic parameter sensitivities
   at sensor points;
@@ -31,6 +33,10 @@ decomposition, so the container holds the trained modes on the device
   vademecums serving a fixed-parameter slice or the d/dx field;
 * :meth:`Vademecum.save` / :meth:`Vademecum.load` — a single-file ``.npz``
   snapshot (``load`` also reads the JAX package's HDF5 snapshots).
+
+:class:`TransientVademecum` serves space-time results: its field dims are
+kron-flattened into one dim-0 table, so the same paths (and kernels) serve
+(x, t) fields and space-time sensors.
 
 Energy-basis solves (``precondition_dim0``) pass their transform once at
 construction.  Sweeps return tensors on the vademecum's device; the host
@@ -164,6 +170,7 @@ class Vademecum:
         self._sensor_cache_max = 8
         self._moments_fn = None
         self._certifier = None
+        self._corrector = self._corrector_fn = None
 
     @property
     def num_dims(self):
@@ -316,6 +323,49 @@ class Vademecum:
         self._certifier = certifier
         return self
 
+    def attach_corrector(self, corrector, device=True):
+        """Attach a :class:`~pgdrome_tpu_torch.dual.DualCorrector` (one
+        output functional) so :meth:`corrected_sensors` serves
+        goal-oriented corrected outputs beside the plain sensors.
+        ``device=True`` builds the sweep on the vademecum's device
+        (:func:`~pgdrome_tpu_torch.dual.make_corrected_sensor_fn`: the
+        factors through the sweep's factor kernel, z_r·b in double-f32);
+        ``device=False`` keeps the host f64 corrector (certification
+        grade).  Not saved by :meth:`save` (the corrector holds the
+        operator stacks); attach it again after :meth:`load`.  Returns the
+        vademecum."""
+        self._corrector = corrector
+        self._corrector_fn = None
+        if device:
+            from pgdrome_tpu_torch.dual import make_corrected_sensor_fn
+
+            self._corrector_fn = make_corrected_sensor_fn(corrector, method=self._method,
+                                                          device=self.device)
+        return self
+
+    def corrected_sensors(self, samples, return_estimate=False):
+        """Dual-corrected outputs s_corr(p) of the attached corrector's
+        functional, (B,): float32 tensors on the device from the device
+        sweep, host float64 arrays from the host corrector.
+        ``return_estimate`` also returns the output error estimate
+        s_corr − s_plain (effectivity ≈ 1 once the dual converges)."""
+        dc = self._corrector
+        if dc is None:
+            raise RuntimeError(
+                "no corrector attached — build one with dual.DualCorrector(sep, spaces, l, "
+                "res_u, tf_u, res_z, tf_z) and attach_corrector(...)"
+            )
+        if self._corrector_fn is not None:
+            # the host corrector's guard: outside the box the θ tables
+            # clamp while the mode factors extrapolate
+            dc.check_in_box(torch.as_tensor(samples).detach().cpu().numpy())
+            s_corr, s_plain = self._corrector_fn(samples)
+        else:
+            s_corr, s_plain, _ = dc.corrected(samples, return_parts=True)
+        if return_estimate:
+            return s_corr, s_corr - s_plain
+        return s_corr
+
     def _require_certifier(self):
         if self._certifier is None:
             raise RuntimeError(
@@ -376,13 +426,13 @@ class Vademecum:
 
         d_p = self.num_dims - 1
         pp, g2 = parse_prior(prior, d_p) if prior is not None else (None, None)
-        pts = np.asarray(points, dtype=np.float64)
+        pts = self._fit_points(points)
         key = ("fit", pts.tobytes(), pts.shape, int(n_iter), float(damping),
                (np.asarray(weights, np.float64).tobytes() if weights is not None else b""),
                _prior_key(prior, d_p))
         fn = self._cached(key, lambda: make_fit_fn(
-            self.spaces, self._modes, self.n_modes, pts, n_iter=n_iter, damping=damping,
-            weights=weights, prior=prior))
+            self.spaces, self._modes, self.n_modes, pts, table=self._fit_table(pts),
+            n_iter=n_iter, damping=damping, weights=weights, prior=prior))
         obs = torch.as_tensor(observations, dtype=self._modes[0].dtype, device=self.device)
         if obs.ndim != 2:
             raise ValueError(f"observations must be (B, n_out), got {tuple(obs.shape)}")
@@ -514,12 +564,13 @@ class Vademecum:
         starts = p_map[None, :] + rng.standard_normal((int(n_chains), d_p)) @ chol.T
         margin = 1e-6 * (hi - lo)
         state = np.clip(starts, lo + margin, hi - margin)
-        pts = np.asarray(points, dtype=np.float64)
+        pts = self._fit_points(points)
         prior_key = _prior_key(prior, d_p)
 
         def run(steps, state):
             fn = self._cached(("mcmc", pts.tobytes(), pts.shape, int(steps), prior_key),
                               lambda: make_mcmc_fn(self.spaces, self._modes, self.n_modes, pts,
+                                                   table=self._fit_table(pts),
                                                    n_steps=int(steps), prior=prior))
             gen = torch.Generator(device=self.device)
             gen.manual_seed(int(rng.integers(0, 2**31 - 1)))
@@ -589,6 +640,16 @@ class Vademecum:
             M = M + A[c]
         idx = np.asarray(chosen)
         return idx, cands[idx]
+
+    def _fit_points(self, points):
+        """The calibration paths' sensor points as a host f64 array."""
+        return np.asarray(points, dtype=np.float64)
+
+    def _fit_table(self, points):
+        """The calibration paths' (n_max, n_pts) output table at
+        ``points``; None lets make_fit_fn and make_mcmc_fn evaluate the dim-0 modes there
+        (:class:`TransientVademecum` gives its space-time table)."""
+        return None
 
     # ---------------------------------------------------------- slicing
 
@@ -792,3 +853,192 @@ class Vademecum:
                         fp_its=np.zeros(n_modes, dtype=np.int64), normU0=1.0)
         return cls(spaces, res, method=method, dtype=_NP_TO_TORCH[modes[0].dtype],
                    device=device)
+
+
+class TransientVademecum(Vademecum):
+    """:class:`Vademecum` for space-time results: the first ``field_dims``
+    dims (e.g. (x, t)) are field dims, the rest parameters.
+
+    The field dims' modes are kron-flattened once, in the serving dtype
+    (as the JAX package flattens them), into one (K, n0·n1) dim-0 table, so every batch path serves space-time
+    quantities unchanged — on the card through the same field kernels:
+
+    * :meth:`fields` / :meth:`fields_stream` / :meth:`moments` return
+      (B, n0·n1); ``.reshape(B, *vd.field_shape)`` recovers the (x, t) grid;
+    * :meth:`sensors` / :meth:`sensors_stream` / :meth:`sensors_jacobian`
+      and the calibration paths take (n_pts, field_dims) space-time points,
+      their table the product of the per-field-dim mode values;
+    * :meth:`errors` compares against FOM fields flattened the same way.
+
+    :meth:`save` stores the original per-dim modes and ``field_dims``
+    (the flatten is redone at :meth:`load`); :meth:`derivative`
+    differentiates the space dim."""
+
+    def __init__(self, spaces, result, field_dims: int = 2, dim0_transform=None,
+                 method="auto", dtype=torch.float32, device="cuda"):
+        if not 2 <= field_dims < len(spaces):
+            raise ValueError(f"field_dims must be in [2, num_dims); got {field_dims} "
+                             f"for {len(spaces)} dims")
+        K = int(result.n_modes)
+        np_dt = np.float32 if dtype == torch.float32 else np.float64
+        fmods = []
+        for d in range(field_dims):
+            m = host_f64(result.modes[d])[:K]
+            if d == 0 and dim0_transform is not None:
+                m = dim0_transform.modes_to_full(m)
+            fmods.append(m.astype(np_dt))
+        flat = fmods[0]
+        for d in range(1, field_dims):
+            flat = (flat[:, :, None] * fmods[d][:, None, :]).reshape(K, -1)
+        flat_res = PGDResult(
+            modes=[flat] + [host_f64(m)[:K] for m in result.modes[field_dims:]],
+            n_modes=K, amplitudes=np.asarray(result.amplitudes)[:K],
+            alpha=np.asarray(result.alpha)[:K], fp_its=np.asarray(result.fp_its)[:K],
+            normU0=result.normU0,
+        )
+        # the parameter machinery reads spaces[1:], aligned with the
+        # flattened modes; spaces[0] stays the space dim's (bookkeeping,
+        # never point-evaluated here)
+        super().__init__([spaces[0]] + list(spaces[field_dims:]), flat_res,
+                         method=method, dtype=dtype, device=device)
+        self.field_dims = int(field_dims)
+        self.field_spaces = list(spaces[:field_dims])
+        self.field_shape = tuple(m.shape[1] for m in fmods)
+        self._field_modes = fmods
+        self._all_spaces = list(spaces)
+
+    def _st_table(self, pts):
+        """(K, n_pts) f64 product of the field dims' mode values at
+        space-time points (n_pts, field_dims)."""
+        from pgdrome_tpu_torch.fem.interpolate import eval_dofs_at_points
+
+        K = self.n_modes
+        table = np.ones((K, pts.shape[0]), dtype=np.float64)
+        for d, (V, m) in enumerate(zip(self.field_spaces, self._field_modes)):
+            table *= np.stack([np.asarray(eval_dofs_at_points(V, m[k], pts[:, d]))
+                               for k in range(K)]).reshape(K, -1)
+        return table
+
+    def _st_points(self, points):
+        pts = np.asarray(points, dtype=np.float64)
+        if pts.ndim != 2 or pts.shape[1] != self.field_dims:
+            raise ValueError(f"space-time sensor points must be (n_pts, {self.field_dims}), "
+                             f"got {pts.shape}")
+        return pts
+
+    def _sobol_table(self, points):
+        return self._st_table(self._st_points(points))
+
+    def _fit_points(self, points):
+        return self._st_points(points)
+
+    def _fit_table(self, points):
+        return self._st_table(self._st_points(points))
+
+    def _output_gram(self):
+        """Kron-structured space-time mass Gram of the flattened field
+        modes over the space-time volume, applied axis by axis (never the
+        n0·n1 × n0·n1 kron)."""
+        from pgdrome_tpu_torch.fem.assembly import mass_matrix
+
+        U = host_f64(self._modes[0]).reshape(self.n_modes, *self.field_shape)
+        T = U
+        vol = 1.0
+        for d, V in enumerate(self.field_spaces):
+            T = np.moveaxis(np.tensordot(T, mass_matrix(V), axes=([d + 1], [0])), -1, d + 1)
+            vol *= float(np.sum(V.q_weights))
+        return np.tensordot(T.reshape(self.n_modes, -1), U.reshape(self.n_modes, -1),
+                            axes=([1], [1])) / vol
+
+    def sensors(self, points):
+        """The sensor sweep at fixed space-time points (n_pts,
+        field_dims): fn(samples (B, d_p)) → (B, n_pts)."""
+        from pgdrome_tpu_torch.parallel.vademecum import make_sensor_sweep_fn
+
+        pts = self._st_points(points)
+        return self._cached(("st", pts.tobytes(), pts.shape), lambda: make_sensor_sweep_fn(
+            self.spaces, self._modes, self.n_modes, pts, method=self._method,
+            table=self._st_table(pts)))
+
+    def sensors_jacobian(self, points):
+        """Parameter sensitivities at fixed space-time points:
+        fn(samples) → (B, n_pts, d_p)."""
+        from pgdrome_tpu_torch.parallel.vademecum import make_sensor_jacobian_fn
+
+        pts = self._st_points(points)
+        return self._cached(("st-jac", pts.tobytes(), pts.shape),
+                            lambda: make_sensor_jacobian_fn(self.spaces, self._modes,
+                                                            self.n_modes, pts,
+                                                            table=self._st_table(pts)))
+
+    def _with_modes(self, spaces, modes):
+        """A transient vademecum over ``spaces`` (field dims first) with
+        per-dim ``modes``, this one's traces, method, dtype and device."""
+        res = PGDResult(modes=modes, n_modes=self.n_modes,
+                        amplitudes=self.result.amplitudes, alpha=self.result.alpha,
+                        fp_its=self.result.fp_its, normU0=self.result.normU0)
+        return TransientVademecum(spaces, res, field_dims=self.field_dims,
+                                  method=self._method, dtype=self._modes[0].dtype,
+                                  device=self.device)
+
+    def derivative(self, direction: int = 0):
+        """The du/dx transient vademecum: the space dim's modes replaced
+        by their exact DG(degree−1) derivatives; time and parameters
+        unchanged."""
+        from pgdrome_tpu_torch.fem.derivative import derivative_function
+        from pgdrome_tpu_torch.fem.function import Function
+
+        V0 = self._all_spaces[0]
+        m0 = host_f64(self._field_modes[0])
+        dfs = [derivative_function(Function(V0, m0[k]), direction=direction)
+               for k in range(self.n_modes)]
+        dmodes = np.stack([np.asarray(f.array) for f in dfs])
+        return self._with_modes([dfs[0].function_space()] + self._all_spaces[1:],
+                                [dmodes] + [host_f64(m) for m in self._field_modes[1:]]
+                                + [host_f64(m) for m in self._modes[1:]])
+
+    def fix_parameters(self, fixed):
+        """Partial evaluation over the parameter dims (0-based among the
+        parameters); the field dims stay.  The fixed factors' values fold
+        into the second field dim's modes (exact: any one dim can carry
+        the per-mode weights)."""
+        fixed, w = self._fixed_weights(fixed)
+        keep = [j for j in range(self.num_dims - 1) if j not in fixed]
+        fmods = [host_f64(m) for m in self._field_modes]
+        fmods[1] = fmods[1] * w[:, None]
+        return self._with_modes(self.field_spaces + [self.spaces[1 + j] for j in keep],
+                                fmods + [host_f64(self._modes[1 + j]) for j in keep])
+
+    def save(self, filepath):
+        """Single-file ``.npz`` snapshot of the original per-dim modes
+        (field dims first) in :meth:`Vademecum.save`'s keys plus
+        ``field_dims``; the flatten is redone at :meth:`load`."""
+        all_modes = list(self._field_modes) + [m.detach().cpu().numpy()
+                                               for m in self._modes[1:]]
+        arrays = {"n_modes": np.int64(self.n_modes), "num_dims": np.int64(len(all_modes)),
+                  "field_dims": np.int64(self.field_dims),
+                  "amplitudes": np.asarray(self.result.amplitudes),
+                  "alpha": np.asarray(self.result.alpha)}
+        for d, (V, m) in enumerate(zip(self._all_spaces, all_modes)):
+            arrays[f"modes_{d}"] = np.asarray(m)
+            arrays[f"coords_{d}"] = V.mesh().coordinates()
+            arrays[f"degree_{d}"] = np.int64(V.degree)
+        with open(filepath, "wb") as f:
+            np.savez(f, **arrays)
+
+    @classmethod
+    def load(cls, filepath, spaces, method="auto", device="cuda"):
+        """Rebuild from :meth:`save` (or the JAX package's HDF5 snapshot of
+        a transient vademecum); ``spaces`` is the full per-dim list, field
+        dims first, checked against the saved meshes and degrees."""
+        from pgdrome_tpu_torch.convert import read_snapshot
+
+        z = read_snapshot(filepath, spaces)
+        nd = int(z["num_dims"])
+        modes = [np.asarray(z[f"modes_{d}"]) for d in range(nd)]
+        n_modes = int(z["n_modes"])
+        res = PGDResult(modes=modes, n_modes=n_modes,
+                        amplitudes=np.asarray(z["amplitudes"]), alpha=np.asarray(z["alpha"]),
+                        fp_its=np.zeros(n_modes, dtype=np.int64), normU0=1.0)
+        return cls(spaces, res, field_dims=int(z.get("field_dims", 2)), method=method,
+                   dtype=_NP_TO_TORCH[modes[0].dtype], device=device)

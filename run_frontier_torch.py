@@ -4,12 +4,13 @@
 write its verified artifact.
 
     python3 run_frontier_torch.py --out DIR [--minutes 40] [--resume]
-        [--anova 2 --budget 96]
+        [--anova 2 --budget 96] [--max-stages N]
 
 ``--anova 2`` starts from the anchored-ANOVA surrogate (mean, axes and
 pairs; ``pgdrome_tpu_torch/anova.py``), as ``scripts/run_frontier.py
 --anova`` does for the JAX package; ``--budget`` sets the modes a stage
-(128 by default; the JAX package's ANOVA d=5 record ran 96).
+(128 by default; the JAX package's ANOVA d=5 record ran 96);
+``--max-stages`` ends the run after that many stages, bound met or not.
 
 It runs on the CUDA device (``--device cpu`` with ``--n-x``/``--n-p`` cut
 down for a rehearsal).  It writes, under ``--out`` (made if missing):
@@ -49,6 +50,7 @@ def main() -> int:
     ap.add_argument("--anova", type=int, default=0,
                     help="anchored-ANOVA start order (0 = off, 2 = mean + axes + pairs)")
     ap.add_argument("--budget", type=int, default=128, help="modes a stage")
+    ap.add_argument("--max-stages", type=int, default=24, help="stages at most")
     args = ap.parse_args()
 
     import numpy as np
@@ -80,7 +82,7 @@ def main() -> int:
     t0 = time.perf_counter()
     best, report = highd_frontier(
         5, n_x=args.n_x, n_p=args.n_p, minutes=args.minutes,
-        stage_budget=args.budget, anova_order=args.anova,
+        stage_budget=args.budget, anova_order=args.anova, max_stages=args.max_stages,
         state_path=str(state), init_result=init, artifact_path=str(artifact),
         log=log, metrics=metrics, device=device,
     )

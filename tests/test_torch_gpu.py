@@ -165,7 +165,8 @@ def test_edge_shapes(cuda, K, n0, B):
     narrow = n0 <= fs.SENSORS_MAX
     assert fs.STAGE_LAUNCHES == {"factors_stage": 0 if narrow else 1,
                                  "sensor_fused": 1 if narrow else 0,
-                                 "factors_global": 0, "gemm": 0 if narrow else 1}
+                                 "factors_global": 0, "gemm": 0 if narrow else 1,
+                                 "partial_sum": 0}
     bound = _gamma_bound(spaces, modes, K - 1, samples, K + 20)
     assert bool(((out.double() - ref.double()).abs() <= 2 * bound).all())
 
@@ -215,7 +216,7 @@ def test_row_chunks_bitwise(cuda, monkeypatch):
     many = kern(s)
     torch.cuda.synchronize()
     assert fs.STAGE_LAUNCHES == {"factors_stage": 4, "sensor_fused": 0, "factors_global": 0,
-                                 "gemm": 4}
+                                 "gemm": 4, "partial_sum": 0}
     assert fs.LAUNCHES["fields_f32"] == 1
     assert torch.equal(one, many)
 
@@ -229,9 +230,11 @@ def test_large_k(cuda, n0):
     out, ref = _run(cuda, spaces, modes, 5993, samples)
     assert out.shape == (70, n0)
     narrow = n0 <= fs.SENSORS_MAX
+    # past SPLIT_K_MIN either product is summed in 512-k chunks
     assert fs.STAGE_LAUNCHES == {"factors_stage": 0 if narrow else 1,
                                  "sensor_fused": 1 if narrow else 0,
-                                 "factors_global": 0, "gemm": 0 if narrow else 1}
+                                 "factors_global": 0, "gemm": 0 if narrow else 1,
+                                 "partial_sum": 1}
     bound = _gamma_bound(spaces, modes, 5993, samples, 6000 + 8)
     assert bool(((out.double() - ref.double()).abs() <= 2 * bound).all())
 
@@ -257,6 +260,67 @@ def test_served_d5_fields_vs_fem(cuda):
     rel = [np.linalg.norm(x - u) / np.linalg.norm(u)
            for x, u in zip(served, (fem(p) for p in corners))]
     assert len(rel) == 32 and max(rel) < 1e-6
+
+
+def test_served_d10_fields_vs_fem(cuda):
+    # the committed rank-2717 d=10 vademecum served through the kernels
+    # under the 1e-6 FEM gate at all 1024 inset corners: the GEMM sums
+    # 512-k chunks and the partials are added in f64 (one linear f32 sum
+    # over all 170 16-k groups served 1.127e-6 here)
+    from pgdrome_tpu_torch.convert import frontier_vademecum
+    from pgdrome_tpu_torch.models.problems import box_corners, elliptic_fem_solver
+
+    state = Path(__file__).resolve().parent.parent / "states" / "frontier_anova_d10_state.npz"
+    vd = frontier_vademecum(state, 10, device=cuda)
+    grid_p = vd.spaces[1].tabulate_dof_coordinates()[:, 0]
+    corners = box_corners(grid_p[1], grid_p[-2], 10)
+    fem = elliptic_fem_solver(vd.spaces[0], 10)
+    fs.reset_launch_counts()
+    served = vd.fields(corners).double().cpu().numpy()
+    assert fs.STAGE_LAUNCHES["gemm"] == 1 and fs.STAGE_LAUNCHES["partial_sum"] == 1
+    rel = [np.linalg.norm(x - u) / np.linalg.norm(u)
+           for x, u in zip(served, (fem(p) for p in corners))]
+    assert len(rel) == 1024 and max(rel) < 1e-6
+
+
+@pytest.mark.parametrize("K", [1024, 1025, 2717])
+def test_split_k(cuda, K):
+    # up to SPLIT_K_MIN the GEMM runs as one chunk, bit for bit the direct
+    # one-chunk launch (no partial buffer: the kernel's path before the
+    # chunked sum); above it the output is the f64 sum of the kernel's own
+    # 512-k partials, bit for bit; within 2γ_c|F||M0| of the plain
+    # version, c = K (one chunk) or K_CHUNK + n_chunks, plus 4·NP
+    spaces, modes = _case(1, 16, K, 300, 3, seed=K)
+    samples = np.random.default_rng(K).uniform(0.0, 2.0, size=(200, 3)).astype(np.float32)
+    sweep, s, ref = _plain_on_card(spaces, modes, K - 2, samples, cuda)
+    fs.reset_launch_counts()
+    out = sweep(s)
+    torch.cuda.synchronize()
+    n_ch = fs.k_chunks(fs.padded_k(K))
+    assert fs.STAGE_LAUNCHES["partial_sum"] == (0 if n_ch == 1 else 1)
+    hi = torch.empty((200, fs.padded_k(K)), device=cuda)
+    lo = torch.empty_like(hi)
+    fs.factors_stage(s, sweep.grid, sweep.tabs, K - 2, hi, lo)
+    t_hi, t_lo = sweep.table
+    lib = fs._library()
+    part = torch.empty((n_ch, 200, 300), device=cuda)
+    direct = torch.empty((200, 300), device=cuda)
+    rc = lib.pgd_sweep_gemm(hi.data_ptr(), lo.data_ptr(), t_hi.data_ptr(), t_lo.data_ptr(),
+                            direct.data_ptr(), None if n_ch == 1 else part.data_ptr(), 200,
+                            fs.padded_k(K), 300, fs.K_CHUNK, 0,
+                            fs._stream(torch.device(cuda)))
+    assert rc == 0
+    torch.cuda.synchronize()
+    if n_ch == 1:
+        assert torch.equal(out, direct)
+    else:
+        acc = part[0].double()
+        for c in range(1, n_ch):  # chunk order, as the kernel adds them
+            acc += part[c].double()
+        assert torch.equal(out, acc.float())
+    c = (K if n_ch == 1 else fs.K_CHUNK + n_ch) + 12
+    bound = _gamma_bound(spaces, modes, K - 2, samples, c)
+    assert bool(((out.double().cpu() - ref.double().cpu()).abs() <= 2 * bound).all())
 
 
 def _plain_on_card(spaces, modes, n_modes, samples, cuda, out_dtype=None, factors=False):
@@ -332,7 +396,7 @@ def test_sensor_fused(cuda, NP, K, n_modes, B, n0, ks, out_dtype):
     out = sweep(s)
     torch.cuda.synchronize()
     assert fs.STAGE_LAUNCHES == {"factors_stage": 0, "sensor_fused": 1, "factors_global": 0,
-                                 "gemm": 0}
+                                 "gemm": 0, "partial_sum": 0}
     assert fs.LAUNCHES["sensors"] == 1 and out.dtype == out_dtype and out.shape == (B, n0)
     bound = _gamma_bound(spaces, modes, n_modes, samples, K + 4 * NP)
     _hold_narrow(out.cpu(), ref.cpu(), bound, out_dtype == torch.bfloat16)

@@ -15,7 +15,7 @@ from pgdrome_tpu import separated as js
 
 from pgdrome_tpu_torch.models import problems as tp
 from pgdrome_tpu_torch import separated as ts
-from pgdrome_tpu_torch.convert import load_state_npz, frontier_spaces
+from pgdrome_tpu_torch.convert import load_state_npz, frontier_build
 
 TOL = 1e-12
 STATE = Path(__file__).resolve().parent.parent / "states" / "frontier_d5_state.npz"
@@ -74,7 +74,7 @@ def test_float32_output():
 def frontier():
     sep, Vs = jp.parametric_elliptic(n_x=1024, n_p=128, num_params=5, degree_x=2)
     _, jtf = js.precondition_dim0(sep, np.float64)
-    tV, ttf = frontier_spaces(5)
+    tV, ttf = frontier_build(5)
     return jtf, ttf, tV
 
 

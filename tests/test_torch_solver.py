@@ -114,6 +114,25 @@ def test_nonsymmetric_f64_parity(entry):
     assert float(S.host_f64(t.modes[0])[:, [0, 8]].max()) == 0.0  # Dirichlet rows
 
 
+@pytest.mark.parametrize("entry", ["solve", "solve_fused"])
+def test_nonsymmetric_normal_equations_f64_parity(entry):
+    # the minres path: the normal equations of the non-symmetric problem
+    # keep non-symmetric cross terms O_tᵀO_u per dim, solved by Cholesky
+    # with mid-sweep renormalisation as the minres recipe runs them
+    jp, tp = _nonsymmetric()
+    jne, tne = J.normal_equations(jp), S.normal_equations(tp)
+    assert not np.allclose(tne.ops[1][1], tne.ops[1][1].T)
+    # tol_fp well above the relative 'norm' metric's f64 floor, √u64 ≈ 1.5e-8
+    # (it cancels |F_new|² + |F_old|² − 2 F_new·F_old): at the floor the
+    # two packages' last roundings decide when the fixed point stops
+    kw = dict(n_max=4, tol=0.0, tol_fp=1e-6, dtype=np.float64, renorm_sweep=True,
+              solver="chol", residual_check=False)
+    j = getattr(J.SeparatedPGD(jne, **kw), entry)()
+    t = getattr(S.SeparatedPGD(tne, device="cpu", **kw), entry)()
+    assert t.n_modes == 4
+    _same_result(t, j)
+
+
 def _seeded_init(n, sizes):
     rng = np.random.default_rng(1000 + n)
     return tuple(rng.uniform(0.5, 1.0, size=s) for s in sizes)

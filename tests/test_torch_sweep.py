@@ -467,3 +467,69 @@ def test_narrow_emulation_d5_widths():
     ratio = float(((out - ref).abs() / bound).max())
     print(f"fused narrow emulation, ks {ks}: max |err| / gamma_c bound = {ratio:.4f}")
     assert ratio <= 1.0
+
+
+@pytest.mark.parametrize("K", [640, 1024, 1025, 2717])
+def test_chunked_product(K):
+    # up to SPLIT_K_MIN modes the product is one torch.matmul, bit for bit
+    # (the order every wiring had before the chunked sum); above it 16-k
+    # f32 products are added in f32 within a 512-k chunk and the chunks in
+    # f64, within γ_c·|F||M0|, c = K_CHUNK + n_chunks + 1, of the f64 product
+    rng = np.random.default_rng(K)
+    fac = torch.as_tensor(rng.normal(size=(6, K)).astype(np.float32))
+    m0 = torch.as_tensor(rng.normal(size=(K, 33)).astype(np.float32))
+    out = fs.chunked_product(fac, m0)
+    n_ch = fs.k_chunks(K)
+    if K <= fs.SPLIT_K_MIN:
+        assert n_ch == 1 and torch.equal(out, torch.matmul(fac, m0))
+    else:
+        assert n_ch == -(-K // fs.K_CHUNK)
+        ref = torch.zeros((6, 33), dtype=torch.float64)
+        for k0 in range(0, K, fs.K_CHUNK):
+            tot = torch.zeros((6, 33))
+            for g0 in range(k0, min(K, k0 + fs.K_CHUNK), fs.K_GROUP):
+                tot += fac[:, g0:g0 + fs.K_GROUP] @ m0[g0:g0 + fs.K_GROUP]
+            ref += tot.double()
+        assert torch.equal(out, ref.float())
+    c = min(K, fs.K_CHUNK) + n_ch + 1
+    u = 2.0 ** -24
+    bound = c * u / (1 - c * u) * (fac.double().abs() @ m0.double().abs())
+    assert bool(((out.double() - fac.double() @ m0.double()).abs() <= bound).all())
+    assert torch.equal(fs.chunked_product(fac.double(), m0.double()),
+                       fac.double() @ m0.double())
+
+
+# the inset corners (box_corners order) of the committed d=10 state where
+# the plain f32 fields, summed over all K = 2717 modes in one f32 product,
+# came above 9.5e-7 against FEM (two of them above 1e-6: 963 at 1.093e-6,
+# 995 at 1.039e-6); the f64 product of the same f32 tables gives 8.88e-7
+# at the worst corner
+_D10_WORST = (475, 639, 703, 733, 799, 863, 963, 995, 1001, 1015)
+
+
+def test_d10_served_fields_vs_fem():
+    # the committed rank-2717 d=10 vademecum served by the plain f32 path
+    # (16-k products summed in f32 within 512-k chunks, the chunks in f64)
+    # under the 1e-6 FEM gate
+    from pathlib import Path
+
+    from pgdrome_tpu_torch.convert import frontier_build, load_state_npz
+    from pgdrome_tpu_torch.models.problems import box_corners, elliptic_fem_solver
+    from pgdrome_tpu_torch.serving import Vademecum
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        state = Path(__file__).resolve().parent.parent / "states" / "frontier_anova_d10_state.npz"
+        Vs, tf = frontier_build(10)
+        vd = Vademecum(Vs, load_state_npz(state), dim0_transform=tf, device="cpu")
+        grid = Vs[1].tabulate_dof_coordinates()[:, 0]
+        pts = box_corners(grid[1], grid[-2], 10, np.asarray(_D10_WORST))
+        served = vd.fields(pts).double().numpy()
+    finally:
+        torch.set_num_threads(threads)
+    fem = elliptic_fem_solver(Vs[0], 10)
+    rel = [np.linalg.norm(x - u) / np.linalg.norm(u)
+           for x, u in zip(served, (fem(p) for p in pts))]
+    print(f"d=10 plain f32 fields at the {len(rel)} worst corners: max rel-L2 {max(rel):.6e}")
+    assert max(rel) < 1e-6
