@@ -27,21 +27,32 @@ Phase ``frontier`` trains the d=5 vademecum with the port's
 ``highd_frontier(5)`` at full width (2047 × 129^5, T = 6), cut to its first
 stage (128 plain f32 modes), checks it against the JAX record
 (``FRONTIER_d5.json``) and serves it through the field kernels.  Phase
-``anova`` runs ``highd_frontier(5, anova_order=2, stage_budget=96)`` as the
-JAX record ``FRONTIER_ANOVA_d5.json`` ran it: the host f64 ANOVA start
-(rank 93, its pair tables checked against the record), stage 1 verifying
-it, boosted, corner-seeded dd stages to the 1e-6 bound; it holds the dd
-contraction on the card against the CPU bit for bit, reloads the
-checkpoint exactly and serves the result through the field kernels.
+``anova`` runs ``highd_frontier(5, anova_order=2)`` from the start of the
+JAX record ``FRONTIER_ANOVA_d5.json``: the host f64 ANOVA start (rank 93,
+its pair tables checked against the record), stage 1 verifying it, and a
+boosted, corner-seeded dd stage cut to 16 modes (the record's 96-mode
+stage and its 1e-6 gate are ``run_frontier_torch.py --anova 2 --budget
+96``); it holds the dd contraction on the card against the CPU bit for
+bit, reloads the checkpoint exactly and serves the result through the
+field kernels.
 Phase ``certify`` loads the committed rank-2717 d=10 state
 (``states/frontier_anova_d10_state.npz``, 2047 × 129^10, T = 11) with no
 training: the recipe's screened verification and its final FEM
 confirmation at all 1024 inset corners, the dd residual indicator and the
 guaranteed field bound, each held against the JAX package's figures on
 this state, a certifier attached to the vademecum served through the
-field kernels, and the certifier saved and reloaded.  It prints the
-measurements: one line per phase, a ``{"kernels": [...]}`` line and, last,
-``{"ok": true, "device": {...}}``.
+field kernels, and the certifier saved and reloaded.  Phase ``dual``
+serves goal-oriented outputs of the committed d=10 primal and duals; phase
+``transient`` trains the transient conductivity primal on the card, serves
+its space-time fields, trains the first stage of the adjoint cascade of its
+x0 = 0.5 output (``TRANSIENT_GOAL.json``; the cascade to its 1e-6 bound is
+``run_transient_goal_torch.py``) and serves the corrected outputs through
+the factor kernel, and certifies a moving heat source.  Phase ``nonlinear``
+trains the nonlinear vademecum of ``NONLINEAR.json`` (outer Picard of f32
+cascades on the card, dd stacks from the third outer iteration), verifies
+it against 76 banded-Newton truths and serves it through the field
+kernels.  It prints the measurements: one line per phase, a
+``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises (non-zero exit, no result line); a watchdog turns a
 hang into a traceback and a non-zero exit.  Without a CUDA device, or run
@@ -93,19 +104,24 @@ REF_FEM = 7.882e-7           # the JAX reference's max on that set (BENCH_r05.js
 FRONTIER = dict(max_stages=1, base_boost=(8.0, 6), window_boost=(16.0, 6))
 # the JAX record's verified max at rank 128 (FRONTIER_d5.json, a TPU run)
 FRONTIER_REF = 4.465731509726485e-05
-# the anova phase: highd_frontier(5, anova_order=2) as the JAX record ran it
-# (FRONTIER_ANOVA_d5.json, a TPU run: the init's rank 93, then one stage of
-# 96 modes to rank 189).  A shorter stage 2 misses the 1e-6 bound on an
-# H100 (`run_frontier_torch.py --anova 2 --budget B --max-stages 2`: 64
-# modes 1.452e-6, 48 modes 2.607e-6), so the phase keeps this depth
-ANOVA = dict(stage_budget=96, max_stages=3)
+# the anova phase: highd_frontier(5, anova_order=2) from the JAX record's
+# start (FRONTIER_ANOVA_d5.json, a TPU run: the init's rank 93, then one
+# stage of 96 modes to rank 189), cut to a stage 2 of 16 boosted, seeded dd
+# modes: the init, stage 1, the dd stage on the card, the checkpoint and the
+# served result are checked here.  The record's depth and its 1e-6 gate run
+# in `python3 run_frontier_torch.py --anova 2 --budget 96 --out DIR`
+# (8.340e-7 at rank 189 on an H100; 64 and 48 modes miss the bound there)
+ANOVA = dict(stage_budget=16, max_stages=2)
+# the ANOVA init's child process (68-88 s of host f64 on an H100's host)
+# starts with the script; phase anova waits for it at most this long
+ANOVA_CHILD_WAIT_S = 300
 ANOVA_PAIR_RANKS = [7, 8, 7, 7, 7, 7, 8, 7, 7, 7]
 ANOVA_SIGMA1 = [0.02863236895562541, 0.01928179392540062, 0.019054835238631464,
                 0.01893373610349275, 0.04888067093029092, 0.03840493090169561,
                 0.03826840805250316, 0.05022291156501423, 0.04105315658955585,
                 0.05175738058940883]
 ANOVA_STAGE1 = (0.0005064218711802495, 9.94660790830887e-05)  # corners, interior
-ANOVA_REF_MAX = 8.59583417679475e-07                          # rank 189
+ANOVA_REF_MAX = 8.59583417679475e-07                          # rank 189, 96 modes
 # the certify phase: the committed rank-2717 d=10 state (FRONTIER_ANOVA_d10.json
 # records 7.382e-7 by FEM and a guaranteed 2.2805e-6 over the 1024 corners, on
 # the Galerkin-updated best; the state holds the raw combination)
@@ -122,6 +138,10 @@ F64_ROUNDINGS = 16
 # the dd indicator against the direct f64 residual of its own f32 tables
 # (tests/test_torch_certify.py's DD_TOL)
 DD_DIRECT = 2e-6
+# the served dd residuals at 16 corners against the same corners' values in
+# the 1,024-corner pass: the f32 norms' rounding depends on the batching
+# (measured 1.142e-7 on an H100; ~16 u32 allowed)
+SERVED_BATCH_GAP = 1e-6
 # the JAX package's figures on this state, computed once on a CPU by
 # `PYTHONPATH=. python tests/test_torch_certify.py` (d10_reference): the
 # per-sample f64 FEM errors at the 1024 inset corners (in box_corners order),
@@ -386,6 +406,7 @@ DUAL_PRIMAL = ROOT / "states" / "frontier_d10_state.npz"
 DUAL_STATES = [ROOT / "states" / f"frontier_dual_d10_s{j}.npz" for j in (0, 1)]
 DUAL_SENSORS = (0.5, 0.25)
 DUAL_RATE_B = 65_536        # random in-box samples timed through the card's sweep
+DUAL_BOUND_STRIDE = 4       # the guaranteed output bound at every 4th sample (340)
 # the JAX package's figures on these files, computed once on a CPU by
 # `PYTHONPATH=. python tests/test_torch_dual.py` (d10_dual_reference): per
 # sensor the host f64 corrected() outputs' relative error against per-sample
@@ -435,6 +456,31 @@ TRANSIENT_REF = {"rank": 97, "field_rel_max": 0.00046238485666319224}
 HEAT = dict(n_x=60, n_t=40, n_P=8, n_v=10, af=0.12, source_rank=64,
             separation="hierarchical", separation_tol=1e-6)
 HEAT_MINRES = dict(n_stage1=16, stage_budget=10, max_stages=6)
+# the transient outputs of TRANSIENT_GOAL.json (recipes.transient_goal_oriented,
+# a TPU run on a rank-95 primal: 6.906e-7 at dual rank 192 for x0 = 0.5) on the
+# phase's primal and FOM solves: the adjoint cascade's plain first stage of 48
+# modes.  Its dd stages (every f32 minres mode runs the 50-sweep cap, the JAX
+# package's recipe too) took 120-180 s on an H100: the cascade to the 1e-6
+# bound runs in `run_transient_goal_torch.py` (7.078e-7 at dual rank 144 on an
+# H100).  The first stage's corrected error is held under STAGE1_CORRECTED,
+# twice the 1.236e-5 it measured on an H100 (the record's first stage on its
+# TPU primal: 6.146e-6)
+TRANSIENT_GOAL = dict(bound=1e-6, dual_stage1=48, dual_budget=48, max_dual_stages=1)
+TRANSIENT_X0 = 0.5
+TRANSIENT_GOAL_REF = {"stage1_rank": 48, "stage1": 6.146262316486164e-06}
+STAGE1_CORRECTED = 2.5e-5
+# the nonlinear phase: NONLINEAR.json's recipe as scripts/run_nonlinear.py ran
+# it (a TPU run: rank 148 after 4 outer iterations, verified 6.14e-8 against
+# 76 banded-Newton truths), the recipe's defaults otherwise (12 outer
+# iterations at most, picard_tol 1e-8, cube_rank 40, cube_tol 1e-10, dd stacks
+# from outer 3)
+NONLINEAR = dict(n_x=1024, n_p=64, num_params=2)
+NL_EPS = 2.0
+NL_RECIPE = dict(budgets=(64, 48, 48), rhs_bucket=512)
+NL_CUBE = dict(cube_rank=40, cube_tol=1e-10)
+NL_VERIFY = dict(n_random=16, seeds=(7, 101, 1234), n_edge=8)
+NL_REF = {"rank": 148, "outer": 4, "max": 6.141549378408526e-08}
+NL_SERVE = 256               # grid points served as the script serves them
 # served f32 fields vs the f64 reconstruction's verified max: the d=5 state
 # served at K = 640 sits 1.3e-7 (19 %) above its f64 reconstruction at the
 # corners (PERF.md §6.1); the trained frontier results are held to 10 %
@@ -454,6 +500,43 @@ def say(*args):
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
+
+
+def anova_init_child(cache_dir) -> int:
+    """The body of the child process that :func:`start_anova_init` starts:
+    phase ``anova``'s host f64 ANOVA init (``recipes.frontier_anova_start``
+    on the base build's transform, as ``highd_frontier`` forms it) into the
+    setup cache at ``cache_dir``.  Exit code 0 when it built the entry."""
+    import os
+
+    sys.path.insert(0, str(ROOT))
+    from pgdrome_tpu_torch.recipes import frontier_anova_start, frontier_setup
+
+    (_, tf), _ = frontier_setup(NUM_PARAMS, FRONTIER["base_boost"])  # no cache here
+    os.environ["PGDROME_SETUP_CACHE"] = str(cache_dir)
+    (res, rep), status = frontier_anova_start(NUM_PARAMS, tf, order=2, log=say)
+    say(f"anova init child: cache {status}, rank {res.n_modes} in {rep['wall_s']} s")
+    return 0 if status == "miss" else 1
+
+
+def start_anova_init(cache_dir, log_path):
+    """Start :func:`anova_init_child` in a child process (2 BLAS threads;
+    SIGTERM when this process dies), its output to ``log_path``: the init
+    is host work alone, which the phases before ``anova`` leave idle."""
+    import ctypes
+    import os
+    import signal
+
+    env = {k: v for k, v in os.environ.items() if k != "PGDROME_SETUP_CACHE"}
+    env.update(OMP_NUM_THREADS="2", OPENBLAS_NUM_THREADS="2", MKL_NUM_THREADS="2")
+
+    def die_with_parent():
+        ctypes.CDLL(None).prctl(1, signal.SIGTERM)  # PR_SET_PDEATHSIG
+
+    with open(log_path, "w") as out:
+        return subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--anova-init",
+                                 str(cache_dir)], stdout=out, stderr=subprocess.STDOUT,
+                                env=env, preexec_fn=die_with_parent)
 
 
 class Phase:
@@ -639,6 +722,23 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     t_start = time.perf_counter()
     dev = torch.device("cuda")
+    # phase anova's host f64 ANOVA init runs in a child process from here on,
+    # into the setup cache that phases frontier and anova share
+    import atexit
+    import shutil
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    anova_log = tmp / "anova_init.log"
+    anova_child = start_anova_init(tmp / "setup_cache", anova_log)
+
+    def stop_child():
+        if anova_child.poll() is None:
+            anova_child.kill()
+            anova_child.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    atexit.register(stop_child)
 
     # ------------------------------------------------------------- device
     with Phase("device"):
@@ -819,24 +919,41 @@ def main() -> int:
         return torch.where(x == 0, torch.full_like(x, 2.0 ** -133),
                            torch.ldexp(torch.ones_like(x), e - 8))
 
+    def located(s, grid):
+        """The f64 coordinates that the f32 cell locate of ``s`` finds: per
+        dim x0 + t/(1/h) with t = (s − x0)·(1/h) rounded in f32 as the
+        kernel and the plain version round it.  Equal to ``s`` where that
+        product is exact (the power-of-two grids of the d=5 and d=10
+        states); elsewhere the locate moves a sample by ≤ u·|t| cells, a
+        shift of the input that the γ_c count of the arithmetic after it
+        does not cover."""
+        g = grid.to(s.device)
+        t32 = (s - g[0]) * g[1]
+        return g[0].double() + t32.double() / g[1].double()
+
     def hold(kernel_out, samples, table, c, rows=65_536, out_dtype=None, sw=None):
         """Max |kernel − plain| (the plain version storing ``out_dtype``) and
         |kernel − plain f64| against the γ_c bound on |F|·|table| (with
         φ ≥ 0 for P1, |F| is the plain factor of |T|), on the tables of the
-        sweep ``sw`` (default: the d=5 field sweep).  A bf16 store adds
-        half a bf16 ulp per rounded value.  Chunked over rows to bound
-        memory."""
+        sweep ``sw`` (default: the d=5 field sweep).  The f64 plain version
+        and |F| are evaluated at the coordinates the f32 locate found
+        (:func:`located`); the largest shift, in cells, is returned as
+        ``locate_cells``.  A bf16 store adds half a bf16 ulp per rounded
+        value.  Chunked over rows to bound memory."""
         sw = sw or fused
         grid, tabs, n_modes = sw.grid, sw.tabs, sw.n_modes
         tabs_abs64 = tabs.abs().double()
-        worst = {"vs_plain": 0.0, "vs_f64": 0.0, "ratio": 0.0}
+        worst = {"vs_plain": 0.0, "vs_f64": 0.0, "ratio": 0.0, "locate_cells": 0.0}
         t64 = None if table is None else table.double()
         for r0 in range(0, samples.shape[0], rows):
             s = samples[r0 : r0 + rows]
+            s64 = located(s, grid)
+            worst["locate_cells"] = max(worst["locate_cells"], float(
+                ((s64 - s.double()).abs() * grid.to(s.device)[1].double()).max()))
             k_out = kernel_out[r0 : r0 + rows].double()
-            fabs = fs.fused_sweep_plain(s, grid, tabs_abs64, None, n_modes)
+            fabs = fs.fused_sweep_plain(s64, grid, tabs_abs64, None, n_modes)
             if t64 is None:
-                ref64 = fs.fused_sweep_plain(s, grid, tabs.double(), None, n_modes)
+                ref64 = fs.fused_sweep_plain(s64, grid, tabs.double(), None, n_modes)
                 plain32 = fs.fused_sweep_plain(s, grid, tabs, None, n_modes)
                 # the factor kernel rounds every operation as the plain
                 # version does
@@ -846,7 +963,7 @@ def main() -> int:
                 del plain32
                 bound = gamma(c) * fabs
             else:
-                ref64 = fs.fused_sweep_plain(s, grid, tabs.double(), t64, n_modes)
+                ref64 = fs.fused_sweep_plain(s64, grid, tabs.double(), t64, n_modes)
                 plain = fs.fused_sweep_plain(s, grid, tabs, table, n_modes,
                                              out_dtype).double()
                 bound = gamma(c) * (fabs @ t64.abs())
@@ -935,6 +1052,7 @@ def main() -> int:
             "wiring": wiring, "shape": list(kernel_out_shape),
             "launches": launches_n, "max_abs_err": worst["vs_plain"],
             "max_abs_err_vs_f64": worst["vs_f64"], "err_over_bound": worst["ratio"],
+            "locate_cells": worst.get("locate_cells", 0.0),
             "gamma_c": c, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
             "bound_by": bound["bound_by"], "library_ms": lib_ms,
             "bound_fp32_ms": bound["bound_fp32_ms"], "share": bound["bound_ms"] / ms,
@@ -1520,15 +1638,18 @@ def main() -> int:
               factor_stage_bound_ms=stage1_bound(len(pts_t), fused_t))
 
     # --------------------------------------------- the frontier's serving
-    def serve_trained(name, wiring, vd_t, pts, ref_max, slack=None, fem_bound=None):
+    def serve_trained(name, wiring, vd_t, pts, ref_max, slack=None, fem_bound=None,
+                      truth=None, plain_slack=None):
         """Serve the trained vademecum ``vd_t`` at ``pts`` through the field
         wiring (the counts were reset at the start of its path): both
         kernels ran, the fields sit within γ_c of the plain version and,
         given a ``slack``, within ``slack`` × ``ref_max`` (the f64
-        reconstruction's FEM max there) of FEM; their FEM error is printed
-        beside the plain f32 version's and the f64 product of the f32
-        tables'.  Timed beside the plain version and the library product.
-        Returns the served fields' FEM error."""
+        reconstruction's FEM max there) of FEM and, given a ``plain_slack``,
+        within that many times the plain f32 version's FEM error; their FEM
+        error is printed beside the plain f32 version's and the f64 product of the f32
+        tables'.  ``truth(p)``: the per-sample truth (default the elliptic
+        FEM solve).  Timed beside the plain version and the library
+        product.  Returns the served fields' FEM error."""
         fused_t = vd_t._sweep()
         check(isinstance(fused_t, fs.FusedSweep), f"{name}: the vademecum took the kernel")
         s_t = torch.as_tensor(pts, dtype=torch.float32, device=dev)
@@ -1542,7 +1663,7 @@ def main() -> int:
               and stage_launches_t["factors_stage"] == stage_launches_t["gemm"]
               and stage_launches_t["partial_sum"] == (stage_launches_t["gemm"] if chunked else 0),
               f"{name}: the fields ran the field wiring's kernels")
-        fem_t = elliptic_fem_solver(vd_t.spaces[0], len(vd_t.spaces) - 1)
+        fem_t = truth or elliptic_fem_solver(vd_t.spaces[0], len(vd_t.spaces) - 1)
         u_t = np.stack([fem_t(p) for p in pts])
         e_served_t = rel_rows(served_t, u_t)
         g, tb, m0_t, n_t = fused_t.grid, fused_t.tabs, fused_t.m0, fused_t.n_modes
@@ -1556,9 +1677,13 @@ def main() -> int:
             f"{e_served_t - ref_max:+.3e}; k summed in {fs.k_chunks(int(tb.shape[2]))} "
             f"chunk(s), c = {c_t}"
             + ("" if slack is None else f" (bound {slack:g} x the f64 reconstruction's)")
+            + ("" if plain_slack is None else f" (bound {plain_slack:g} x the plain f32's)")
             + ("" if fem_bound is None else f" (kernel and plain bound {fem_bound:g})"))
         if slack is not None:
             check(e_served_t <= slack * ref_max, f"{name}: kernel-served fields vs FEM")
+        if plain_slack is not None:
+            check(e_served_t <= plain_slack * e_plain,
+                  f"{name}: kernel-served fields vs FEM, against the plain f32 version's")
         if fem_bound is not None:
             check(e_served_t < fem_bound and e_plain < fem_bound,
                   f"{name}: kernel and plain f32 fields vs FEM")
@@ -1650,6 +1775,37 @@ def main() -> int:
     def flags_of(hist):
         return [tuple(bool(h[f]) for f in ("boosted", "seeded", "rhs_comp")) for h in hist]
 
+    def dd_card_vs_cpu(label, rhs):
+        """The dd rhs contraction (``_contract_rhs`` of the double-f32
+        stacks made from the host f64 ``rhs``, seeded f32 factors) on the
+        card against the CPU, bit for bit in every dim; printed beside each
+        dim's rel-L2 gap to the f64 contraction, dd and plain f32."""
+        rng_f = np.random.default_rng(SEED)
+        Fs = [rng_f.uniform(-1.0, 1.0, size=r.shape[1]).astype(np.float32) for r in rhs]
+        dd_cpu = [torch.from_numpy(ddf32.dd_from_f64(r)) for r in rhs]
+        dd_gpu = [r.to(dev) for r in dd_cpu]
+        F_cpu = [torch.from_numpy(f) for f in Fs]
+        F_gpu = [f.to(dev) for f in F_cpu]
+        r64 = [torch.from_numpy(np.asarray(r, dtype=np.float64)) for r in rhs]
+        r32 = [r.float() for r in r64]
+        w_gpu, w_cpu = _DDWeights(dd_gpu), _DDWeights(dd_cpu)
+        errs = []
+        for k in range(len(Fs)):
+            b_gpu = _contract_rhs(dd_gpu, F_gpu, k, len(Fs), w_gpu)
+            b_cpu = _contract_rhs(dd_cpu, F_cpu, k, len(Fs), w_cpu)
+            check(b_gpu.is_cuda and torch.equal(b_gpu.cpu().view(torch.int32),
+                                                 b_cpu.view(torch.int32)),
+                  f"{label} dim {k}: the dd contraction on the card equals the CPU's bit for bit")
+            b64 = _contract_rhs(r64, F_cpu, k, len(Fs))
+            b32 = _contract_rhs(r32, F_cpu, k, len(Fs))
+            n64 = float(b64.norm())
+            errs.append((float((b_cpu.double() - b64).norm()) / n64,
+                         float((b32.double() - b64).norm()) / n64))
+        say(f"{label} dd contraction ({rhs[0].shape[0]} x {[r.shape[1] for r in rhs]} stack, "
+            f"seeded factors): card equals CPU bit for bit in all {len(Fs)} dims; rel-L2 vs "
+            f"f64 per dim, dd {[f'{e[0]:.3e}' for e in errs]}, plain f32 "
+            f"{[f'{e[1]:.3e}' for e in errs]}")
+
     import os
     import shutil
     import tempfile
@@ -1663,8 +1819,7 @@ def main() -> int:
 
     # phases frontier and anova share one setup cache in a temp dir: the
     # frontier phase builds both d=5 problems into it (misses), and both
-    # recipes load them (hits)
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    # recipes load them (hits); the ANOVA init child puts its init there
     cache_env = os.environ.get("PGDROME_SETUP_CACHE")
     os.environ["PGDROME_SETUP_CACHE"] = str(tmp / "setup_cache")
     try:
@@ -1734,9 +1889,9 @@ def main() -> int:
 
         # ---------------------------------------------------------- anova
         # the frontier from its anchored-ANOVA start: the host f64 init
-        # (rank 93), stage 1 verifying it, then boosted, corner-seeded dd
-        # stages of 96 modes to the 1e-6 bound; the checkpoint, the dd
-        # contraction on the card and the served result are checked
+        # (rank 93), stage 1 verifying it, then one boosted, corner-seeded
+        # dd stage of 16 modes; the checkpoint, the dd contraction on the
+        # card and the served result are checked
         with Phase("anova"):
             torch.cuda.synchronize()
             fs.reset_launch_counts()
@@ -1747,6 +1902,13 @@ def main() -> int:
                 lines_a.append(" ".join(map(str, a)))
                 say(*a)
 
+            t0 = time.perf_counter()
+            rc_child = anova_child.wait(timeout=ANOVA_CHILD_WAIT_S)
+            t_wait = time.perf_counter() - t0
+            for ln in anova_log.read_text().splitlines():
+                say(f"[anova init child] {ln}")
+            say(f"anova init child: exit {rc_child}, waited for {t_wait:.3f} s")
+            check(rc_child == 0, "the ANOVA init child built the init into the setup cache")
             state_a = tmp / "frontier_anova_d5_torch_state.npz"
             t0 = time.perf_counter()
             best_a, rep_a = highd_frontier(
@@ -1757,11 +1919,12 @@ def main() -> int:
             t_anova = time.perf_counter() - t0
             check(sum(ln.startswith("setup cache hit") for ln in lines_a) == 2,
                   "the recipe loaded both d=5 builds from the setup cache")
-            check(sum(ln.startswith("anova init cache miss") for ln in lines_a) == 1,
-                  "the ANOVA init was built in this phase")
+            check(sum(ln.startswith("anova init cache hit") for ln in lines_a) == 1,
+                  "the recipe loaded the init the child built in this run")
             an = rep_a["anova"]
             sig = [p["sigma1"] for p in an["pairs"]]
-            say(f"anova init: rank {an['rank']} in {an['wall_s']} s (host f64), axis ranks "
+            say(f"anova init: rank {an['rank']} in {an['wall_s']} s (host f64, in the child "
+                f"beside the phases before), axis ranks "
                 f"{[a['rank'] for a in an['axis']]}, pair ranks "
                 f"{[p['rank'] for p in an['pairs']]}, pair seconds "
                 f"{[p['s'] for p in an['pairs']]}, pair sigma1 / the record's - 1: "
@@ -1776,20 +1939,17 @@ def main() -> int:
                 f"verified max {rep_a['verified']['max']:.6e} (corners "
                 f"{rep_a['verified']['corners_fem_max']:.6e}, interior "
                 f"{rep_a['verified']['interior_fem_max']:.6e}); the JAX record (TPU): "
-                f"stage 1 {ANOVA_STAGE1}, stage 2 {ANOVA_REF_MAX:.6e} at rank 189")
+                f"stage 1 {ANOVA_STAGE1}, a 96-mode stage 2 {ANOVA_REF_MAX:.6e} at rank 189")
             stage_lines("anova", hist_a, metrics_a.rows)
             fl_a = flags_of(hist_a)
             c1, i1 = hist_a[0]["corners"], hist_a[0]["interior"]
             check(int(hist_a[0]["rank"]) == 93 and abs(c1 / ANOVA_STAGE1[0] - 1) <= 1e-5
                   and abs(i1 / ANOVA_STAGE1[1] - 1) <= 1e-5,
                   "stage 1 verifies the init at the record's corners and interior (1e-5)")
-            check(len(hist_a) >= 2 and fl_a[1] == (True, True, True)
+            check(len(hist_a) == ANOVA["max_stages"] and fl_a[1] == (True, True, True)
                   and int(hist_a[1]["rank"]) == 93 + ANOVA["stage_budget"],
-                  "stage 2: 96 boosted, corner-seeded dd modes")
-            check(hist_a[1]["max"] <= 2 * ANOVA_REF_MAX,
-                  "stage 2 within 2x the record's verified max")
-            check(rep_a["verified"]["max"] < FEM_BOUND and len(hist_a) <= ANOVA["max_stages"],
-                  "the recipe ends under the 1e-6 bound")
+                  "stage 2: 16 boosted, corner-seeded dd modes")
+            check(hist_a[1]["max"] < hist_a[0]["max"], "stage 2 improves on the init")
             check(best_a.n_modes == int(hist_a[-1]["rank"])
                   and rep_a["verified"]["max"] == hist_a[-1]["max"],
                   "the best result is the last stage's")
@@ -1820,32 +1980,7 @@ def main() -> int:
             sep_res, _ = residual_problem(sep_boost if fl_a[1][0] else sep_base, init)
             sep_res = pad_rhs_bucket(sep_res, 4096)
             check(sep_res.num_rhs == 4096, "the stage-2 stack is one 4096-row bucket")
-            rng_f = np.random.default_rng(SEED)
-            Fs = [rng_f.uniform(-1.0, 1.0, size=n).astype(np.float32) for n in sep_res.sizes]
-            dd_cpu = [torch.from_numpy(ddf32.dd_from_f64(r)) for r in sep_res.rhs]
-            dd_gpu = [r.to(dev) for r in dd_cpu]
-            F_cpu = [torch.from_numpy(f) for f in Fs]
-            F_gpu = [f.to(dev) for f in F_cpu]
-            r64 = [torch.from_numpy(np.asarray(r, dtype=np.float64)) for r in sep_res.rhs]
-            r32 = [r.float() for r in r64]
-            w_gpu, w_cpu = _DDWeights(dd_gpu), _DDWeights(dd_cpu)
-            errs = []
-            for k in range(len(Fs)):
-                b_gpu = _contract_rhs(dd_gpu, F_gpu, k, len(Fs), w_gpu)
-                b_cpu = _contract_rhs(dd_cpu, F_cpu, k, len(Fs), w_cpu)
-                check(b_gpu.is_cuda and torch.equal(b_gpu.cpu().view(torch.int32),
-                                                     b_cpu.view(torch.int32)),
-                      f"dim {k}: the dd contraction on the card equals the CPU's bit for bit")
-                b64 = _contract_rhs(r64, F_cpu, k, len(Fs))
-                b32 = _contract_rhs(r32, F_cpu, k, len(Fs))
-                n64 = float(b64.norm())
-                errs.append((float((b_cpu.double() - b64).norm()) / n64,
-                             float((b32.double() - b64).norm()) / n64))
-            say(f"anova dd contraction (4096 x {list(sep_res.sizes)} stage-2 stack, seeded "
-                f"factors): card equals CPU bit for bit in all {len(Fs)} dims; rel-L2 vs f64 "
-                f"per dim, dd {[f'{e[0]:.3e}' for e in errs]}, plain f32 "
-                f"{[f'{e[1]:.3e}' for e in errs]}")
-            del dd_cpu, dd_gpu, r64, r32, w_gpu, w_cpu
+            dd_card_vs_cpu("anova stage-2", sep_res.rhs)
 
             serve_trained("fused_sweep_fields_f32_anova",
                           "parallel/vademecum.py::make_sweep_fn (ANOVA-started rank-"
@@ -1970,7 +2105,7 @@ def main() -> int:
         check(bool((dir_rel <= DD_DIRECT).all()),
               "the dd indicator equals the direct f64 residual of its tables")
         t0 = time.perf_counter()
-        g10 = gb(corners10)
+        g10 = gb(corners10, residuals=dd10)  # the indicator's pass above
         step("guaranteed_bound_s", t0)
         rel_gap = np.abs(g10["rel_l2"][sub] / np.asarray(D10_REL_L2) - 1)
         say(f"certify guaranteed bound: max rel_l2 {g10['rel_l2'].max():.6e} over the 1024 "
@@ -2001,20 +2136,33 @@ def main() -> int:
 
         cert = Certifier(ind)
         t0 = time.perf_counter()
-        eta10 = cert.calibrate(corners10, fem10)
+        eta10 = cert.calibrate(corners10, fem10, residuals=dd10)  # the indicator's pass
         step("calibrate_s", t0)
         cert.attach_guaranteed(gb)
         vd10 = Vademecum(Vs10, state10, dim0_transform=tf10, method="fused",
                          device=dev).attach_certifier(cert)
+        # served at the 16 fixed corners (a dd pass over all 1024 each took
+        # ~11 s on an H100; the indicator's own pass above covers them).  The
+        # dd sweep's f32 norms depend on how samples are batched, so the
+        # served residuals are held to the 1,024-sample pass within
+        # SERVED_BATCH_GAP, and the served bounds to the FEM errors there
+        c16 = corners10[sub]
         t0 = time.perf_counter()
-        r10 = vd10.residuals(corners10)
-        b10 = vd10.error_bound(corners10)
+        r10 = vd10.residuals(c16)
+        b10 = vd10.error_bound(c16)
         step("served_residuals_and_bounds_s", t0)
+        r16 = cert.residuals(c16)
+        batch_gap = float(np.abs(r10 / dd10[sub] - 1).max())
         say(f"certify served certifier: eta {eta10:.4f} (safety 1.5 over the 1024 FEM "
-            f"corners), max error bound {b10.max():.6e}")
-        check(np.array_equal(r10, dd10) and np.array_equal(b10, eta10 * dd10)
-              and bool((b10 >= fem10).all()),
-              "the served residuals and error bounds are the certifier's")
+            f"corners), max error bound {(eta10 * dd10).max():.6e} over the 1024; served at "
+            f"the 16 fixed corners: max |r16 / r1024 - 1| {batch_gap:.3e} (bound "
+            f"{SERVED_BATCH_GAP:g}), min served bound / FEM "
+            f"{float((b10 / fem10[sub]).min()):.3f}")
+        check(batch_gap <= SERVED_BATCH_GAP,
+              "the served residuals equal the 1,024-corner dd pass to the batching gap")
+        check(bool((b10 >= fem10[sub]).all())
+              and np.allclose(b10, eta10 * r10, rtol=1e-15, atol=0),
+              "the served error bounds cover the FEM error at the 16 corners")
         # Certifier.save → load: the reloaded certifier's residuals and
         # bounds at the 16 fixed corners equal the calibrated one's
         tmp_c = Path(tempfile.mkdtemp(prefix="chip_smoke_cert_"))
@@ -2028,8 +2176,7 @@ def main() -> int:
             step("certifier_load_s", t0)
         finally:
             shutil.rmtree(tmp_c, ignore_errors=True)
-        c16 = corners10[sub]
-        check(np.array_equal(cert_re.residuals(c16), cert.residuals(c16))
+        check(np.array_equal(cert_re.residuals(c16), r16)
               and np.array_equal(cert_re.bound(c16), cert.bound(c16))
               and cert_re.eta == cert.eta,
               "Certifier.save → load: equal residuals and bounds at the 16 corners")
@@ -2163,20 +2310,24 @@ def main() -> int:
             check(bool((err32 <= bound32).all()),
                   f"x0={x0}: the card's corrected outputs within their f32 bound of host f64")
 
+            # the bound at every DUAL_BOUND_STRIDE-th sample: the primal's dd
+            # indicator takes ~16 ms a d=10 sample on an H100
             t0 = time.perf_counter()
             gob = guaranteed_output_bound(sep_d, Vs10, l, res_u, tf10, res_z, tf_z, device=dev,
                                           primal_indicator=ind_u)
+            s_b = samples_d[::DUAL_BOUND_STRIDE]
             if ind_u is None:  # the primal's residuals serve both sensors' bounds
                 ind_u = gob.primal_indicator
-                r_u = ind_u(samples_d)
-            g_d = gob(samples_d, primal_residuals=r_u)
+                r_u = ind_u(s_b)
+            g_d = gob(s_b, primal_residuals=r_u)
             step(f"guaranteed_bound_{j}_s", t0)
-            abs_err = np.abs(s64 - st)
-            say(f"dual x0={x0}: guaranteed output bound over the {len(samples_d)} samples: "
-                f"min bound / |error| {float((g_d / abs_err).min()):.3f}, max bound "
-                f"{g_d.max():.3e} ({(g_d / np.abs(st)).max():.3e} of the output)")
+            abs_err = np.abs(s64 - st)[::DUAL_BOUND_STRIDE]
+            say(f"dual x0={x0}: guaranteed output bound over {len(s_b)} of the "
+                f"{len(samples_d)} samples (every {DUAL_BOUND_STRIDE}th): min bound / |error| "
+                f"{float((g_d / abs_err).min()):.3f}, max bound {g_d.max():.3e} "
+                f"({(g_d / np.abs(st[::DUAL_BOUND_STRIDE])).max():.3e} of the output)")
             check(bool((g_d >= abs_err).all()),
-                  f"x0={x0}: the guaranteed output bound covers the FEM error everywhere")
+                  f"x0={x0}: the guaranteed output bound covers the FEM error at its samples")
 
             ms_rate = cuda_ms(lambda: fn_d(s_rate), 5)
             say(f"dual x0={x0}: {DUAL_RATE_B / ms_rate * 1e3:.4g} corrected outputs/s "
@@ -2201,15 +2352,19 @@ def main() -> int:
     # the transient family: the operator-parametric conductivity primal
     # trained on the card by the minres recipe, verified against the exact
     # space-time FOM and served through the field kernels at n0 = n_x·n_t;
-    # a moving-heat-source vademecum trained by adaptive_minres, certified
+    # its x0 = 0.5 output certified by an adjoint cascade and served through
+    # the factor kernel; a moving-heat-source vademecum trained by
+    # adaptive_minres, certified
     with Phase("transient"):
         from pgdrome_tpu_torch.models.problems import (moving_heat_source,
                                                        transient_conductivity_fom,
                                                        transient_dense_verifier,
                                                        transient_parametric_conductivity)
+        from pgdrome_tpu_torch.dual import (DualCorrector, corrected_sweep_bound,
+                                            make_corrected_sensor_fn)
         from pgdrome_tpu_torch.parallel.certify import make_transient_certifier
-        from pgdrome_tpu_torch.recipes import (adaptive_minres, transient_verification_set,
-                                               two_stage_minres)
+        from pgdrome_tpu_torch.recipes import (_transient_sensor_duals, adaptive_minres,
+                                               transient_verification_set, two_stage_minres)
         from pgdrome_tpu_torch.serving import TransientVademecum
 
         torch.cuda.reset_peak_memory_stats()
@@ -2274,6 +2429,77 @@ def main() -> int:
               roofline(len(pts_t), n0_t, 4, True, sw=sw_t), c_tr,
               stages=stage_ms(s_t, sw_t, n0_t))
 
+        # the outputs of TRANSIENT_GOAL.json on this primal and its FOM
+        # solves: the adjoint minres cascade's first stage for the x0 = 0.5
+        # sensor at the final time, on the card, verified by the space-time
+        # corrector in host f64; then the corrected outputs served on the
+        # card, the primal and dual factor products through the factor kernel
+        t0 = time.perf_counter()
+        U_grid = U_t.reshape(len(pts_t), *sep_t.sizes[:2])
+        duals_t, reps_z = _transient_sensor_duals(
+            sep_t, Vs_t, res_t, pts_t, U_grid, [TRANSIENT_X0], tol_fp=TRANSIENT_SOLVE["tol_fp"],
+            max_fp_it=TRANSIENT_SOLVE["max_fp_it"], dtype=np.float32, log=say, device=dev,
+            **TRANSIENT_GOAL)
+        step("dual_stage1_s", t0)
+        res_z, rep_z = duals_t[0], reps_z[0]
+        say(f"transient outputs x0={rep_z['x0']}: dual stage 1 rank {rep_z['dual_rank']}, "
+            f"corrected max error vs the FOM / output scale over {len(pts_t)} points "
+            f"{rep_z['corrected_best']:.6e} (bound {STAGE1_CORRECTED:g}; the JAX record's "
+            f"stage 1, TPU, rank-95 primal: {TRANSIENT_GOAL_REF['stage1']:.6e} at rank "
+            f"{TRANSIENT_GOAL_REF['stage1_rank']}); {steps['dual_stage1_s']:.2f} s")
+        check(rep_z["dual_rank"] == TRANSIENT_GOAL["dual_stage1"]
+              and len(rep_z["history"]) == 1,
+              "the adjoint cascade's first stage kept its 48 modes")
+        check(rep_z["corrected_best"] < STAGE1_CORRECTED,
+              "the first dual stage's corrected transient outputs against the FOM")
+        ix0 = int(np.argmin(np.abs(Vs_t[0].tabulate_dof_coordinates()[:, 0] - TRANSIENT_X0)))
+        l_x = np.zeros(Vs_t[0].dim())
+        l_x[ix0] = 1.0
+        l_t = np.zeros(Vs_t[1].dim())
+        l_t[-1] = 1.0
+        dc_t = DualCorrector(sep_t, Vs_t, None, res_t, None, res_z, None, n_fixed=2,
+                             l_factors=[l_x, l_t])
+        s64_t = dc_t.corrected(pts_t)
+        s_true = U_grid[:, ix0, -1]
+        fn_t = make_corrected_sensor_fn(dc_t, method="fused", device=dev)
+        check(all(isinstance(f, fs.FusedSweep) for f in fn_t.factor_sweeps),
+              "the space-time corrected sweep's factors take the kernel")
+        fn_t(s_t[:8])  # warm-up
+        torch.cuda.synchronize()
+        fs.reset_launch_counts()
+        for sw in fn_t.factor_sweeps:
+            sw.launches = 0
+        s_dev_t = fn_t(s_t)[0]
+        torch.cuda.synchronize()
+        launches_c, stages_c = dict(fs.LAUNCHES), dict(fs.STAGE_LAUNCHES)
+        per_sweep_t = [sw.launches for sw in fn_t.factor_sweeps]
+        check(launches_c["factors"] == 2 and stages_c["factors_stage"] == 2
+              and sum(launches_c.values()) == 2 and per_sweep_t == [1, 1],
+              "the corrected outputs ran the factor kernel once for fu and once for fz")
+        bound_c, c_c = corrected_sweep_bound(dc_t, pts_t)
+        err_c = np.abs(s_dev_t.double().cpu().numpy() - s64_t)
+        scale_t = float(np.abs(s_true).max())
+        say(f"transient outputs: card f32 corrected outputs vs host f64: max |err| "
+            f"{err_c.max():.3e} ({(err_c / bound_c).max():.4f} of its γ_c bound, c = {c_c}); "
+            f"vs the FOM host f64 {np.abs(s64_t - s_true).max() / scale_t:.6e} (the primal's "
+            f"plain outputs {np.abs(dc_t.qoi(pts_t) - s_true).max() / scale_t:.6e}), card f32 "
+            f"{np.abs(s_dev_t.double().cpu().numpy() - s_true).max() / scale_t:.6e} of the "
+            f"output scale; launches {json.dumps(launches_c)} (fu, fz: {per_sweep_t})")
+        check(bool((err_c <= bound_c).all()),
+              "the card's corrected transient outputs within their f32 bound of host f64")
+        for label, sw, n_l in zip(("primal", "dual"), fn_t.factor_sweeps, per_sweep_t):
+            Kf = int(sw.tabs.shape[2])
+            out_f = sw(s_t)
+            c_f = 4 * int(sw.tabs.shape[0])
+            w_f = hold(out_f, s_t, None, c_f, sw=sw)
+            entry(f"fused_sweep_factors_transient_{label}", kernel_of(sw, "F"),
+                  f"dual.py::make_corrected_sensor_fn (space-time corrector, n_fixed = 2, "
+                  f"{label} factors, K = {Kf}, NP = {int(sw.tabs.shape[0])})", out_f.shape, n_l,
+                  w_f, cuda_ms(lambda: sw(s_t), 20),
+                  cuda_ms(lambda: fs.fused_sweep_plain(s_t, sw.grid, sw.tabs, None,
+                                                       sw.n_modes), 20),
+                  None, roofline(len(pts_t), Kf, 4, False, sw=sw), c_f)
+
         # the moving heat source: adaptive_minres to its bound, certified
         t0 = time.perf_counter()
         sep_h, Vs_h, fac_h, sep_err = moving_heat_source(**HEAT)
@@ -2326,6 +2552,102 @@ def main() -> int:
         say(f"transient steps (s): {json.dumps({k: round(v, 3) for k, v in steps.items()})}")
         say(f"transient peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
+    # ---------------------------------------------------------- nonlinear
+    # the nonlinear family at NONLINEAR.json's widths: outer Picard of f32
+    # residual cascades on the card (dd stacks from the third outer
+    # iteration), verified against 76 banded-Newton truths, one dd stack of
+    # the recipe contracted on the card against the CPU, and the result
+    # served through the field kernels
+    with Phase("nonlinear"):
+        from pgdrome_tpu_torch.models.problems import (nonlinear_dense_verifier,
+                                                       nonlinear_elliptic)
+        from pgdrome_tpu_torch.recipes import (_CubeRhs, nonlinear_vademecum,
+                                               state_conditioning)
+
+        torch.cuda.reset_peak_memory_stats()
+        steps = {}
+        t0 = time.perf_counter()
+        sep_n, Vs_n, ml_n = nonlinear_elliptic(**NONLINEAR)
+        step("build_s", t0)
+        check(tuple(sep_n.sizes) == (2049, 65, 65) and sep_n.num_terms == 3,
+              "the nonlinear build: 2049 x 65^2, T = 3")
+        torch.cuda.synchronize()
+        fs.reset_launch_counts()
+        t0 = time.perf_counter()
+        res_n, tf_n, rep_n = nonlinear_vademecum(sep_n, Vs_n, ml_n, NL_EPS, dtype=np.float32,
+                                                 log=say, device=dev, **NL_RECIPE, **NL_CUBE)
+        step("nonlinear_vademecum_s", t0)
+        hist_n = rep_n["history"]
+        for h in hist_n:
+            say(f"nonlinear outer {h['outer']}: rank {h['rank']}, cube terms "
+                f"{h['cube_terms']}, rel_change {h['rel_change']:.6e}, rhs_comp "
+                f"{h['rhs_comp']}, {h['outer_s']:.2f} s, fp sweeps {h['fp_sweeps']}, modes "
+                f"repeating an earlier one dropped {h['repeated_modes']}")
+        say(f"nonlinear: stop {rep_n['stop']!r} after {rep_n['outer_iterations']} outer "
+            f"iterations, rank {rep_n['rank']}, {steps['nonlinear_vademecum_s']:.2f} s (the JAX "
+            f"record, TPU: rank {NL_REF['rank']} after {NL_REF['outer']})")
+        check(res_n.modes[0].is_cuda and res_n.modes[0].dtype == torch.float32,
+              "the nonlinear solves ran in f32 on the card")
+        check([h["rhs_comp"] for h in hist_n] == [i >= 2 for i in range(len(hist_n))]
+              and len(hist_n) >= 3, "the outer iterations from the third on ran dd stacks")
+        t0 = time.perf_counter()
+        ver_n = nonlinear_dense_verifier(Vs_n, NL_EPS, ml_n, tf_n, **NL_VERIFY)
+        v_n = ver_n(res_n)
+        step("verify_s", t0)
+        pts_n = np.concatenate(list(ver_n.samples.values()))
+        say(f"nonlinear verify: f64 reconstruction max rel-L2 vs the banded-Newton truth "
+            f"{v_n['max']:.6e} (corners+edges {v_n['corners']:.6e}, interior "
+            f"{v_n['interior']:.6e}) over {len(pts_n)} samples, {steps['verify_s']:.2f} s; the "
+            f"JAX record (TPU) {NL_REF['max']:.6e} at rank {NL_REF['rank']}")
+        check(len(pts_n) == 4 + 3 * (16 + 8), "the verifier's 76 samples")
+        check(v_n["max"] < FEM_BOUND, "the nonlinear vademecum under 1e-6 against Newton truth")
+
+        # an outer iteration's extended stack [b, −ε·M_L u³] (the one the
+        # next outer would solve), in dd on the card against the CPU
+        t0 = time.perf_counter()
+        prob_n, n_cube = _CubeRhs(sep_n, ml_n, NL_EPS, rhs_bucket=NL_RECIPE["rhs_bucket"],
+                                  **NL_CUBE).problem(res_n)
+        step("extended_stack_s", t0)
+        check(prob_n.num_rhs % NL_RECIPE["rhs_bucket"] == 0 and n_cube > 0
+              and prob_n.num_rhs >= 1 + n_cube
+              and not np.asarray(prob_n.rhs[0])[1 + n_cube:].any(),
+              "the extended stack: 1 + cube-term rows, zero-padded to a multiple of 512")
+        dd_card_vs_cpu(f"nonlinear ({n_cube} cube terms)", prob_n.rhs)
+
+        # served fields: the kernel within 1.1x the plain f32 version's error
+        # against the truth (the plain version is the JAX package's Pallas
+        # kernel's arithmetic), both under 1e-6.  Not within 1.1x the f64
+        # reconstruction's, as the frontier results are: at an f64 error near
+        # u32, f32 serving adds 2-4 u32 to a sum without cancellation
+        # (cancellation_max 1.02 on a CPU-trained state), and the JAX
+        # package's f32 serving misses 1.1x as well (on a CPU-trained state
+        # of this recipe, `tests/test_torch_nonlinear.py` as a script: f64
+        # 1.052e-7, its Pallas kernel 3.467e-7, its XLA sweep 2.418e-7)
+        cond_n = state_conditioning(res_n, Vs_n, tf_n, pts_n)
+        say(f"nonlinear state conditioning at the {len(pts_n)} samples: "
+            f"{json.dumps({k: float(f'{v:.6g}') for k, v in cond_n.items()})}")
+        vd_n = Vademecum(Vs_n, res_n, dim0_transform=tf_n, method="fused", device=dev)
+        e_served_n = serve_trained(
+            "fused_sweep_fields_f32_nonlinear", f"parallel/vademecum.py::make_sweep_fn "
+            f"(nonlinear rank-{res_n.n_modes} vademecum, NP = 2)", vd_n, pts_n, v_n["max"],
+            fem_bound=FEM_BOUND, truth=ver_n.truth, plain_slack=FRONTIER_SERVE_SLACK)
+        say(f"nonlinear served / f64 reconstruction vs the truth: "
+            f"{e_served_n / v_n['max']:.3f}")
+        grid_n = Vs_n[1].tabulate_dof_coordinates()[:, 0]
+        q_n = grid_n[np.random.default_rng(0).integers(1, len(grid_n) - 1,
+                                                       size=(NL_SERVE, NONLINEAR["num_params"]))]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f_n = vd_n.fields(q_n)
+        torch.cuda.synchronize()
+        step("serve_256_s", t0)
+        check(tuple(f_n.shape) == (NL_SERVE, 2049) and bool(torch.isfinite(f_n).all()),
+              "256 served nonlinear fields")
+        say(f"nonlinear serve: {NL_SERVE} grid-point fields {tuple(f_n.shape)} in "
+            f"{steps['serve_256_s'] * 1e3:.3f} ms (host clock, warm)")
+        say(f"nonlinear steps (s): {json.dumps({k: round(v, 3) for k, v in steps.items()})}")
+        say(f"nonlinear peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
     peak = max(peak_before, torch.cuda.max_memory_allocated())
     say(f"peak device memory: {peak / 2**30:.3f} GiB")
     say(f"wall seconds: {time.perf_counter() - t_start:.1f}")
@@ -2338,4 +2660,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--anova-init"]:
+        sys.exit(anova_init_child(sys.argv[2]))
     sys.exit(main())

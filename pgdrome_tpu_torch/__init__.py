@@ -25,7 +25,11 @@ batched field / sensor / moment sweeps (:mod:`.parallel.vademecum`,
 serving: save/load, errors, the parameter Jacobian, calibration by a
 batched Gauss–Newton fit or an MCMC posterior (:mod:`.parallel.bayes`),
 exact Sobol' indices (:mod:`.uq`), fixed-parameter slices and derivative
-fields (:mod:`.fem.derivative`).
+fields (:mod:`.fem.derivative`); goal-oriented outputs (:mod:`.dual`),
+on the transient family too (:func:`.recipes.transient_goal_oriented`);
+and the nonlinear family (:func:`.recipes.nonlinear_vademecum`, the
+Newton and Picard per-dim solves of :mod:`.ops.solvers`, device assembly in
+:mod:`.fem.assembly_device`).
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a CUDA device they raise.
@@ -56,12 +60,16 @@ from pgdrome_tpu_torch.separated import (
 from pgdrome_tpu_torch.models.problems import (
     corner_seeded_init,
     elliptic_dense_verifier,
+    nonlinear_dense_verifier,
+    nonlinear_elliptic,
 )
 from pgdrome_tpu_torch.anova import anova_init
 from pgdrome_tpu_torch.recipes import (
     adaptive_cascade,
     highd_frontier,
+    nonlinear_vademecum,
     residual_cascade,
+    transient_goal_oriented,
     two_stage_elliptic,
 )
 from pgdrome_tpu_torch.serving import Vademecum
@@ -94,11 +102,15 @@ __all__ = [
     "combine_results",
     "elliptic_dense_verifier",
     "corner_seeded_init",
+    "nonlinear_elliptic",
+    "nonlinear_dense_verifier",
     "anova_init",
     "residual_cascade",
     "adaptive_cascade",
     "two_stage_elliptic",
     "highd_frontier",
+    "transient_goal_oriented",
+    "nonlinear_vademecum",
     "Vademecum",
     "result_from_numpy",
     "load_state_npz",

@@ -19,6 +19,10 @@ sparse assembly of the couplings C_t = Z₀ᵀ A_t U₀ on the host in f64.
 :func:`make_corrected_sensor_fn` serves the same outputs on the card, the
 primal and dual mode-product factors through the sweep's factor kernel
 (:mod:`pgdrome_tpu_torch.ops.fused_sweep`), the rest in plain ``torch``.
+:func:`adjoint_problem_nd` builds the space-time adjoint of the transient
+family (``DualCorrector(n_fixed=2)`` corrects its outputs), and
+:func:`rhs_parametric_qoi` gives outputs exactly where only the load
+depends on the parameters.
 
 Conventions match the problem builders (:mod:`~pgdrome_tpu_torch.models.problems`):
 a host-f64 un-preconditioned :class:`~pgdrome_tpu_torch.separated.SeparatedProblem`,
@@ -37,9 +41,9 @@ from pgdrome_tpu_torch.separated import SeparatedProblem, evaluate_modes_1d, hos
 
 use_full_f32_matmul()
 
-__all__ = ["adjoint_problem", "collocation_weights", "corrected_sweep_bound",
-           "DualCorrector", "guaranteed_output_bound", "make_corrected_sensor_fn",
-           "point_functional"]
+__all__ = ["adjoint_problem", "adjoint_problem_nd", "collocation_weights",
+           "corrected_sweep_bound", "DualCorrector", "guaranteed_output_bound",
+           "make_corrected_sensor_fn", "point_functional", "rhs_parametric_qoi"]
 
 
 def point_functional(V, x0):
@@ -100,15 +104,43 @@ def adjoint_problem(sep, l_vec, *, param_rhs=None):
     parameter rhs factors (a list over dims 1..).  Returns a host-f64
     :class:`SeparatedProblem`, ready for ``precondition_dim0`` and any
     solve pipeline."""
+    return adjoint_problem_nd(sep, [l_vec], n_fixed=1, param_rhs=param_rhs)
+
+
+def adjoint_problem_nd(sep, l_factors, *, n_fixed=2, param_rhs=None):
+    """Adjoint separated problem A(p)ᵀ z = ⊗_d l_d over the leading
+    ``n_fixed`` deterministic dims, collocation parameters after (the
+    space-time case: dims x ⊗ t ⊗ p…).
+
+    Every dim's operator stack is transposed per term: the upwind time
+    stencil becomes the downwind one, so the adjoint runs backward in time
+    from the functional.  The bc bookkeeping is the discrete adjoint's: the
+    solver's masked system mAm + diag(1−m) transposes to mAᵀm + diag(1−m),
+    the same constrained dofs (the primal's t = 0 rows), with the
+    functional masked there, so s = (ml)·u = z·(mb) holds exactly.
+
+    ``l_factors``: one functional factor per fixed dim (e.g. a sensor row
+    e_{x0} and a final-time row e_T).  The parameter-dim rhs factors are
+    the collocation weights unless ``param_rhs`` gives them.  Returns a
+    host-f64 :class:`SeparatedProblem`."""
     nd = sep.num_dims
-    l = _masked(l_vec, sep, 0)
-    if l.shape != (sep.sizes[0],):
-        raise ValueError(f"l_vec has shape {l.shape}, expected ({sep.sizes[0]},)")
+    if not 1 <= n_fixed < nd:
+        raise ValueError(f"n_fixed must be in [1, {nd})")
+    if len(l_factors) != n_fixed:
+        raise ValueError(f"need {n_fixed} functional factors, got {len(l_factors)}")
+    rhs = []
+    for d in range(n_fixed):
+        l = np.asarray(l_factors[d], dtype=np.float64)
+        if l.shape != (sep.sizes[d],):
+            raise ValueError(
+                f"l_factors[{d}] has shape {l.shape}, expected ({sep.sizes[d]},)")
+        rhs.append(_masked(l, sep, d)[None, :])
     if param_rhs is None:
-        param_rhs = [collocation_weights(sep, j) for j in range(1, nd)]
+        param_rhs = [collocation_weights(sep, j) for j in range(n_fixed, nd)]
+    rhs += [np.asarray(w, dtype=np.float64)[None, :] for w in param_rhs]
     return SeparatedProblem(
         ops=[np.swapaxes(host_f64(o), 1, 2) for o in sep.ops],
-        rhs=[l[None, :]] + [np.asarray(w, dtype=np.float64)[None, :] for w in param_rhs],
+        rhs=rhs,
         mass=[host_f64(m) for m in sep.mass],
         bc_dofs=[np.array([], dtype=np.int64) if b is None else np.asarray(b)
                  for b in sep.bc_dofs],
@@ -267,6 +299,110 @@ class DualCorrector:
         if return_parts:
             return s, s_plain, z_r
         return s
+
+
+def rhs_parametric_qoi(sep, Vs, sensors, *, fixed_dims=(0, 1)):
+    """Exact separated output surrogate for problems whose parameters enter
+    the rhs only (the moving heat source: A = ρc_p·M⊗D1_up + k·K⊗M_t, only
+    the load carries (P, v)).  Then s(p) = lᵀA⁻¹b(p) = zᵀb(p) with
+    z = A⁻ᵀl, one backward space-time solve a sensor, and since b(p) =
+    Σ_r ⊗_f g_rf · Π_j c_rj(p_j) the output is the closed form
+    s(p) = Σ_r W_r Π_j c_rj(p_j), W_r = zᵀ(⊗_f g_rf): no vademecum rank,
+    the source-separation floor only.  The pointwise coefficients
+    c_rj = M_j⁻¹ rhs_j[r] are read back from the weak factors (exact for
+    the builders' P1 quadrature), and interpolated P1 between grid points.
+
+    ``sep``: the host-f64 problem; ``Vs`` its spaces; ``sensors``: one
+    coordinate tuple a sensor over the fixed dims (each becomes
+    l = ⊗_f point_functional); ``fixed_dims``: (0,) or (0, 1).  Every other
+    dim's operator terms must equal its mass (checked) and carry no bc
+    dofs.  Host scipy: one sparse LU of the masked kron system.
+
+    Returns ``qoi(samples) -> (S, n_sensors)`` with ``.weights``
+    (n_sensors, R) and ``.adjoints`` (the z fields)."""
+    from functools import reduce
+
+    from scipy import sparse as sps
+    from scipy.sparse import linalg as spla
+
+    if tuple(fixed_dims) not in ((0,), (0, 1)):
+        raise ValueError("fixed_dims must be (0,) or (0, 1)")
+    nd = sep.num_dims
+    param_dims = [d for d in range(nd) if d not in fixed_dims]
+    for d in param_dims:
+        od, md = host_f64(sep.ops[d]), host_f64(sep.mass[d])
+        for t in range(od.shape[0]):
+            if not np.allclose(od[t], md, rtol=0.0, atol=1e-12 * np.abs(md).max()):
+                raise ValueError(
+                    f"parameter dim {d} operator term {t} is not the mass: the "
+                    "operator is parameter-dependent — use "
+                    "adjoint_problem/DualCorrector instead")
+        if sep.bc_dofs[d] is not None and len(sep.bc_dofs[d]):
+            raise ValueError(f"parameter dim {d} carries bc dofs")
+
+    sizes = [sep.sizes[f] for f in fixed_dims]
+    opsF = [host_f64(sep.ops[f]) for f in fixed_dims]
+    A = sum(reduce(sps.kron, (sps.csr_matrix(o[t]) for o in opsF))
+            for t in range(opsF[0].shape[0])).tolil()
+    # constrained rows of the kron system become identity rows (the
+    # per-sample FOM's convention)
+    bc_mask = np.zeros(tuple(sizes), dtype=bool)
+    for k, f in enumerate(fixed_dims):
+        dofs = sep.bc_dofs[f]
+        if dofs is not None and len(dofs):
+            np.moveaxis(bc_mask, k, 0)[np.asarray(dofs)] = True
+    bc_rows = np.nonzero(bc_mask.reshape(-1))[0]
+    for rr in bc_rows:
+        A.rows[rr] = [int(rr)]
+        A.data[rr] = [1.0]
+    lu = spla.splu(A.tocsr().tocsc())
+
+    rhsF = [host_f64(sep.rhs[f]) for f in fixed_dims]
+    R = rhsF[0].shape[0]
+    adjoints, weights = [], []
+    for coords in sensors:
+        if np.ndim(coords) == 0:
+            coords = (coords,)
+        if len(coords) != len(fixed_dims):
+            raise ValueError(f"sensor {coords!r}: need one coordinate per fixed dim")
+        l = reduce(np.kron, (point_functional(Vs[f], c) for f, c in zip(fixed_dims, coords)))
+        l[bc_rows] = 0.0
+        z = lu.solve(l, trans="T")
+        adjoints.append(z)
+        # the per-sample FOM zeroes b at constrained rows: masking z there
+        # is the same contraction (A's bc rows are identity, its bc
+        # columns are not, so z is nonzero on them)
+        zm = z.copy()
+        zm[bc_rows] = 0.0
+        if len(fixed_dims) == 2:
+            weights.append(np.einsum("ri,ij,rj->r", rhsF[0], zm.reshape(sizes), rhsF[1]))
+        else:
+            weights.append(rhsF[0] @ zm)
+    W = np.stack(weights)  # (n_sensors, R)
+
+    grids = [Vs[j].tabulate_dof_coordinates()[:, 0] for j in param_dims]
+    cs = [np.linalg.solve(host_f64(sep.mass[j]), host_f64(sep.rhs[j]).T).T
+          for j in param_dims]  # (R, n_j) pointwise coefficients
+
+    def qoi(samples):
+        s = np.atleast_2d(np.asarray(samples, dtype=np.float64))
+        if s.shape[1] != len(param_dims):
+            raise ValueError(f"samples have {s.shape[1]} columns, expected "
+                             f"{len(param_dims)} (one per parameter dim)")
+        fac = np.ones((s.shape[0], R))
+        for k, g in enumerate(grids):
+            if s[:, k].min() < g[0] or s[:, k].max() > g[-1]:
+                raise ValueError(
+                    f"samples leave the parameter box in column {k} ([{g[0]}, {g[-1]}]): "
+                    "the closed form would silently extrapolate the coefficient tables")
+            i = np.clip(np.searchsorted(g, s[:, k], side="right") - 1, 0, len(g) - 2)
+            w = (s[:, k] - g[i]) / (g[i + 1] - g[i])
+            fac *= (cs[k][:, i] * (1.0 - w) + cs[k][:, i + 1] * w).T
+        return fac @ W.T  # (S, n_sensors)
+
+    qoi.weights = W
+    qoi.adjoints = adjoints
+    return qoi
 
 
 def guaranteed_output_bound(sep, Vs, l_vec, res_u, tf_u, res_z, tf_z, *,

@@ -2,7 +2,8 @@
 dofs and point evaluation (counterpart of ``pgdrome_tpu/fem``).
 
 Host numpy in f64, as in the JAX package; device copies are lazy ``torch``
-tensors.
+tensors.  :mod:`.assembly_device` assembles on the device, for operators
+that depend on the current iterate (the JAX package's ``assembly_jax``).
 """
 
 from pgdrome_tpu_torch.fem.mesh import IntervalMesh

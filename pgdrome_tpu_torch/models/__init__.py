@@ -3,7 +3,8 @@ parametric-elliptic vademecum that the committed states were trained on,
 with its per-sample FEM truth model, the dense verifier built on it and
 the corner seeds of the high-d cascades; and the transient family on
 intervals (a moving heat source, an operator-parametric conductivity),
-with their space-time FOM and dense verifier."""
+with their space-time FOM and dense verifier; and the nonlinear (cubic)
+elliptic family with its banded-Newton truth and dense verifier."""
 
 from pgdrome_tpu_torch.models.problems import (
     box_corners,
@@ -15,9 +16,13 @@ from pgdrome_tpu_torch.models.problems import (
     transient_parametric_conductivity,
     transient_conductivity_fom,
     transient_dense_verifier,
+    nonlinear_elliptic,
+    nonlinear_elliptic_fom,
+    nonlinear_dense_verifier,
 )
 
 __all__ = ["box_corners", "parametric_elliptic", "elliptic_fem_solver",
            "elliptic_dense_verifier", "corner_seeded_init", "moving_heat_source",
            "transient_parametric_conductivity", "transient_conductivity_fom",
-           "transient_dense_verifier"]
+           "transient_dense_verifier", "nonlinear_elliptic", "nonlinear_elliptic_fom",
+           "nonlinear_dense_verifier"]

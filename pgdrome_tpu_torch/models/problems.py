@@ -1,10 +1,12 @@
-"""Predefined separated model problems — the parametric-elliptic family
-and the transient family on intervals (counterpart of
+"""Predefined separated model problems — the parametric-elliptic family,
+its nonlinear (cubic) variant and the transient family on intervals (counterpart of
 ``pgdrome_tpu/models/problems.py``: ``box_corners``,
 ``parametric_elliptic``, ``elliptic_fem_solver``,
 ``elliptic_dense_verifier``, ``corner_seeded_init``,
 ``moving_heat_source``, ``transient_parametric_conductivity``,
-``transient_conductivity_fom``, ``transient_dense_verifier``).
+``transient_conductivity_fom``, ``transient_dense_verifier``,
+``nonlinear_elliptic``, ``nonlinear_elliptic_fom``,
+``nonlinear_dense_verifier``).
 
 Builders return a :class:`~pgdrome_tpu_torch.separated.SeparatedProblem`
 of host arrays plus the per-dim function spaces.
@@ -696,4 +698,167 @@ def transient_dense_verifier(sep, Vs, factors, *, af: float = 0.08,
 
     verify.sample_errors = sample_errors
     verify.corner_indices = corner_idx
+    return verify
+
+
+def nonlinear_elliptic(n_x: int = 1024, n_p: int = 64, num_params: int = 2,
+                       p_range=(0.0, 1.0), boundary_boost=None, dtype=None):
+    """Nonlinear parametric vademecum problem
+
+        −∇·(κ(x; p) ∇u) + ε·u³ = f,   κ = 1 + Σ_i p_i sin²(iπx)/(2P)
+
+    on [0, 1], homogeneous Dirichlet, the cubic term mass-lumped: at every
+    parameter grid point the equation is the banded system
+    K(p)u + ε·M_L u³ = b that :func:`nonlinear_elliptic_fom` solves by
+    Newton for the truth.  ε is not built in: the same ε goes to the
+    recipe (:func:`~pgdrome_tpu_torch.recipes.nonlinear_vademecum`), the
+    truth solver and the verifier.
+
+    Returns ``(sep_linear, Vs, ml)``: the linear part as a separated
+    problem (the :func:`parametric_elliptic` family, P2 in space) and the
+    lumped-mass diagonal ``ml`` of the cubic term."""
+    sep, Vs = parametric_elliptic(n_x=n_x, n_p=n_p, num_params=num_params,
+                                  p_range=p_range, degree_x=2, dtype=dtype,
+                                  boundary_boost=boundary_boost)
+    ml = mass_matrix(Vs[0]).sum(axis=1)  # lumped diagonal
+    return sep, Vs, ml
+
+
+def nonlinear_elliptic_fom(Vx, num_params, eps, ml):
+    """Per-sample banded-Newton truth for :func:`nonlinear_elliptic`:
+    ``solve(p) -> u`` of K(p)u + ε·M_L u³ = b, damped Newton on the
+    interior dofs (the Jacobian K(p) + 3ε·diag(M_L u²) keeps the band, so
+    a step is one banded f64 solve)."""
+    from scipy.linalg import solve_banded
+
+    b_full = load_vector(Vx, lambda x: np.ones_like(x))
+    K_probe = stiffness_matrix(Vx)
+    bw = max(k for k in range(K_probe.shape[0])
+             if np.any(np.diagonal(K_probe, k) != 0.0))
+    ml = np.asarray(ml, dtype=np.float64)
+
+    def _banded(K):
+        n = K.shape[0]
+        ab = np.zeros((2 * bw + 1, n))
+        for k in range(-bw, bw + 1):
+            d = np.diagonal(K, k)
+            if k >= 0:
+                ab[bw - k, k:k + d.size] = d
+            else:
+                ab[bw - k, :d.size] = d
+        return ab
+
+    def solve(p, tol=1e-12, max_it=50):
+        kappa = lambda x: 1.0 + sum(  # noqa: E731
+            p[i] * np.sin((i + 1) * np.pi * x) ** 2 / (2 * num_params)
+            for i in range(num_params))
+        K = stiffness_matrix(Vx, weight=kappa)
+        n = K.shape[0]
+        i0, i1 = 1, n - 1  # the interval's Dirichlet ends
+        Ki, bi, mli = K[i0:i1, i0:i1], b_full[i0:i1], ml[i0:i1]
+        u = np.zeros(n - 2)
+        for _ in range(max_it):
+            r = Ki @ u + eps * mli * u ** 3 - bi
+            J = Ki + np.diag(3.0 * eps * mli * u ** 2)
+            du = solve_banded((bw, bw), _banded(J), -r)
+            # damped: a full step can overshoot at a strong ε
+            step = 1.0
+            nr0 = np.linalg.norm(r)
+            for _ in range(20):
+                un = u + step * du
+                if np.linalg.norm(Ki @ un + eps * mli * un ** 3 - bi) < nr0:
+                    break
+                step *= 0.5
+            u = u + step * du
+            if np.linalg.norm(step * du) <= tol * max(np.linalg.norm(u), 1.0):
+                break
+        out = np.zeros(n)
+        out[i0:i1] = u
+        return out
+
+    return solve
+
+
+def nonlinear_dense_verifier(Vs, eps, ml, tf=None, n_random: int = 16,
+                             seeds=(7, 101, 1234), n_edge: int = 8):
+    """Dense held-out verifier for :func:`nonlinear_elliptic` results, the
+    nonlinear counterpart of :func:`elliptic_dense_verifier` (the truth is
+    the per-sample banded Newton solve): ``verify(result) -> {"corners",
+    "interior", "max"}`` over the 2^d inset box corners and, per seed,
+    ``n_random`` random and ``n_edge`` edge grid points (the edges count
+    toward "corners"), drawn as the JAX package draws them.  Beside
+    ``verify.sample_errors(result, samples)`` and ``verify.corners``,
+    ``verify.samples`` holds the set (``{"corners": ...}`` and per seed its
+    random and edge points, in draw order) and ``verify.truth(p)`` the
+    Newton truth at a point, each solved once and kept."""
+    from pgdrome_tpu_torch.separated import evaluate_modes_1d
+
+    Vx = Vs[0]
+    num_params = len(Vs) - 1
+    fem_solve = nonlinear_elliptic_fom(Vx, num_params, eps, ml)
+    grid = Vs[1].tabulate_dof_coordinates()[:, 0]
+    lo, hi = grid[1], grid[-2]
+    corners = box_corners(lo, hi, num_params)
+    truths = {}
+
+    def truth(p):
+        """The Newton truth at ``p``, solved once a point."""
+        key = tuple(np.asarray(p, dtype=np.float64).tolist())
+        if key not in truths:
+            truths[key] = fem_solve(np.asarray(key))
+        return truths[key]
+
+    draws = []  # (seed, randoms or None, edges or None)
+    for seed in seeds:
+        rng = np.random.default_rng(seed)
+        randoms = edges = None
+        if n_random:
+            randoms = grid[rng.integers(1, len(grid) - 1, size=(n_random, num_params))]
+        if n_edge:
+            edges = grid[rng.integers(1, len(grid) - 1, size=(n_edge, num_params))]
+            for r in range(n_edge):
+                k = int(rng.integers(1, num_params)) if num_params > 1 else 1
+                dims = rng.choice(num_params, size=k, replace=False)
+                edges[r, dims] = np.where(rng.integers(0, 2, size=k) == 0, lo, hi)
+        draws.append((seed, randoms, edges))
+
+    def _full0(res):
+        m0 = res.modes[0]
+        return host_f64(tf.modes_to_full(m0) if tf is not None else m0)
+
+    def _errors(res, full0, samples):
+        samples = np.asarray(samples, dtype=np.float64)
+        fac = np.ones((len(samples), res.n_modes))
+        for j in range(num_params):
+            m = torch.as_tensor(res.modes[1 + j]).detach().cpu()
+            vals = evaluate_modes_1d(Vs[1 + j], m, torch.as_tensor(samples[:, j]))
+            fac *= host_f64(vals)[:, : res.n_modes]
+        errs = []
+        for p, f in zip(samples, fac):
+            u_ref = truth(p)
+            u = f @ full0[: res.n_modes]
+            errs.append(np.linalg.norm(u - u_ref) / np.linalg.norm(u_ref))
+        return np.asarray(errs)
+
+    def sample_errors(res, samples):
+        return _errors(res, _full0(res), samples)
+
+    def verify(res):
+        full0 = _full0(res)
+        mc = float(_errors(res, full0, corners).max())
+        mi = 0.0
+        for _, randoms, edges in draws:
+            if randoms is not None:
+                mi = max(mi, float(_errors(res, full0, randoms).max()))
+            if edges is not None:
+                mc = max(mc, float(_errors(res, full0, edges).max()))
+        return {"corners": mc, "interior": mi, "max": max(mc, mi)}
+
+    verify.sample_errors = sample_errors
+    verify.corners = corners
+    verify.truth = truth
+    verify.samples = {"corners": corners}
+    for seed, randoms, edges in draws:
+        verify.samples[seed] = np.concatenate(
+            [a for a in (randoms, edges) if a is not None] or [np.zeros((0, num_params))])
     return verify

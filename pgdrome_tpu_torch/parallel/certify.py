@@ -275,13 +275,15 @@ class Certifier:
         """Relative algebraic residuals, (B,) float64."""
         return self._indicator(samples)
 
-    def calibrate(self, samples, true_errors, safety=1.5):
+    def calibrate(self, samples, true_errors, safety=1.5, residuals=None):
         """Fit η = safety · max(true_err / residual) over the calibration
         pairs and return it; ``true_errors`` are per-sample relative
         errors against a trusted solve (e.g. ``elliptic_dense_verifier``'s
-        ``sample_errors``).  Records the calibration box and residual
-        range for :meth:`bound`'s out-of-distribution warning."""
-        res = self.residuals(samples)
+        ``sample_errors``); ``residuals``: :meth:`residuals` of ``samples``
+        when already computed (the sweep is then not run again).  Records
+        the calibration box and residual range for :meth:`bound`'s
+        out-of-distribution warning."""
+        res = self.residuals(samples) if residuals is None else host_f64(residuals)
         true_errors = np.asarray(true_errors, dtype=np.float64)
         if true_errors.shape != res.shape:
             raise ValueError("true_errors must align with samples")
@@ -632,10 +634,12 @@ def guaranteed_field_bound(sep, spaces, result, tf=None, *, nodal_tf=None,
     term 0 must then be ≈ I) and ``nodal_tf`` for the Euclidean
     conversion (without it only the energy-norm bounds are given).
 
-    Returns ``bound(samples) -> dict`` of per-sample host f64 arrays:
-    ``abs_K0``, ``rel_energy`` and, when convertible, ``abs_l2`` and
-    ``rel_l2`` (``inf`` where the denominator guard fails).  Attributes:
-    ``lam_min_lower``, ``lam_min_estimate``, ``indicator``, ``caveat``."""
+    Returns ``bound(samples, residuals=None) -> dict`` of per-sample host
+    f64 arrays: ``abs_K0``, ``rel_energy`` and, when convertible,
+    ``abs_l2`` and ``rel_l2`` (``inf`` where the denominator guard fails);
+    ``residuals``: ``bound.indicator(samples)`` when already computed (the
+    dd sweep is then not run again).  Attributes: ``lam_min_lower``,
+    ``lam_min_estimate``, ``indicator``, ``caveat``."""
     device = get_device(device)
     validate_spd_family(sep)
     conv_tf = tf if tf is not None else nodal_tf
@@ -697,9 +701,9 @@ def guaranteed_field_bound(sep, spaces, result, tf=None, *, nodal_tf=None,
         """√(fᵀ G f) per row of f."""
         return np.sqrt(np.maximum(((f @ G) * f).sum(axis=1), 0.0))
 
-    def bound(samples):
+    def bound(samples, residuals=None):
         samples = host_f64(samples)
-        rel = ind(samples)
+        rel = ind(samples) if residuals is None else host_f64(residuals)
         nb = _gram_norm(_factor_products(samples, rhs_tabs), Gb)
         c0 = _factor_products(samples, base_tabs)[:, 0]
         abs_K0 = rel * nb / c0

@@ -1,7 +1,8 @@
 """End-to-end solver recipes (counterpart of ``pgdrome_tpu/recipes.py``:
 ``_to_nodal``, ``residual_cascade``, ``adaptive_cascade``,
 ``two_stage_elliptic``, ``two_stage_minres``, ``adaptive_minres``,
-``highd_frontier``, ``goal_oriented_frontier``).
+``highd_frontier``, ``goal_oriented_frontier``,
+``transient_goal_oriented``, ``nonlinear_vademecum``).
 
 :func:`two_stage_elliptic` is the north-star vademecum pipeline: an
 energy-basis f32 greedy stage on the device, f64-exact residual restarts
@@ -16,7 +17,9 @@ screener's (:func:`screened_verification`, :func:`screened_final`) from
 :func:`goal_oriented_frontier` certifies outputs with adjoint
 vademecums (:mod:`.dual`); :func:`two_stage_minres` and
 :func:`adaptive_minres` train the transient (non-symmetric) family on the
-normal equations.
+normal equations, and :func:`transient_goal_oriented` certifies its outputs
+with backward-in-time adjoint cascades.  :func:`nonlinear_vademecum` solves
+the cubic elliptic family by outer Picard iterations of linear cascades.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import os
 import time
 
 import numpy as np
+import torch
 
 from pgdrome_tpu_torch.config import get_device, use_full_f32_matmul
 from pgdrome_tpu_torch.separated import (
@@ -62,7 +66,8 @@ def residual_cascade(problem_pc: SeparatedProblem, budgets,
                      tol_fp: float = 1e-7, solver: str = "cg",
                      cg_iters: int = 25, dtype=np.float32,
                      stage_problems=None, rhs_bucket: int | None = None,
-                     device="cuda"):
+                     rhs_f64: bool = False, rhs_comp: bool = False,
+                     rhs_comp_from: int | None = None, device="cuda"):
     """Multi-stage floor-restarted greedy solve on an (already
     preconditioned) host problem: stage 1 solves ``budgets[0]`` modes
     (40 fp sweeps at ``tol_fp``); each further budget forms the f64-exact
@@ -75,19 +80,26 @@ def residual_cascade(problem_pc: SeparatedProblem, budgets,
     grid point, so the solution is unchanged).  ``rhs_bucket``: pad each
     residual rhs stack with zero rows to a multiple of this
     (:func:`pad_rhs_bucket`), as ``bench.py`` does; None (the default)
-    leaves the stacks as they are.  Returns the combined (uncompressed)
-    result in ``problem_pc``'s basis, its modes on ``device``."""
-    common = dict(tol=0.0, solver=solver, cg_iters=cg_iters,
-                  residual_check=False, dtype=dtype, device=device)
+    leaves the stacks as they are.  ``rhs_f64`` / ``rhs_comp``: every
+    stage keeps its rhs stack in f64 / compensated double-f32 on the device
+    (:class:`SeparatedPGD`); ``rhs_comp_from``: ``rhs_comp`` from this
+    1-based stage on (the early stages are not cancellation-bound).
+    Returns the combined (uncompressed) result in ``problem_pc``'s basis,
+    its modes on ``device``."""
+    def common(si):
+        comp = rhs_comp or (rhs_comp_from is not None and si >= rhs_comp_from)
+        return dict(tol=0.0, solver=solver, cg_iters=cg_iters, residual_check=False,
+                    dtype=dtype, rhs_f64=rhs_f64, rhs_comp=comp, device=device)
+
     res = SeparatedPGD(problem_pc, n_max=budgets[0], tol_fp=tol_fp,
-                       max_fp_it=40, **common).solve_fused()
+                       max_fp_it=40, **common(1)).solve_fused()
     for si, b in enumerate(budgets[1:], start=2):
         prob_s = (stage_problems or {}).get(si, problem_pc)
         sep_res, s_res = residual_problem(prob_s, res)
         if rhs_bucket:
             sep_res = pad_rhs_bucket(sep_res, rhs_bucket)
         delta = SeparatedPGD(sep_res, n_max=b, tol_fp=1e-5, max_fp_it=8,
-                             **common).solve_fused()
+                             **common(si)).solve_fused()
         res = combine_results(res, delta, s_res)
     return res
 
@@ -462,6 +474,28 @@ def frontier_setup(num_params, boost, *, n_x=1024, n_p=128):
     )
 
 
+def frontier_anova_start(num_params, tf, *, order=2, n_x=1024, n_p=128, tol_pair=2e-7,
+                         log=None):
+    """The frontier's anchored-ANOVA start (:func:`highd_frontier`'s
+    ``anova_order``): :func:`~pgdrome_tpu_torch.anova.anova_init` of the
+    nodal build with its dim-0 factors in the basis of ``tf`` (the base
+    build's transform), through
+    :func:`~pgdrome_tpu_torch.utils.setup_cache.cached_setup` under its own
+    key (off unless ``$PGDROME_SETUP_CACHE`` is set).  Returns
+    ``((init_result, report), status)``."""
+    from pgdrome_tpu_torch.anova import anova_init
+    from pgdrome_tpu_torch.models.problems import parametric_elliptic
+    from pgdrome_tpu_torch.utils.setup_cache import cached_setup
+
+    def _build():
+        sep_nodal, _ = parametric_elliptic(n_x=n_x, n_p=n_p, num_params=num_params, degree_x=2)
+        return anova_init(sep_nodal, order=order, tf=tf, tol_pair=tol_pair, log=log)
+
+    return cached_setup(
+        _build, key_data=["torch_anova_init_v1", n_x, n_p, num_params, order, tol_pair],
+        code_objects=(anova_init, parametric_elliptic))
+
+
 def frontier_spaces(num_params, *, n_x=1024, n_p=128):
     """The frontier's spaces: P2 on ``n_x`` cells, then ``num_params`` P1
     parameter spaces on ``n_p`` cells, all on [0, 1]."""
@@ -621,22 +655,9 @@ def highd_frontier(num_params, *, bound=1e-6, n_x=1024, n_p=128,
         # the anchored-ANOVA start: the near-additive solution's axis and
         # pair structure built exactly, so the cascade enriches only the
         # interaction remainder
-        from pgdrome_tpu_torch.anova import anova_init
-        from pgdrome_tpu_torch.models.problems import parametric_elliptic
-        from pgdrome_tpu_torch.utils.setup_cache import cached_setup
-
-        def _build_anova():
-            sep_nodal, _ = parametric_elliptic(n_x=n_x, n_p=n_p, num_params=num_params,
-                                               degree_x=2)
-            return anova_init(sep_nodal, order=anova_order, tf=tf,
-                              tol_pair=anova_tol_pair, log=say)
-
-        (init_result, anova_report), status = cached_setup(
-            _build_anova,
-            key_data=["torch_anova_init_v1", n_x, n_p, num_params, anova_order,
-                      anova_tol_pair],
-            code_objects=(anova_init, parametric_elliptic),
-        )
+        (init_result, anova_report), status = frontier_anova_start(
+            num_params, tf, order=anova_order, n_x=n_x, n_p=n_p, tol_pair=anova_tol_pair,
+            log=say)
         say(f"anova init cache {status}: order {anova_order} "
             f"rank {init_result.n_modes}")
 
@@ -939,3 +960,376 @@ def transient_verification_set(grid, num_params, *, n_random=16, seeds=(7, 101))
         rng = np.random.default_rng(seed)
         pts.append(grid[rng.integers(1, len(grid) - 1, size=(n_random, num_params))])
     return np.concatenate(pts)
+
+
+def transient_goal_oriented(sensors_x, *, n_x=256, n_t=96, n_p=48, num_params=3,
+                            bound=1e-6, primal_stages=(96, 64), dual_stage1=48,
+                            dual_budget=48, max_dual_stages=6, n_random=16,
+                            seeds=(7, 101), tol_fp=1e-7, max_fp_it=50,
+                            dtype=np.float32, log=None, artifact_path=None,
+                            device="cuda"):
+    """Goal-oriented output certification for the operator-parametric
+    transient family, the transient companion of :func:`goal_oriented_frontier`.
+
+    :func:`~pgdrome_tpu_torch.models.problems.transient_parametric_conductivity`
+    puts the parameters in the operator, so the exact closed form of
+    :func:`~pgdrome_tpu_torch.dual.rhs_parametric_qoi` does not apply and
+    the field goes through the f32 minres floor.  The primal is
+    :func:`two_stage_minres` over ``primal_stages``; the truth is the exact
+    space-time FOM at :func:`transient_verification_set`'s points; then per
+    sensor (x0, final time) a backward-in-time adjoint minres cascade
+    (:func:`~pgdrome_tpu_torch.dual.adjoint_problem_nd`: the upwind stencil
+    transposes to downwind) runs until its corrected outputs are within
+    ``bound`` of the FOM's, each stage verified by the space-time
+    :class:`~pgdrome_tpu_torch.dual.DualCorrector` (``n_fixed=2``).  The
+    solves run on ``device``.
+
+    Returns ``(duals, report)``; the report carries per-sensor histories
+    (``corrected_best`` the returned dual's error, ``corrected_last`` the
+    last stage's) and the primal's field error for contrast, and is written
+    to ``artifact_path`` when given."""
+    from pgdrome_tpu_torch.models.problems import (transient_conductivity_fom,
+                                                   transient_parametric_conductivity)
+    from pgdrome_tpu_torch.separated import evaluate_modes_1d
+
+    say = log or (lambda *a: None)
+    device = get_device(device)
+    t0_run = time.perf_counter()
+    sep, Vs = transient_parametric_conductivity(n_x=n_x, n_t=n_t, n_p=n_p,
+                                                num_params=num_params)
+    fom = transient_conductivity_fom(sep, Vs)
+    pts = transient_verification_set(Vs[2].tabulate_dof_coordinates()[:, 0], num_params,
+                                      n_random=n_random, seeds=seeds)
+
+    say(f"primal minres stages {primal_stages} ...")
+    t0 = time.perf_counter()
+    res_u = two_stage_minres(sep, n_stage1=primal_stages[0],
+                             n_stage2=primal_stages[1] if len(primal_stages) > 1 else 0,
+                             extra_stages=tuple(primal_stages[2:]), tol_fp=tol_fp,
+                             max_fp_it=max_fp_it, dtype=dtype, device=device)
+    t_primal = time.perf_counter() - t0
+
+    # one space-time solve a point serves every sensor and every stage
+    say(f"FOM truth sweep: {len(pts)} space-time solves ...")
+    t0 = time.perf_counter()
+    U_true = [fom(p) for p in pts]
+    t_fom = time.perf_counter() - t0
+    # the primal's field error, the floor the outputs must beat
+    K = res_u.n_modes
+    fu = np.ones((len(pts), K))
+    for j in range(num_params):
+        m = torch.as_tensor(res_u.modes[2 + j]).detach().cpu()
+        fu *= host_f64(evaluate_modes_1d(Vs[2 + j], m, torch.as_tensor(pts[:, j])))[:, :K]
+    m0, m1 = host_f64(res_u.modes[0])[:K], host_f64(res_u.modes[1])[:K]
+    field_err = max(
+        float(np.linalg.norm(np.einsum("k,ki,kj->ij", fu[s], m0, m1) - U_true[s])
+              / np.linalg.norm(U_true[s])) for s in range(len(pts)))
+    say(f"primal rank {K}: field err {field_err:.2e} ({t_primal:.1f}s solve, "
+        f"{t_fom:.1f}s FOM truth)")
+
+    duals, sensor_reports = _transient_sensor_duals(
+        sep, Vs, res_u, pts, U_true, sensors_x, bound=bound, dual_stage1=dual_stage1,
+        dual_budget=dual_budget, max_dual_stages=max_dual_stages, tol_fp=tol_fp,
+        max_fp_it=max_fp_it, dtype=dtype, log=say, device=device)
+    report = {
+        "family": "transient_parametric_conductivity",
+        "n_x": n_x, "n_t": n_t, "n_p": n_p, "num_params": num_params,
+        "bound_target": float(bound),
+        "primal_rank": int(K),
+        "primal_field_rel_max": field_err,
+        "n_verify": int(len(pts)),
+        "sensors": sensor_reports,
+        "max_corrected": max(s["corrected_best"] for s in sensor_reports),
+        "wall_s": round(time.perf_counter() - t0_run, 1),
+    }
+    if artifact_path:
+        with open(artifact_path, "w") as f:
+            json.dump(report, f, indent=1)
+    return duals, report
+
+
+def _transient_sensor_duals(sep, Vs, res_u, pts, U_true, sensors_x, *, bound,
+                            dual_stage1, dual_budget, max_dual_stages, tol_fp, max_fp_it,
+                            dtype, log, device):
+    """The per-sensor half of :func:`transient_goal_oriented` on a trained
+    nodal primal ``res_u`` and its space-time FOM fields ``U_true`` (one
+    (n_x, n_t) array a point of ``pts``): per sensor x0 an
+    :func:`adaptive_minres` cascade on the adjoint of the point-at-final-
+    time functional, verified by the corrected outputs' max error against
+    the FOM relative to the outputs' scale.  Returns ``(duals,
+    sensor_reports)``."""
+    from pgdrome_tpu_torch.dual import DualCorrector, adjoint_problem_nd
+
+    x_dofs = Vs[0].tabulate_dof_coordinates()[:, 0]
+    l_t = np.zeros(Vs[1].dim())
+    l_t[-1] = 1.0
+    duals, reports = [], []
+    for x0 in np.atleast_1d(sensors_x):
+        ix0 = int(np.argmin(np.abs(x_dofs - x0)))
+        l_x = np.zeros(Vs[0].dim())
+        l_x[ix0] = 1.0
+        s_true = np.array([U[ix0, -1] for U in U_true])
+        s_scale = float(np.abs(s_true).max())
+        adj = adjoint_problem_nd(sep, [l_x, l_t], n_fixed=2)
+        cache, errs = {}, []
+
+        def verify(res_zg, _cache=cache, _s_true=s_true, _l_x=l_x, _errs=errs,
+                   _scale=s_scale):
+            dc = DualCorrector(sep, Vs, None, res_u, None, res_zg, None, n_fixed=2,
+                               l_factors=[_l_x, l_t], cache=_cache)
+            err = float(np.abs(dc.corrected(pts) - _s_true).max() / _scale)
+            _errs.append(err)
+            return err
+
+        t0 = time.perf_counter()
+        res_z, hist = adaptive_minres(adj, verify, bound=bound, n_stage1=dual_stage1,
+                                      stage_budget=dual_budget, max_stages=max_dual_stages,
+                                      tol_fp=tol_fp, max_fp_it=max_fp_it, dtype=dtype,
+                                      log=log, device=device)
+        duals.append(res_z)
+        reports.append({
+            "x0": float(x_dofs[ix0]),
+            "dual_rank": int(res_z.n_modes),
+            # adaptive_minres returns the best stage: the headline error is
+            # its; the last stage's stays as an audit field
+            "corrected_best": float(min(errs) if errs else np.inf),
+            "corrected_last": float(errs[-1] if errs else np.inf),
+            "history": [{k: h[k] for k in ("stage", "rank", "max", "stage_s")}
+                        for h in hist],
+            "wall_s": round(time.perf_counter() - t0, 1),
+        })
+        log(f"sensor x0={x_dofs[ix0]:.3f}: corrected {reports[-1]['corrected_best']:.2e} "
+            f"at dual rank {res_z.n_modes}")
+    return duals, reports
+
+
+class _CubeRhs:
+    """The outer Picard's rhs for :func:`nonlinear_vademecum`: the
+    preconditioned linear problem ``sep_pc`` (``tf`` its dim-0 transform)
+    with the stack [b, −ε·M_L u³], u³ of an iterate compressed on the host
+    in f64 (:meth:`problem`)."""
+
+    def __init__(self, sep, ml, eps, cube_rank, cube_tol, rhs_bucket):
+        self.num_params = sep.num_dims - 1
+        if self.num_params not in (2, 3):
+            raise ValueError("nonlinear_vademecum takes 2 or 3 parameters: the cube "
+                             "tensor holds n_x·n_p^d entries")
+        self.sep_pc, self.tf = precondition_dim0(sep, dtype=np.float64)
+        self.ml, self.eps = np.asarray(ml, dtype=np.float64), eps
+        self.cube_rank, self.rhs_bucket = cube_rank, rhs_bucket
+        self.mask0 = host_f64(sep.bc_masks[0])
+        # collocation weights (a boost ω included, so a re-weighted measure
+        # keeps the per-grid-point cancellation for the cube rows too)
+        self.w_p = [np.diagonal(host_f64(sep.ops[1 + j])[0]) for j in range(self.num_params)]
+        self.base_rhs = [host_f64(r) for r in self.sep_pc.rhs]
+        self.cut = cube_tol * max(float(np.linalg.norm(self.base_rhs[0][0])), 1.0)
+
+    def terms(self, res):
+        """CP factors ``(xs, ps)`` of u³ on the collocation grid: a randomized
+        range finder on the x-unfolding (:mod:`.anova`'s scheme), then SVDs of
+        each component's parameter tensor, truncated at ``cut``."""
+        from pgdrome_tpu_torch.anova import _rand_range_svd
+
+        K, n_par, cut = res.n_modes, self.num_params, self.cut
+        full0 = self.tf.modes_to_full(host_f64(res.modes[0])[:K])
+        Ps = [host_f64(res.modes[1 + j])[:K] for j in range(n_par)]
+        if n_par == 2:
+            U = np.einsum("kx,ka,kb->xab", full0, Ps[0], Ps[1])
+        else:
+            U = np.einsum("kx,ka,kb,kc->xabc", full0, Ps[0], Ps[1], Ps[2])
+        X, s, Vt = _rand_range_svd((U ** 3).reshape(U.shape[0], -1).T, self.cube_rank)
+        xs, ps = [], []
+        shape_p = U.shape[1:]
+        for r in range(int(np.sum(s > cut))):
+            W = Vt[r].reshape(shape_p)
+            if n_par == 2:
+                Uw, sw, Vtw = np.linalg.svd(W, full_matrices=False)
+                for q in range(sw.size):
+                    if s[r] * sw[q] <= cut:
+                        break
+                    xs.append(X[:, r] * (s[r] * sw[q]))
+                    ps.append([Uw[:, q], Vtw[q]])
+            else:  # sequential SVD of the remaining unfolding
+                Uw, sw, Vtw = np.linalg.svd(W.reshape(shape_p[0], -1), full_matrices=False)
+                for q in range(sw.size):
+                    if s[r] * sw[q] <= cut:
+                        break
+                    U2, s2, V2 = np.linalg.svd(Vtw[q].reshape(shape_p[1], shape_p[2]),
+                                               full_matrices=False)
+                    for m in range(s2.size):
+                        if s[r] * sw[q] * s2[m] <= cut:
+                            break
+                        xs.append(X[:, r] * (s[r] * sw[q] * s2[m]))
+                        ps.append([Uw[:, q], U2[:, m], V2[m]])
+        return xs, ps
+
+    def problem(self, res=None):
+        """``(problem, n_cube)``: the host f64 problem of the outer iteration
+        after ``res`` (the plain one before the first), its rhs stack padded
+        to a multiple of ``rhs_bucket``, and its count of cube rows."""
+        if res is None:
+            return pad_rhs_bucket(self.sep_pc, self.rhs_bucket), 0
+        xs, ps = self.terms(res)
+        tf, n_par = self.tf, self.num_params
+        rows0 = [self.base_rhs[0][0]]
+        rows_p = [[self.base_rhs[1 + j][0]] for j in range(n_par)]
+        for x, p in zip(xs, ps):
+            v = (-self.eps * self.ml * x) * self.mask0
+            rows0.append(tf.apply_Linv(v[tf.interior][:, None])[:, 0])
+            for j in range(n_par):
+                rows_p[j].append(self.w_p[j] * p[j])
+        sp = self.sep_pc
+        prob = SeparatedProblem(ops=list(sp.ops),
+                                rhs=[np.stack(rows0)] + [np.stack(r) for r in rows_p],
+                                mass=list(sp.mass), bc_dofs=list(sp.bc_dofs))
+        return pad_rhs_bucket(prob, self.rhs_bucket), len(xs)
+
+
+def _drop_repeated_modes(res, tol=1e-12):
+    """``(result, n_dropped)``: ``res`` without the modes whose rank-1 term
+    repeats an earlier one's up to sign and scale (product-space
+    |cos| > 1 − ``tol``), the rest in order (buffers of the same kind,
+    dtype and length).  An f32 fixed point at its amplitude floor can
+    cycle: subtracting a mode of amplitude ~1e-9 leaves the f32 rhs as it
+    was, and the next enrichments return the same terms again, their
+    factors sign-flipped or rescaled.  Such a repeat adds nothing to the
+    span, and kept, it makes the Galerkin Gram singular (the update's
+    coefficients then reach 1e17 and cancel)."""
+    K = res.n_modes
+    cos = np.ones((K, K))
+    for m in res.modes:
+        u = host_f64(m)[:K]
+        u = u / np.maximum(np.linalg.norm(u, axis=1, keepdims=True), 1e-300)
+        cos = cos * (u @ u.T)
+    keep = [i for i in range(K) if not (np.abs(cos[i, :i]) > 1.0 - tol).any()]
+    n = len(keep)
+    if n == K:
+        return res, 0
+
+    def pick(m):
+        idx = torch.as_tensor(keep, device=m.device) if isinstance(m, torch.Tensor) else keep
+        out = m.clone() if isinstance(m, torch.Tensor) else np.array(m)
+        out[:n] = m[idx]
+        out[n:K] = 0
+        return out
+
+    return PGDResult(modes=[pick(m) for m in res.modes], n_modes=n,
+                     amplitudes=np.asarray(res.amplitudes)[keep],
+                     alpha=np.asarray(res.alpha)[keep], fp_its=np.asarray(res.fp_its)[keep],
+                     normU0=res.normU0), K - n
+
+
+def _rel_change(res_a, res_b):
+    """‖u_a − u_b‖ / ‖u_b‖ in product-space L2 by separated Grams."""
+    def grams(r1, r2):
+        G = np.ones((r1.n_modes, r2.n_modes))
+        for m1, m2 in zip(r1.modes, r2.modes):
+            G = G * (host_f64(m1)[: r1.n_modes] @ host_f64(m2)[: r2.n_modes].T)
+        return G.sum()
+
+    naa, nbb, nab = grams(res_a, res_a), grams(res_b, res_b), grams(res_a, res_b)
+    return float(np.sqrt(max(naa - 2 * nab + nbb, 0.0)) / np.sqrt(max(nbb, 1e-300)))
+
+
+def state_conditioning(res, spaces, tf, samples):
+    """How a trained result's sum of rank-1 terms meets f32 serving, in
+    host f64 at ``samples`` (B, d−1) (``tf``: the dim-0 transform or None):
+
+    - ``cancellation_max`` / ``_median``: Σ_k |F_k(p)|·‖m0_k‖ / ‖u(p)‖ over
+      the samples, 1 for a sum without cancellation; an f32 sum's error
+      grows with it;
+    - ``alpha_max``: the largest coefficient of a unit-norm term,
+      Π_d ‖m_d[k]‖ (dim 0 nodal);
+    - ``gram_cond``: the condition number of the unit-norm terms'
+      product-space Gram (the Galerkin update's system, up to the metric)."""
+    from pgdrome_tpu_torch.separated import evaluate_modes_1d
+
+    K = res.n_modes
+    m0 = host_f64(res.modes[0])[:K]
+    units = [m0 if tf is None else tf.modes_to_full(m0)]
+    units += [host_f64(m)[:K] for m in res.modes[1:]]
+    F = np.ones((len(samples), K))
+    for j, m in enumerate(units[1:]):
+        F *= host_f64(evaluate_modes_1d(spaces[1 + j], torch.as_tensor(m),
+                                        torch.as_tensor(np.asarray(samples)[:, j])))[:, :K]
+    kappa = (np.abs(F) @ np.linalg.norm(units[0], axis=1)) / np.linalg.norm(F @ units[0], axis=1)
+    alpha, G = np.ones(K), np.ones((K, K))
+    for u in units:
+        n = np.linalg.norm(u, axis=1)
+        alpha *= n
+        v = u / n[:, None]
+        G *= v @ v.T
+    return {"cancellation_max": float(kappa.max()),
+            "cancellation_median": float(np.median(kappa)),
+            "alpha_max": float(alpha.max()), "gram_cond": float(np.linalg.cond(G))}
+
+
+def nonlinear_vademecum(sep, Vs, ml, eps, *, n_outer=12, picard_tol=1e-8, cube_rank=40,
+                        cube_tol=1e-10, budgets=(64, 48, 48), rhs_bucket=512,
+                        rhs_comp_last=True, tol_fp=1e-7, dtype=np.float32, log=None,
+                        device="cuda"):
+    """Nonlinear parametric vademecum by outer Picard on
+    −∇·(κ(x; p)∇u) + ε·u³ = f (:func:`~pgdrome_tpu_torch.models.problems.nonlinear_elliptic`).
+
+    Each outer iteration is linear separated algebra:
+
+    1. evaluate the current iterate on the full collocation grid (host f64
+       mode contraction);
+    2. cube it pointwise and compress it (:class:`_CubeRhs`) to at most
+       ``cube_rank`` rhs terms, truncated at ``cube_tol``·max(‖b‖, 1);
+    3. re-solve the same preconditioned operators with the extended rhs
+       stack [b, −ε·M_L u³] through :func:`residual_cascade` and a Galerkin
+       update (the operator stacks never change).
+
+    The loop stops when the iterate moves less than ``picard_tol`` in
+    relative product-space L2 ("converged"), when after the second outer
+    iteration it moved more than half as far as the one before
+    ("stalled": the JAX package's rule, which a slowly converging iteration
+    also trips), or after ``n_outer`` ("n_outer").  ``rhs_comp_last``:
+    from the third outer iteration on, contract the rhs stacks in
+    compensated double-f32 (the cube rows cancel against b near the fixed
+    point; not in f64).  The solves run on ``device``.
+
+    Returns ``(result_pc, tf, report)``; verify with
+    :func:`~pgdrome_tpu_torch.models.problems.nonlinear_dense_verifier`.
+    The report's ``"stop"`` names the rule that ended the loop, and each
+    outer iteration's entry its fixed-point sweeps (``"fp_sweeps"``) and
+    the modes dropped before its Galerkin update for repeating an earlier
+    one up to sign and scale (``"repeated_modes"``,
+    :func:`_drop_repeated_modes`)."""
+    say = log or (lambda *a: None)
+    device = get_device(device)
+    t0_run = time.perf_counter()
+    rhs = _CubeRhs(sep, ml, eps, cube_rank, cube_tol, rhs_bucket)
+    res, history, stop = None, [], "n_outer"
+    for it in range(n_outer):
+        t0 = time.perf_counter()
+        prob_it, n_cube = rhs.problem(res)
+        comp = rhs_comp_last and it >= 2 and np.dtype(dtype) != np.float64
+        new = residual_cascade(prob_it, budgets, tol_fp=tol_fp, dtype=dtype, rhs_comp=comp,
+                               device=device)
+        new, n_rep = _drop_repeated_modes(new)
+        new = galerkin_update(prob_it, new)
+        delta = _rel_change(new, res) if res is not None else np.inf
+        history.append({"outer": it + 1, "rank": int(new.n_modes), "cube_terms": int(n_cube),
+                        "rel_change": float(delta), "rhs_comp": bool(comp),
+                        "fp_sweeps": int(np.sum(new.fp_its)), "repeated_modes": n_rep,
+                        "outer_s": round(time.perf_counter() - t0, 2)})
+        say(f"picard {it + 1}: rank {new.n_modes} cube {n_cube} moved {delta:.2e}"
+            + (" [dd]" if comp else ""))
+        prev = history[-2]["rel_change"] if len(history) > 1 else np.inf
+        res = new
+        if delta < picard_tol:
+            stop = "converged"
+            break
+        if it >= 2 and delta > 0.5 * prev:
+            # the contraction stopped being visible: the JAX package reads
+            # this as the solve-noise floor, though a slow contraction
+            # (rate above 1/2) trips it as well
+            stop = "stalled"
+            say(f"picard stalled at {delta:.2e}; stopping")
+            break
+    report = {"eps": float(eps), "num_params": rhs.num_params,
+              "outer_iterations": len(history), "history": history, "stop": stop,
+              "rank": int(res.n_modes), "wall_s": round(time.perf_counter() - t0_run, 1)}
+    return res, rhs.tf, report

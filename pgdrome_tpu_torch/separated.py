@@ -10,7 +10,8 @@
   back to full dofs.
 * :class:`SeparatedPGD` runs the enrichment on the device: the alternating
   fixed point of :func:`make_enrich_step` (per-dim Gram contractions and a
-  linear solve: LU, fixed-iteration CG or Cholesky), the reference's
+  solve: LU, fixed-iteration CG, Cholesky or Newton, with an optional
+  separable nonlinear term), the reference's
   'norm' stop and 'stiff' normalisation, host-looped (:meth:`solve`) or
   with a fixed budget and a device keep-mask (:meth:`solve_fused`).  The
   rhs stacks may stay in f64 or in compensated double-f32 on the device
@@ -42,6 +43,7 @@ import torch
 
 from pgdrome_tpu_torch.config import get_device, use_full_f32_matmul
 from pgdrome_tpu_torch.ops import ddf32
+from pgdrome_tpu_torch.ops.solvers import newton_solve
 
 # every einsum/matmul of the enrichment must be true f32 (TF32 would cost
 # about three digits and floor the greedy far above the 1e-6 gate)
@@ -403,9 +405,25 @@ def _previous_modes(problem, k, Fs, modes, mode_mask):
 
 
 def _solve_dim(problem, k, Fs, modes, mode_mask, solver="lu", cg_iters=30,
-               dd_weights=None):
+               dd_weights=None, nonlinear=None, newton_max_it=25):
     """One alternating-direction solve for dim k given the current factors
-    ``Fs`` and the padded previous-mode buffers."""
+    ``Fs`` and the padded previous-mode buffers.
+
+    ``solver="newton"`` solves the dim's system by Newton on its residual
+    (:func:`~pgdrome_tpu_torch.ops.solvers.newton_solve`, at most
+    ``newton_max_it`` masked steps) from the linear solve as the warm
+    start: for a linear problem it stops at once, and the amplitudes are
+    those of ``"lu"``.
+
+    ``nonlinear``: an optional separable nonlinear term N(u) = ⊗_d N_d,
+    one ``(apply_fn, weight_fn)`` pair a dim: ``apply_fn(u)`` the dim's
+    nonlinear operator on the factor being solved (e.g. ``lambda u: M @
+    u**3``), ``weight_fn(F)`` its scalar weight when the dim is not, with
+    ``weight_d(F) = F · apply_d(F)`` (scalar prefactors in both).  The
+    dim-k residual gains (Π_{j≠k} weight_j(F_j)) · N_k(u).  With a linear
+    solver the term is lagged at the incoming factor and moved to the rhs
+    (Picard: the fixed point itself iterates it); with ``"newton"`` it is
+    solved for."""
     nd = problem.num_dims
     coef = torch.ones(problem.num_terms, dtype=Fs[k].dtype, device=Fs[k].device)
     for j in range(nd):
@@ -418,6 +436,29 @@ def _solve_dim(problem, k, Fs, modes, mode_mask, solver="lu", cg_iters=30,
     b = (_contract_rhs(problem.rhs, Fs, k, nd, dd_weights).to(Fs[k].dtype)
          - _previous_modes(problem, k, Fs, modes, mode_mask))
     A_k, b = _apply_bc_system(A_k, b, problem.bc_masks[k])
+    if nonlinear is not None:
+        mask = problem.bc_masks[k]
+        theta = torch.ones((), dtype=Fs[k].dtype, device=Fs[k].device)
+        for j in range(nd):
+            if j != k:
+                theta = theta * nonlinear[j][1](Fs[j])
+        if solver != "newton":
+            b = b - theta * (mask * nonlinear[k][0](Fs[k]))
+    if solver == "newton":
+        if nonlinear is not None:
+            apply_k = nonlinear[k][0]
+
+            def residual(u):
+                # the bc rows of (A_k, b) are identity and zero: mask the
+                # nonlinear rows to match
+                return A_k @ u - b + theta * (mask * apply_k(u))
+        else:
+
+            def residual(u):
+                return A_k @ u - b
+
+        u0 = torch.linalg.solve_ex(A_k, b)[0]
+        return newton_solve(residual, u0, max_iter=newton_max_it)[0]
     if solver == "cg":
         return _cg_solve(A_k, b, cg_iters)
     if solver == "chol":
@@ -436,7 +477,8 @@ def _inner_d(problem, d, u, v):
 
 
 def make_enrich_step(problem: SeparatedProblem, max_fp_it=50, tol_fp=1e-5,
-                     solver="lu", cg_iters=30, residual_check=True, renorm_sweep=False):
+                     solver="lu", cg_iters=30, residual_check=True, renorm_sweep=False,
+                     nonlinear=None, newton_max_it=25):
     """The enrichment step on a device problem: ``enrich(modes, n_modes,
     init=None) → (new_modes, normU, alpha, fp_its, res)`` — the reference's
     FP_solve with the 'norm' stop and 'stiff' normalisation
@@ -449,7 +491,8 @@ def make_enrich_step(problem: SeparatedProblem, max_fp_it=50, tol_fp=1e-5,
     factor to unit Euclidean norm (and start from unit-norm factors), so
     every Gram coefficient stays O(1) — in f32 the minres transient's mode
     is ~1e-6 of its rhs, and its unnormalised Grams fall below the noise
-    floor; the 'norm' stop is then relative to the iterate's norm."""
+    floor; the 'norm' stop is then relative to the iterate's norm.
+    ``nonlinear``, ``newton_max_it``: see :func:`_solve_dim`."""
     nd = problem.num_dims
     P = problem
 
@@ -478,7 +521,8 @@ def make_enrich_step(problem: SeparatedProblem, max_fp_it=50, tol_fp=1e-5,
         Fs = list(Fs)
         for k in range(nd):
             Fs[k] = _solve_dim(P, k, Fs, modes, mode_mask, solver=solver,
-                               cg_iters=cg_iters, dd_weights=dd_weights)
+                               cg_iters=cg_iters, dd_weights=dd_weights,
+                               nonlinear=nonlinear, newton_max_it=newton_max_it)
             if renorm_sweep and k < nd - 1:
                 # Euclidean on purpose: the Gram coefficients are plain
                 # products with the O(1) operators, while a transformed
@@ -557,8 +601,12 @@ class SeparatedPGD:
 
     ``solver``: the per-dim linear solve — ``"lu"`` (unchecked
     ``torch.linalg.solve_ex``), ``"cg"`` (fixed-iteration scale-normalised
-    CG, for energy-preconditioned systems) or ``"chol"`` (exact SPD
-    Cholesky).  ``dtype``: the device dtype (numpy or torch; None keeps the
+    CG, for energy-preconditioned systems), ``"chol"`` (exact SPD
+    Cholesky) or ``"newton"`` (Newton on the dim's residual, at most
+    ``newton_max_it`` steps).  ``nonlinear``: a separable nonlinear term,
+    one ``(apply_fn, weight_fn)`` pair a dim on the device (see
+    :func:`_solve_dim`): lagged (Picard) with a linear solver, solved for
+    with ``"newton"``.  ``dtype``: the device dtype (numpy or torch; None keeps the
     problem's).  ``fp_init``: ``"ones"``, ``"randomized"`` (the reference's
     get_Fsinit, seeded per mode) or ``fn(mode, sizes) → per-dim vectors``.
     A mode whose fixed point collapses (normU → 0/NaN) is retried
@@ -581,10 +629,10 @@ class SeparatedPGD:
                  residual_check: bool = True, fp_init="ones",
                  stall_retries: int = 1, rhs_f64: bool = False,
                  rhs_comp: bool = False, renorm_sweep: bool = False,
-                 device="cuda"):
-        if solver not in ("lu", "cg", "chol"):
+                 nonlinear=None, newton_max_it: int = 25, device="cuda"):
+        if solver not in ("lu", "cg", "chol", "newton"):
             raise ValueError(
-                f"unknown solver {solver!r}: expected 'lu', 'cg' or 'chol'"
+                f"unknown solver {solver!r}: expected 'lu', 'cg', 'chol' or 'newton'"
             )
         if not callable(fp_init) and fp_init not in ("ones", "randomized"):
             raise ValueError(
@@ -621,6 +669,7 @@ class SeparatedPGD:
         self._enrich = make_enrich_step(
             self.problem, max_fp_it=max_fp_it, tol_fp=tol_fp, solver=solver,
             cg_iters=cg_iters, residual_check=residual_check, renorm_sweep=renorm_sweep,
+            nonlinear=nonlinear, newton_max_it=newton_max_it,
         )
 
     def _random_init(self, n, attempt):

@@ -267,6 +267,28 @@ def test_guaranteed_field_bound(solved, bounds):
         TC.guaranteed_field_bound(s["sep"], s["Vs"], s["t"], device="cpu")
 
 
+def test_guaranteed_field_bound_given_residuals(solved, bounds):
+    # residuals already swept by the bound's own indicator give the same
+    # bounds bit for bit, without a second dd sweep
+    (t_nodal, _), _, _ = bounds
+    samples = solved["samples"]
+    again = t_nodal(samples, residuals=t_nodal.indicator(samples))
+    for key, v in t_nodal(samples).items():
+        np.testing.assert_array_equal(again[key], v)
+
+
+def test_calibrate_given_residuals(solved, bounds):
+    # the indicator's residuals handed to calibrate give the same η and
+    # calibration record as calibrate's own sweep
+    (t_nodal, _), _, _ = bounds
+    samples = solved["samples"]
+    errors = np.linspace(1e-7, 2e-7, len(samples))
+    a, b = TC.Certifier(t_nodal.indicator), TC.Certifier(t_nodal.indicator)
+    assert a.calibrate(samples, errors) == b.calibrate(
+        samples, errors, residuals=t_nodal.indicator(samples))
+    assert a.cal_res_range == b.cal_res_range and np.array_equal(a.cal_box, b.cal_box)
+
+
 def _broken(sep, dim, how):
     ops = [np.array(o) for o in sep.ops]
     if how == "negative":

@@ -771,3 +771,99 @@ def test_fit_and_mcmc_on_card_vs_f64(cuda):
     assert c32.is_cuda and torch.equal(a32.cpu(), a64)
     assert 0 < int(a64.sum()) < n_steps * C
     np.testing.assert_allclose(c32.cpu().double().numpy(), c64.numpy(), atol=1e-5)
+
+
+# ------------------------------------------- the nonlinear family, outputs
+
+def _cubic_hooks(Vs, dtype, device, eps=5.0):
+    """The separable cubic term ε·M_L u³ ⊗ M_L p³ of −u'' + ε·u³ = f, lumped
+    masses, as ``SeparatedPGD(nonlinear=...)`` hooks on ``device``."""
+    from pgdrome_tpu_torch.fem.assembly import mass_matrix
+
+    Mx, Mp = (torch.as_tensor(np.diag(mass_matrix(V).sum(axis=1)), dtype=dtype, device=device)
+              for V in Vs)
+    return ((lambda u: eps * (Mx @ u ** 3), lambda F: F @ (eps * (Mx @ F ** 3))),
+            (lambda u: Mp @ u ** 3, lambda F: F @ (Mp @ F ** 3)))
+
+
+def test_newton_f32_on_card_vs_f64(cuda):
+    # the Newton per-dim solves with a cubic hook, 30 sweeps a mode, f32 on
+    # the card against f64 on the CPU: the reconstructions within 1e-4 (a
+    # CPU's f32 run of the same solve gives 3.3e-5: the un-preconditioned
+    # f32 per-dim systems)
+    from pgdrome_tpu_torch.models.problems import parametric_elliptic
+    from pgdrome_tpu_torch.separated import SeparatedPGD, host_f64
+
+    sep, Vs = parametric_elliptic(n_x=32, n_p=8, num_params=1)
+    kw = dict(n_max=3, tol=0.0, tol_fp=0.0, max_fp_it=30, solver="newton",
+              residual_check=False)
+    r32 = SeparatedPGD(sep, nonlinear=_cubic_hooks(Vs, torch.float32, cuda), dtype=np.float32,
+                       device=cuda, **kw).solve()
+    r64 = SeparatedPGD(sep, nonlinear=_cubic_hooks(Vs, torch.float64, "cpu"),
+                       dtype=np.float64, device="cpu", **kw).solve()
+    assert r32.modes[0].is_cuda and r32.n_modes == r64.n_modes == 3
+
+    def full(r):
+        return host_f64(r.modes[0])[: r.n_modes].T @ host_f64(r.modes[1])[: r.n_modes]
+
+    assert np.abs(full(r32) - full(r64)).max() <= 1e-4 * np.abs(full(r64)).max()
+
+
+def test_nonlinear_vademecum_served_by_kernel(cuda):
+    # a toy nonlinear vademecum trained on the card (dd stacks from outer
+    # 3), served through the field wiring within 2γ_c of the plain version
+    # (c = K + 4·NP) and under 1e-6 of the Newton truth
+    from pgdrome_tpu_torch.models.problems import nonlinear_dense_verifier, nonlinear_elliptic
+    from pgdrome_tpu_torch.recipes import nonlinear_vademecum
+    from pgdrome_tpu_torch.serving import Vademecum
+
+    sep, Vs, ml = nonlinear_elliptic(n_x=32, n_p=8, num_params=2)
+    res, tf, rep = nonlinear_vademecum(sep, Vs, ml, 2.0, budgets=(16, 8, 8), rhs_bucket=64,
+                                       n_outer=4, device=cuda)
+    assert res.modes[0].is_cuda and [h["rhs_comp"] for h in rep["history"]][2:] == [True] * (
+        rep["outer_iterations"] - 2)
+    vd = Vademecum(Vs, res, dim0_transform=tf, method="fused", device=cuda)
+    ver = nonlinear_dense_verifier(Vs, 2.0, ml, tf, n_random=4, seeds=(7,), n_edge=2)
+    samples = np.concatenate(list(ver.samples.values())).astype(np.float32)
+    fs.reset_launch_counts()
+    out = vd.fields(torch.as_tensor(samples, device=cuda))
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES["fields_f32"] == 1 and fs.STAGE_LAUNCHES["gemm"] >= 1
+    modes = [m.cpu().numpy() for m in vd._modes]
+    plain = fs.make_fused_sweep(Vs, modes, vd.n_modes, device="cpu")(torch.as_tensor(samples))
+    bound = _gamma_bound(Vs, modes, vd.n_modes, samples, vd.n_modes + 4 * 2)
+    assert bool(((out.cpu().double() - plain.double()).abs() <= 2 * bound).all())
+    u = np.stack([ver.truth(p) for p in samples.astype(np.float64)])
+    err = np.linalg.norm(out.cpu().double().numpy() - u, axis=1) / np.linalg.norm(u, axis=1)
+    assert ver(res)["max"] < 1e-6 and err.max() < 1e-6
+
+
+def test_space_time_corrected_sweep_on_card(cuda):
+    # the transient outputs: a space-time corrector (n_fixed = 2) of f64
+    # primal and adjoint minres vademecums, its sweep on the card (both
+    # factor products through the factor kernel) within its γ_c bound of
+    # the host f64 corrector
+    from pgdrome_tpu_torch.dual import (DualCorrector, adjoint_problem_nd,
+                                        corrected_sweep_bound, make_corrected_sensor_fn)
+    from pgdrome_tpu_torch.models.problems import transient_parametric_conductivity
+    from pgdrome_tpu_torch.recipes import transient_verification_set, two_stage_minres
+
+    sep, Vs = transient_parametric_conductivity(n_x=16, n_t=12, n_p=8, num_params=2)
+    l_x = np.zeros(Vs[0].dim())
+    l_x[Vs[0].dim() // 2] = 1.0
+    l_t = np.zeros(Vs[1].dim())
+    l_t[-1] = 1.0
+    kw = dict(dtype=np.float64, device="cpu", tol_fp=1e-9)
+    res_u = two_stage_minres(sep, 16, 8, **kw)
+    res_z = two_stage_minres(adjoint_problem_nd(sep, [l_x, l_t], n_fixed=2), 12, 6, **kw)
+    dc = DualCorrector(sep, Vs, None, res_u, None, res_z, None, n_fixed=2,
+                       l_factors=[l_x, l_t])
+    pts = transient_verification_set(Vs[2].tabulate_dof_coordinates()[:, 0], 2, n_random=30)
+    fn = make_corrected_sensor_fn(dc, method="fused", device=cuda)
+    assert all(isinstance(f, fs.FusedSweep) for f in fn.factor_sweeps)
+    fs.reset_launch_counts()
+    s32, _ = fn(pts)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES["factors"] == 2 and sum(fs.LAUNCHES.values()) == 2
+    bound, _ = corrected_sweep_bound(dc, pts)
+    assert bool((np.abs(s32.double().cpu().numpy() - dc.corrected(pts)) <= bound).all())
