@@ -51,7 +51,15 @@ the factor kernel, and certifies a moving heat source.  Phase ``nonlinear``
 trains the nonlinear vademecum of ``NONLINEAR.json`` (outer Picard of f32
 cascades on the card, dd stacks from the third outer iteration), verifies
 it against 76 banded-Newton truths and serves it through the field
-kernels.  It prints the measurements: one line per phase, a
+kernels.  Phase ``elasticity`` builds the JAX package's one 2D-space
+configuration (``bench.py:612-662``, the elasticity-ν flagship: vector P2
+on a crossed 24 × 6 mesh, 2426 dofs × 17³) through the setup cache, trains
+it on the card (16 f32 modes, one f64 residual restart of 16, Galerkin),
+holds both against per-grid-point f64 FEM under 1e-6 and serves it through
+the field, vector-sensor and strain wirings; phase ``heat3d`` trains
+``examples/heat3d_vademecum.py``'s 3D vademecum (P2 tets, 4913 dofs × 25²)
+in f64 on the card, verifies it under 1e-6 and serves its fields and
+3D-point sensors.  It prints the measurements: one line per phase, a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises (non-zero exit, no result line); a watchdog turns a
@@ -80,7 +88,8 @@ N_STREAM_CHUNKS = 4
 N_PTS = 8
 U32 = 2.0 ** -24             # unit roundoff of float32
 FEM_BOUND = 1e-6             # served fields vs FEM at the inset corners
-D5_SERVED_MAX = 8.255e-7     # the d=5 state served by the kernels (8.2548e-7 on an H100)
+D5_SERVED_MAX = 8.255e-7     # the d=5 state served by the kernels (on an H100: 8.2548e-7
+                             # before the GEMM's FMA head, 6.9319e-7 with it)
 F64_BOUND = 7.0e-7           # plain f64 reconstruction there (6.93e-7 measured on a CPU)
 BF16_REL = 1.6e-2            # bf16 store vs f32, relative to max |f32|
 # moments: the kernel and plain paths share every reduction (f32 GEMMs over
@@ -480,10 +489,40 @@ NL_RECIPE = dict(budgets=(64, 48, 48), rhs_bucket=512)
 NL_CUBE = dict(cube_rank=40, cube_tol=1e-10)
 NL_VERIFY = dict(n_random=16, seeds=(7, 101, 1234), n_edge=8)
 NL_REF = {"rank": 148, "outer": 4, "max": 6.141549378408526e-08}
+# the elasticity phase: bench.py:612-662's elasticity_nu_phase at its widths
+# (2426 space dofs, 2400 free, x 17^3 collocation points, T = 2), trained
+# as examples/elasticity_nu_flagship.py does (a 16-mode f32 stage, one f64
+# residual restart of 16 modes, Galerkin), verified against per-grid-point
+# f64 FEM at the 8 inset corners (grid indices 1 and 15) and 2 seeds x 8
+# random inset grid points; the JAX package's recipe on a CPU gives 8.829e-8
+# at the corners for the stage and 2.252e-8 after the restart
+ELASTICITY = dict(nx=24, ny=6, n_p=16, n_E=16, n_nu=16, degree=2,
+                  param_discretization="collocation")
+ELAS_E0 = 30000.0            # the builder's E_0, passed explicitly
+ELAS_SOLVE = dict(n_max=16, tol=0.0, tol_fp=1e-6, max_fp_it=30, solver="cg", cg_iters=30,
+                  residual_check=False)  # in f32
+ELAS_RANDOM, ELAS_SEEDS = 8, (7, 101)
+ELAS_BATCH = 262_144         # one field batch (2.5 GB of f32 output)
+ELAS_STRAIN_BATCH = 65_536
+ELAS_SERVE_SLACK = 1.1       # served f32 fields vs FEM: at most 1.1 x the plain f32 version's
+# 8 interior sensor points of the 1000 x 100 beam, 2 components each
+ELAS_PTS = [[125.0 * (i + 0.5), 25.0 + 50.0 * (i % 2)] for i in range(8)]
+# the heat3d phase: examples/heat3d_vademecum.py:46-50 (P2 tets on an 8^3
+# box, 4913 dofs, x 25^2, T = 3) trained in f64 on the card, verified at the
+# 4 inset corners + 4 random grid points of one seed (the example: 2 seeds x
+# 8) and served in f32
+HEAT3D = dict(n=8, n_p=24, num_params=2, degree_x=2)
+HEAT3D_SOLVE = dict(n_max=30, tol=1e-12, tol_fp=1e-6)  # in f64
+HEAT3D_VERIFY = dict(n_random=4, seeds=(7,))
+HEAT3D_B = 65_536
+# the example's two points, then six more inside the cube
+HEAT3D_PTS = [[0.5, 0.5, 0.5], [0.25, 0.5, 0.75], [0.1, 0.1, 0.1], [0.9, 0.2, 0.3],
+              [0.3, 0.8, 0.6], [0.75, 0.75, 0.25], [0.5, 0.1, 0.9], [0.15, 0.65, 0.4]]
 NL_SERVE = 256               # grid points served as the script serves them
 # served f32 fields vs the f64 reconstruction's verified max: the d=5 state
-# served at K = 640 sits 1.3e-7 (19 %) above its f64 reconstruction at the
-# corners (PERF.md §6.1); the trained frontier results are held to 10 %
+# served at K = 640 sat 1.3e-7 (19 %) above its f64 reconstruction at the
+# corners before the GEMM's FMA head, 3e-10 with it (PERF.md §6.1); the
+# trained frontier results are held to 10 %
 FRONTIER_SERVE_SLACK = 1.1
 
 # published dense peaks (NVIDIA data sheets, without sparsity):
@@ -638,6 +677,33 @@ def direct_residuals(sep, spaces, res, points):
             r = b - np.einsum("t,tij,j->i", theta, ops0, u, optimize=True)
             out[k, i] = np.linalg.norm(r) / np.linalg.norm(b)
     return out[0], out[1]
+
+
+def elasticity_truth(Vx, bL, bR, bc_dofs):
+    """Per-grid-point f64 FEM of the collocation elasticity-ν flagship:
+    ``truth(p)`` at p = (λp, λE, ν) on the parameter grids, where the
+    lumped weights cancel, is the fixed-(λp, λE, ν) plane-strain solve
+    E_0·λE·(f1(ν)·K1 + f2(ν)·K2) u = λp·(bL + bR) on the free dofs (sparse
+    LU).  Neither package ships it: ``examples/elasticity_nu_flagship.py``
+    computes it inline."""
+    import numpy as np
+    from scipy.sparse.linalg import splu
+
+    from pgdrome_tpu_torch.fem.assembly import elasticity_matrix
+    from pgdrome_tpu_torch.models.problems import _C1, _C2, _nu_f1, _nu_f2
+
+    K1, K2 = (ELAS_E0 * elasticity_matrix(Vx, C, sparse=True) for C in (_C1, _C2))
+    free = np.setdiff1d(np.arange(Vx.dim()), np.asarray(bc_dofs))
+    K1, K2 = (K[free][:, free] for K in (K1, K2))
+    load = (bL + bR)[free]
+
+    def truth(p):
+        u = np.zeros(Vx.dim())
+        K = (p[1] * (_nu_f1(p[2]) * K1 + _nu_f2(p[2]) * K2)).tocsc()
+        u[free] = splu(K).solve(p[0] * load)
+        return u
+
+    return truth
 
 
 def moment_split(torch, fs, vd, samples):
@@ -1085,19 +1151,19 @@ def main() -> int:
         w_bf16 = hold(bf, s_fields, m0, c_fields, out_dtype=torch.bfloat16)
         del bf
         fac_fields = fs.fused_sweep(s_fields, grid, tabs, None, vd.n_modes)
-        # the GEMM's operand: the split store is split_tf32 of the plain
-        # factors, bit for bit
+        # the GEMM's operand: the split store is split_factors of the plain
+        # factors, bit for bit (the head columns whole, the rest split_tf32)
         rows_split = 65_536
         hi = torch.empty((rows_split, fs.padded_k(K)), device=dev)
         lo = torch.empty_like(hi)
         fs.factors_stage(s_fields[:rows_split], grid, tabs, vd.n_modes, hi, lo,
                          plan=fused.plan, sliced=fused.sliced)
-        p_hi, p_lo = fs.split_tf32(fs.fused_sweep_plain(s_fields[:rows_split], grid, tabs,
-                                                        None, vd.n_modes))
+        p_hi, p_lo = fs.split_factors(fs.fused_sweep_plain(s_fields[:rows_split], grid, tabs,
+                                                           None, vd.n_modes))
         check(torch.equal(hi[:, :K].view(torch.int32), p_hi.view(torch.int32))
               and torch.equal(lo[:, :K].view(torch.int32), p_lo.view(torch.int32))
               and not bool(hi[:, K:].any()) and not bool(lo[:, K:].any()),
-              "split factor store equals split_tf32 of the plain factors bit for bit")
+              "split factor store equals split_factors of the plain factors bit for bit")
         del hi, lo, p_hi, p_lo
         ms_f32 = cuda_ms(lambda: fused(s_fields), 3)
         stages_f32 = stage_ms(s_fields, fused, n0)
@@ -1646,8 +1712,8 @@ def main() -> int:
         given a ``slack``, within ``slack`` × ``ref_max`` (the f64
         reconstruction's FEM max there) of FEM and, given a ``plain_slack``,
         within that many times the plain f32 version's FEM error; their FEM
-        error is printed beside the plain f32 version's and the f64 product of the f32
-        tables'.  ``truth(p)``: the per-sample truth (default the elliptic
+        error is printed beside the plain f32 version's and the f64
+        product of the f32 tables'.  ``truth(p)``: the per-sample truth (default the elliptic
         FEM solve).  Timed beside the plain version and the library
         product.  Returns the served fields' FEM error."""
         fused_t = vd_t._sweep()
@@ -1677,7 +1743,8 @@ def main() -> int:
             f"{e_served_t - ref_max:+.3e}; k summed in {fs.k_chunks(int(tb.shape[2]))} "
             f"chunk(s), c = {c_t}"
             + ("" if slack is None else f" (bound {slack:g} x the f64 reconstruction's)")
-            + ("" if plain_slack is None else f" (bound {plain_slack:g} x the plain f32's)")
+            + ("" if plain_slack is None else f" (kernel / plain f32 {e_served_t / e_plain:.4f}, "
+               f"bound {plain_slack:g})")
             + ("" if fem_bound is None else f" (kernel and plain bound {fem_bound:g})"))
         if slack is not None:
             check(e_served_t <= slack * ref_max, f"{name}: kernel-served fields vs FEM")
@@ -1716,9 +1783,9 @@ def main() -> int:
         part = torch.empty((n_ch, B, n0_s), device=dev)
         out_p = torch.empty((B, n0_s), device=dev)
         lib = fs._library()
-        t_hi, t_lo = sweep.table
+        t_hi, t_lo, head = sweep.table
         check(lib.pgd_sweep_gemm(hi.data_ptr(), lo.data_ptr(), t_hi.data_ptr(), t_lo.data_ptr(),
-                                 out_p.data_ptr(), part.data_ptr(), B, Kp, n0_s, fs.K_CHUNK, 0,
+                                 head.data_ptr(), out_p.data_ptr(), part.data_ptr(), B, Kp, n0_s, fs.K_CHUNK, 0,
                                  fs._stream(dev)) == 0, "the GEMM's chunk partials")
 
         def f64_sum():
@@ -2647,6 +2714,267 @@ def main() -> int:
             f"{steps['serve_256_s'] * 1e3:.3f} ms (host clock, warm)")
         say(f"nonlinear steps (s): {json.dumps({k: round(v, 3) for k, v in steps.items()})}")
         say(f"nonlinear peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+    def batch_entry(name, wiring, sweep, samples, out, table, c, factors_bound=True, **extra):
+        """A kernel entry for the wiring ``sweep`` on ``samples`` (its
+        output ``out``; ``table`` the M0 it multiplies): held within γ_c of
+        its f64 plain version, timed beside the plain version and the
+        library product.  The launches are the phase's counted run's."""
+        w = hold(out, samples, table, c, sw=sweep)
+        g, tb, n = sweep.grid, sweep.tabs, sweep.n_modes
+        F = fs.fused_sweep(samples, g, tb, None, n)
+        n_out = int(table.shape[1])
+        stages = ({"stages": stage_ms(samples, sweep, n_out)} if sweep.table is not None
+                  else {})
+        entry(name, kernel_of(sweep, "split") + " + sweep_gemm_kernel<f32>"
+              if sweep.table is not None else kernel_of(sweep, "narrow"), wiring, out.shape,
+              extra.pop("launches"), w, cuda_ms(lambda: sweep(samples), 3),
+              cuda_ms(lambda: fs.fused_sweep_plain(samples, g, tb, table, n), 2),
+              cuda_ms(lambda: torch.matmul(F, table), 3),
+              roofline(samples.shape[0], n_out, 4, True, sw=sweep), c, **stages, **extra)
+        del F
+        return w
+
+    def counted_call(counts, key, fn, *args):
+        """``fn(*args)`` with the launch counts set to 0 just before it and
+        read just after: ``counts[key]`` = (wiring counts, kernel counts,
+        host seconds)."""
+        torch.cuda.synchronize()
+        fs.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        counts[key] = (dict(fs.LAUNCHES), dict(fs.STAGE_LAUNCHES), time.perf_counter() - t0)
+        say(f"launches on the {key} call: {json.dumps(counts[key][0])}; kernels "
+            f"{json.dumps(counts[key][1])}")
+        return out
+
+    # --------------------------------------------------------- elasticity
+    # the JAX package's one 2D-space configuration run on its chip
+    # (bench.py:612-662): the elasticity-ν flagship at its widths, built
+    # through the setup cache, trained on the card, verified against
+    # per-grid-point f64 FEM, then served through the field, sensor and
+    # strain wirings
+    with Phase("elasticity"):
+        from pgdrome_tpu_torch.fem.derivative import gradient_function
+        from pgdrome_tpu_torch.fem.function import Function
+        from pgdrome_tpu_torch.models.problems import elasticity_vademecum
+        from pgdrome_tpu_torch.separated import precondition_dim
+        from pgdrome_tpu_torch.utils.setup_cache import cached_setup
+
+        torch.cuda.reset_peak_memory_stats()
+        steps = {}
+
+        def _elas_build():
+            sep, Vs_e, (_, bL, bR) = elasticity_vademecum(E_0=ELAS_E0, **ELASTICITY)
+            # K1 alone is singular (volumetric only): the SPD term sum is the
+            # congruence base
+            sep_pc, tf = precondition_dim(sep, dim=0, dtype=np.float64,
+                                          base=np.asarray(sep.ops[0][0]) + sep.ops[0][1])
+            return sep_pc, tf, Vs_e, bL, bR, np.asarray(sep.bc_dofs[0])
+
+        t0 = time.perf_counter()
+        (sep_e, tf_e, Vs_e, bL_e, bR_e, bc_e), status_e = cached_setup(
+            _elas_build, key_data=["elasticity_nu_v1", sorted(ELASTICITY.items()), ELAS_E0],
+            code_objects=(elasticity_vademecum, precondition_dim),
+            cache_dir=tmp / "setup_cache")
+        step("build_s", t0)
+        say(f"elasticity build: {steps['build_s']:.3f} s (setup cache {status_e}), sizes "
+            f"{list(sep_e.sizes)} (space dofs {Vs_e[0].dim()}), T = {sep_e.num_terms}, "
+            f"dim-0 factor {'banded' if tf_e.banded is not None else 'dense'}")
+        check(status_e == "miss" and tuple(sep_e.sizes) == (2400, 17, 17, 17)
+              and Vs_e[0].dim() == 2426 and sep_e.num_terms == 2 and tf_e.dense_L is not None,
+              "the flagship build: 2426 space dofs (2400 free) x 17^3, T = 2, dense Cholesky")
+        solver_e = SeparatedPGD(sep_e, dtype=np.float32, device=dev, **ELAS_SOLVE)
+        t0 = time.perf_counter()
+        res_e = solver_e.solve_fused()
+        torch.cuda.synchronize()
+        step("solve_first_s", t0)
+        t0 = time.perf_counter()
+        res_e = solver_e.solve_fused()
+        torch.cuda.synchronize()
+        step("solve_s", t0)
+        fp_e = np.asarray(res_e.fp_its)
+        say(f"elasticity solve: {res_e.n_modes} f32 modes in {steps['solve_s']:.3f} s (first "
+            f"call {steps['solve_first_s']:.3f} s), fp sweeps total {fp_e.sum()} (mean "
+            f"{fp_e.mean():.2f}, max {fp_e.max()}), {steps['solve_s'] / fp_e.sum() * 1e3:.2f} "
+            f"ms/sweep")
+        check(res_e.n_modes == 16 and res_e.modes[0].is_cuda
+              and res_e.modes[0].dtype == torch.float32, "16 f32 modes on the card")
+        del solver_e
+
+        grids_e = [V.tabulate_dof_coordinates()[:, 0] for V in Vs_e[1:]]
+        n_g = len(grids_e[0])  # the inset grid indices: 1 .. n_g − 2
+        idx_e = [np.array([[(1, n_g - 2)[(c >> i) & 1] for i in range(3)] for c in range(8)])]
+        for seed in ELAS_SEEDS:
+            idx_e.append(np.random.default_rng(seed).integers(1, n_g - 1, size=(ELAS_RANDOM, 3)))
+        idx_e = np.concatenate(idx_e)
+        pts_e = np.stack([[g[i] for g, i in zip(grids_e, row)] for row in idx_e])
+        t0 = time.perf_counter()
+        truth_e = elasticity_truth(Vs_e[0], bL_e, bR_e, bc_e)
+        u_e = np.stack([truth_e(p) for p in pts_e])
+        step("truth_s", t0)
+
+        def elas_errors(res):
+            vd64 = Vademecum(Vs_e, res, dim0_transform=tf_e, method="torch",
+                             dtype=torch.float64, device=dev)
+            f = vd64.fields(pts_e).cpu().numpy()
+            return np.linalg.norm(f - u_e, axis=1) / np.linalg.norm(u_e, axis=1), vd64
+
+        err_e, _ = elas_errors(res_e)
+        say(f"elasticity verify: the 16-mode f32 stage's f64 reconstruction max rel-L2 vs "
+            f"per-grid-point f64 FEM {err_e.max():.6e} (corners {err_e[:8].max():.6e}, random "
+            f"{err_e[8:].max():.6e}) over {len(pts_e)} samples, truths {steps['truth_s']:.3f} s "
+            f"(the JAX package on a CPU: 8.829e-8 at the corners)")
+        check(len(pts_e) == 8 + 2 * ELAS_RANDOM and err_e.max() < FEM_BOUND,
+              "the 16-mode f32 stage under 1e-6 against FEM")
+        t0 = time.perf_counter()
+        sep_r, s_r = residual_problem(sep_e, res_e)
+        delta_e = SeparatedPGD(sep_r, dtype=np.float32, device=dev, **ELAS_SOLVE).solve_fused()
+        res2_e = galerkin_update(sep_e, combine_results(res_e, delta_e, s_r))
+        torch.cuda.synchronize()
+        step("restart_s", t0)
+        err2_e, vd64_e = elas_errors(res2_e)
+        say(f"elasticity restart: one f64 residual restart of {delta_e.n_modes} f32 modes "
+            f"(s_res {s_r:.6e}) + Galerkin, rank {res2_e.n_modes} in {steps['restart_s']:.3f} "
+            f"s; max rel-L2 vs FEM {err2_e.max():.6e} (corners {err2_e[:8].max():.6e}, random "
+            f"{err2_e[8:].max():.6e}; the JAX package on a CPU: 2.252e-8)")
+        check(res2_e.n_modes == 32 and err2_e.max() < FEM_BOUND,
+              "the restart + Galerkin under 1e-6 against FEM")
+        cond_e = state_conditioning(res2_e, Vs_e, tf_e, pts_e)
+        say(f"elasticity state conditioning at the {len(pts_e)} samples: "
+            f"{json.dumps({k: float(f'{v:.6g}') for k, v in cond_e.items()})}")
+
+        # serving through B1: the verification samples (counts reset just
+        # before the path), then a field batch, the vector sensors and the
+        # strain fields, each call counted on its own
+        vd_e = Vademecum(Vs_e, res2_e, dim0_transform=tf_e, method="fused", device=dev)
+        torch.cuda.synchronize()
+        fs.reset_launch_counts()
+        e_served_e = serve_trained(
+            "fused_sweep_fields_f32_elasticity", "parallel/vademecum.py::make_sweep_fn "
+            f"(elasticity-ν flagship, rank {res2_e.n_modes}, n0 = 2426, NP = 3)", vd_e, pts_e,
+            float(err2_e.max()), fem_bound=FEM_BOUND, truth=truth_e,
+            plain_slack=ELAS_SERVE_SLACK)
+        say(f"elasticity served / f64 reconstruction vs FEM: "
+            f"{e_served_e / err2_e.max():.3f}")
+        lo_e = torch.tensor([g[0] for g in grids_e], dtype=torch.float32, device=dev)
+        hi_e = torch.tensor([g[-1] for g in grids_e], dtype=torch.float32, device=dev)
+        s_e = lo_e + (hi_e - lo_e) * torch.rand((ELAS_BATCH, 3), generator=gen, device=dev)
+        s_e[0], s_e[1] = lo_e, hi_e  # both ends: the right end lands in the last cell
+        vd_s = vd_e.strain()
+        sens_e = vd_e.sensors(ELAS_PTS)
+        counted = {}
+        out_e = counted_call(counted, "elasticity fields", vd_e.fields, s_e)
+        rate_e = ELAS_BATCH / counted["elasticity fields"][2]
+        resp_e = counted_call(counted, "elasticity sensors", sens_e, s_e)
+        strain_e = counted_call(counted, "elasticity strain", vd_s.fields,
+                                s_e[:ELAS_STRAIN_BATCH])
+        say(f"rate elasticity fields/s one-shot ({ELAS_BATCH} x {int(out_e.shape[1])}): "
+            f"{rate_e:.6g}")
+        n_fields = {k: counted["elasticity " + k][0]["fields_f32"] for k in ("fields", "strain")}
+        n_sens = counted["elasticity sensors"][0]["sensors"]
+        check(n_fields == {"fields": 1, "strain": 1} and n_sens == 1
+              and counted["elasticity sensors"][1]["sensor_fused"] == 1
+              and all(counted["elasticity " + k][1]["gemm"] >= 1 for k in ("fields", "strain")),
+              "the field, strain and sensor calls each ran their wiring's kernels once")
+        check(tuple(resp_e.shape) == (ELAS_BATCH, 16) and tuple(strain_e.shape) == (
+            ELAS_STRAIN_BATCH, 5184), "vector sensors (8 points x 2) and DG1 strain fields")
+        sw_e = vd_e._sweep()
+        c_e = fs.sum_roundings(int(sw_e.tabs.shape[2])) + 4 * int(sw_e.tabs.shape[0])
+        batch_entry("fused_sweep_fields_f32_elasticity_batch",
+                    "parallel/vademecum.py::make_sweep_fn (the flagship, 262,144 samples)",
+                    sw_e, s_e, out_e, sw_e.m0, c_e, launches=n_fields["fields"],
+                    rate_per_s=rate_e)
+        del out_e
+        check(sens_e.m0.shape == (32, 16), "the vector sensor table: components fastest")
+        batch_entry("fused_sweep_sensors_elasticity",
+                    "serving.py::Vademecum.sensors (8 points x 2 components of the flagship)",
+                    sens_e, s_e, resp_e, sens_e.m0, c_e,
+                    launches=n_sens)
+        sw_s = vd_s._sweep()
+        s_str = s_e[:ELAS_STRAIN_BATCH]
+        batch_entry("fused_sweep_fields_f32_strain",
+                    "serving.py::Vademecum.strain (DG1 Voigt strain, n0 = 576 cells x 9)",
+                    sw_s, s_str, strain_e, sw_s.m0, c_e, launches=n_fields["strain"])
+        del resp_e, strain_e
+        # the strain table against gradient_function of the f64 reconstruction
+        p4 = pts_e[:4]
+        u4 = vd64_e.fields(p4).cpu().numpy()
+        eps4 = []
+        for u in u4:
+            g4 = gradient_function(Function(Vs_e[0], u)).array.reshape(-1, 4)
+            eps4.append(np.stack([g4[:, 0], g4[:, 3], g4[:, 1] + g4[:, 2]], axis=1).ravel())
+        eps4 = np.stack(eps4)
+        got4 = vd64_e.strain().fields(p4).cpu().numpy()
+        gap4 = float(np.abs(got4 - eps4).max() / np.abs(eps4).max())
+        say(f"elasticity strain table vs gradient_function of the f64 reconstruction at 4 "
+            f"samples: max |gap| / max |strain| {gap4:.3e}")
+        # two f64 orders of the same linear map (the modes' gradients summed,
+        # or the sum's gradient): rounding only
+        check(gap4 <= 1e-10, "the strain table is the reconstruction's exact strain")
+        del vd64_e, vd_e, vd_s
+        say(f"elasticity steps (s): {json.dumps({k: round(v, 3) for k, v in steps.items()})}")
+        say(f"elasticity peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+    # -------------------------------------------------------------- heat3d
+    # examples/heat3d_vademecum.py: a 3D P2 space dim trained in f64 on the
+    # card, verified against per-sample f64 3D FEM, served in f32 through the
+    # field and sensor wirings
+    with Phase("heat3d"):
+        from pgdrome_tpu_torch.models.problems import (elliptic3d_dense_verifier,
+                                                       parametric_elliptic_3d)
+
+        steps = {}
+        t0 = time.perf_counter()
+        sep_h3, Vs_h3 = parametric_elliptic_3d(**HEAT3D)
+        step("build_s", t0)
+        check(tuple(sep_h3.sizes) == (4913, 25, 25) and sep_h3.num_terms == 3,
+              "the 3D build: 4913 x 25^2, T = 3")
+        t0 = time.perf_counter()
+        res_h3 = SeparatedPGD(sep_h3, dtype=np.float64, device=dev, **HEAT3D_SOLVE).solve()
+        torch.cuda.synchronize()
+        step("solve_s", t0)
+        fp_h3 = np.asarray(res_h3.fp_its)
+        check(res_h3.modes[0].is_cuda and res_h3.modes[0].dtype == torch.float64,
+              "the 3D solve ran in f64 on the card")
+        t0 = time.perf_counter()
+        ver_h3 = elliptic3d_dense_verifier(Vs_h3, **HEAT3D_VERIFY)
+        v_h3 = ver_h3(res_h3)
+        step("verify_s", t0)
+        say(f"heat3d: rank {res_h3.n_modes} over {Vs_h3[0].dim()} space dofs in "
+            f"{steps['solve_s']:.3f} s (build {steps['build_s']:.3f} s), fp sweeps total "
+            f"{fp_h3.sum()}; verified max rel-L2 vs per-sample f64 FEM {v_h3['max']:.6e} "
+            f"(corners {v_h3['corners']:.6e}, interior {v_h3['interior']:.6e}) over 4 corners "
+            f"+ {HEAT3D_VERIFY['n_random']} samples in {steps['verify_s']:.3f} s (reduced: the "
+            f"example verifies 4 corners + 2 x 8)")
+        check(v_h3["max"] < FEM_BOUND, "the 3D vademecum under 1e-6 against FEM")
+        vd_h3 = Vademecum(Vs_h3, res_h3, method="fused", device=dev)
+        sens_h3 = vd_h3.sensors(HEAT3D_PTS)
+        s_h3 = 0.05 + 0.9 * torch.rand((HEAT3D_B, 2), generator=gen, device=dev)
+        launches_h3 = {}
+        f_h3 = counted_call(launches_h3, "heat3d fields", vd_h3.fields, s_h3)
+        r_h3 = counted_call(launches_h3, "heat3d sensors", sens_h3, s_h3)
+        n_f3 = launches_h3["heat3d fields"][0]["fields_f32"]
+        n_s3 = launches_h3["heat3d sensors"][0]["sensors"]
+        check(n_f3 == 1 and n_s3 == 1 and launches_h3["heat3d fields"][1]["gemm"] >= 1
+              and launches_h3["heat3d sensors"][1]["sensor_fused"] == 1,
+              "the 3D fields and sensors each ran their wiring's kernels once")
+        check(tuple(f_h3.shape) == (HEAT3D_B, 4913) and tuple(r_h3.shape) == (HEAT3D_B, 8)
+              and bool(torch.isfinite(f_h3).all()), "3D fields and 8 point sensors")
+        u_c = float(r_h3[:, 0].double().mean())
+        say(f"heat3d serve: u(centre) mean over {HEAT3D_B} samples {u_c:.6e}, range "
+            f"[{float(r_h3[:, 0].min()):.6e}, {float(r_h3[:, 0].max()):.6e}]")
+        sw_h3 = vd_h3._sweep()
+        c_h3 = fs.sum_roundings(int(sw_h3.tabs.shape[2])) + 4 * int(sw_h3.tabs.shape[0])
+        batch_entry("fused_sweep_fields_f32_heat3d",
+                    f"parallel/vademecum.py::make_sweep_fn (3D P2, rank {res_h3.n_modes}, "
+                    "n0 = 4913, NP = 2)", sw_h3, s_h3, f_h3, sw_h3.m0, c_h3, launches=n_f3)
+        batch_entry("fused_sweep_sensors_heat3d",
+                    "serving.py::Vademecum.sensors (8 points in the cube)", sens_h3, s_h3,
+                    r_h3, sens_h3.m0, c_h3, launches=n_s3)
+        del f_h3, r_h3, vd_h3
+        say(f"heat3d steps (s): {json.dumps({k: round(v, 3) for k, v in steps.items()})}")
 
     peak = max(peak_before, torch.cuda.max_memory_allocated())
     say(f"peak device memory: {peak / 2**30:.3f} GiB")

@@ -29,15 +29,21 @@ fields (:mod:`.fem.derivative`); goal-oriented outputs (:mod:`.dual`),
 on the transient family too (:func:`.recipes.transient_goal_oriented`);
 and the nonlinear family (:func:`.recipes.nonlinear_vademecum`, the
 Newton and Picard per-dim solves of :mod:`.ops.solvers`, device assembly in
-:mod:`.fem.assembly_device`).
+:mod:`.fem.assembly_device`); and the 2D/3D FEM (rectangle, box and
+unstructured simplicial meshes, P1/P2 and DG spaces, scalar and vector)
+with its families: the plane-strain elasticity-ν flagship
+(:func:`.models.problems.elasticity_vademecum`, its gradient and strain
+vademecums), 3D parametric diffusion
+(:func:`.models.problems.parametric_elliptic_3d` with its dense verifier)
+and 2D transient heat.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a CUDA device they raise.
 """
 
 from pgdrome_tpu_torch import config as config
-from pgdrome_tpu_torch.fem.mesh import IntervalMesh
-from pgdrome_tpu_torch.fem.space import FunctionSpace
+from pgdrome_tpu_torch.fem.mesh import BoxMesh, IntervalMesh, Point, RectangleMesh
+from pgdrome_tpu_torch.fem.space import FunctionSpace, VectorFunctionSpace
 from pgdrome_tpu_torch.fem.function import Function, Expression, Constant
 from pgdrome_tpu_torch.fem.bc import DirichletBC
 from pgdrome_tpu_torch.fem.assembly import (
@@ -59,7 +65,10 @@ from pgdrome_tpu_torch.separated import (
 )
 from pgdrome_tpu_torch.models.problems import (
     corner_seeded_init,
+    elasticity_vademecum,
+    elliptic3d_dense_verifier,
     elliptic_dense_verifier,
+    parametric_elliptic_3d,
     nonlinear_dense_verifier,
     nonlinear_elliptic,
 )
@@ -82,7 +91,11 @@ from pgdrome_tpu_torch.convert import (
 __all__ = [
     "config",
     "IntervalMesh",
+    "RectangleMesh",
+    "BoxMesh",
+    "Point",
     "FunctionSpace",
+    "VectorFunctionSpace",
     "Function",
     "Expression",
     "Constant",
@@ -101,6 +114,9 @@ __all__ = [
     "residual_problem",
     "combine_results",
     "elliptic_dense_verifier",
+    "elasticity_vademecum",
+    "parametric_elliptic_3d",
+    "elliptic3d_dense_verifier",
     "corner_seeded_init",
     "nonlinear_elliptic",
     "nonlinear_dense_verifier",

@@ -17,12 +17,16 @@
 //   pgd_sweep_factors  stage 1, three modes: F itself (B, K), the factor
 //                      wiring behind moments (the TPU wiring's identity M0
 //                      is skipped); F split into tf32 hi/lo halves in two
-//                      (B, ldf) buffers for the GEMM (fields); or the narrow
+//                      (B, ldf) buffers for the GEMM (fields), the first
+//                      kHead columns held whole in hi (lo zero); or the narrow
 //                      product out (B, n0 <= 32) = F . M0 fused in (sensors:
 //                      F never reaches HBM, as in the TPU kernel).
 //   pgd_sweep_gemm     stage 2: out (rows, n0) = F (rows, Kp) . M0 from the
 //                      split F and a split, transposed, masked M0 table
-//                      (n0, Kp); f32 or bf16 store (fields, n0 > 32).
+//                      (n0, Kp) for k >= kHead, plus the head k < kHead
+//                      in f32 FMAs from the whole F columns and an f32
+//                      (kHead, round4(n0)) table; f32 or bf16 store
+//                      (fields, n0 > 32).
 //
 // Stage 1's design.  Per element it gathers 2-3 table values per dim, so
 // its limit is where the gathers land and how many warps hide their
@@ -96,6 +100,22 @@
 // the error.  At K <= 1024 there is one chunk and the kernel stores the
 // total as before, bit for bit.  The narrow product (stage 1) flushes its
 // shared accumulator to the same kind of scratch every 512 k.
+//
+// The head.  The first kHead = 8 modes do not go through the tensor
+// cores: the factor kernel stores their F columns whole (hi = F, lo = 0),
+// their rows of the split M0 table are zero, and the GEMM's epilogue adds
+// F[r, k] M0[k, c] for k = kHead-1 down to 0 to the tensor-core total in
+// round-to-nearest FMAs (in the blocks of the first k-chunk only).  The
+// producer loads the tile's head operands, F (128 x kHead) and an f32 M0
+// head table (kHead x 128), by TMA into shared memory before the first
+// stage, so the epilogue reads them there.  PGD modes come largest first,
+// so the terms that set an output's rounding are summed as an f32 FMA sum
+// sums them, largest last, and the split's 2^-22 per product and the
+// truncating accumulator touch only the tail.  Without the head the served
+// elasticity flagship (rank 32, no cancellation in its sum) sat 1.21x
+// above the plain f32 version's error against FEM on an H100 (PERF.md 6.1,
+// ROADMAP C3).  A 16-mode head read through the L1 in the epilogue added
+// 18 % to the d=5 field GEMM (PERF.md 6.1).
 // The rounding of hi/lo is the integer form of cvt.rna.tf32.f32 (ties
 // away from zero), bit for bit the plain split_tf32 in ops/fused_sweep.py,
 // except that a value that would round to infinity is truncated instead.
@@ -133,6 +153,8 @@ namespace {
 
 constexpr int kMaxNP = 16;           // parameter dims per sample
 constexpr int kMaxN0 = 32;           // widest output of the fused narrow product
+constexpr int kHead = 8;             // leading modes summed in f32 FMAs (see the header)
+static_assert(kHead % 4 == 0 && kHead <= 8, "the head is whole float4s of F rows, Kp >= 8");
 constexpr int kMaxSmem = 232448;     // 227 KB per block on sm_90
 constexpr int kEncodeError = 100000;
 constexpr long long kHangCycles = 20000000000LL;  // ~10 s: a lost barrier traps
@@ -326,7 +348,12 @@ __device__ __forceinline__ void store_factors(float* out, float* out_lo, long lo
   if (k >= ld) return;
   const long long at = row * ld + k;
   if constexpr (kMode == kSplit) {  // ld and k are multiples of 4
-    float4 hi, lo;
+    float4 hi = f, lo = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (k < kHead) {  // the head: whole, for the GEMM's FMA epilogue
+      __stcs(reinterpret_cast<float4*>(out + at), hi);
+      __stcs(reinterpret_cast<float4*>(out_lo + at), lo);
+      return;
+    }
     split_tf32(f.x, &hi.x, &lo.x);
     split_tf32(f.y, &hi.y, &lo.y);
     split_tf32(f.z, &hi.z, &lo.z);
@@ -524,7 +551,8 @@ constexpr int kBN = 128;               // output columns per block
 constexpr int kBTileBytes = kBN * kBoxK * 4;
 constexpr int kStageBytes = 2 * kATileBytes + 2 * kBTileBytes;
 constexpr int kStages = 3;
-constexpr int kGemmSmem = kStages * kStageBytes + 2 * kStages * 8 + 1024;
+constexpr int kHeadBytes = kBM * kHead * 4 + kHead * kBN * 4;  // F and M0 head tiles
+constexpr int kGemmSmem = kStages * kStageBytes + kHeadBytes + (2 * kStages + 1) * 8 + 1024;
 static_assert(kGemmSmem <= kMaxSmem, "stage ring exceeds shared memory");
 
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
@@ -608,6 +636,44 @@ __device__ __forceinline__ void issue_group(float (&acc)[64], uint64_t ahi, uint
   wgmma_commit();
 }
 
+// The head (see the header): tot += F[r, k] M0[k, c] for k = kHead-1 down
+// to 0, in round-to-nearest FMAs, for this thread's tile rows rl and
+// rl + 8 and tile columns cl + 8j (+1), from the tile's head operands in
+// shared memory: sf (kBM, kHead) F columns, sm (kHead, kBN) M0 rows (TMA
+// fills rows past the batch and columns past n0 with zeros).
+template <int R>
+__device__ __forceinline__ void add_head(float (&tot)[R], const float* sf, const float* sm,
+                                         int rl, int cl) {
+  float fr[2][kHead];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int q = 0; q < kHead / 4; ++q) {
+      const float4 v = reinterpret_cast<const float4*>(sf + (rl + 8 * h) * kHead)[q];
+      fr[h][4 * q] = v.x;
+      fr[h][4 * q + 1] = v.y;
+      fr[h][4 * q + 2] = v.z;
+      fr[h][4 * q + 3] = v.w;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < R / 4; ++j) {
+    float a0 = tot[4 * j], a1 = tot[4 * j + 1], b0 = tot[4 * j + 2], b1 = tot[4 * j + 3];
+#pragma unroll
+    for (int k = kHead - 1; k >= 0; --k) {
+      const float2 m = *reinterpret_cast<const float2*>(sm + k * kBN + cl + 8 * j);
+      a0 = fmaf(fr[0][k], m.x, a0);
+      a1 = fmaf(fr[0][k], m.y, a1);
+      b0 = fmaf(fr[1][k], m.x, b0);
+      b1 = fmaf(fr[1][k], m.y, b1);
+    }
+    tot[4 * j] = a0;
+    tot[4 * j + 1] = a1;
+    tot[4 * j + 2] = b0;
+    tot[4 * j + 3] = b1;
+  }
+}
+
 // Add a finished group into the total, in round-to-nearest FADDs.
 template <int R>
 __device__ __forceinline__ void fold(float (&tot)[R], float (&acc)[R]) {
@@ -634,14 +700,18 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
 sweep_gemm_kernel(const __grid_constant__ CUtensorMap a_hi,
                   const __grid_constant__ CUtensorMap a_lo,
                   const __grid_constant__ CUtensorMap b_hi,
-                  const __grid_constant__ CUtensorMap b_lo, OutT* __restrict__ out,
+                  const __grid_constant__ CUtensorMap b_lo,
+                  const __grid_constant__ CUtensorMap f_head,
+                  const __grid_constant__ CUtensorMap m_head, OutT* __restrict__ out,
                   float* __restrict__ part, long long rows, int n0, int n_kb, int kb_chunk,
                   int n_tiles) {
   constexpr int S = kStages;
   constexpr int R = kBN / 2;  // accumulator floats per thread
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t bars = base + S * kStageBytes;  // full[S], then empty[S]
+  const uint32_t head = base + S * kStageBytes;  // F head (kBM, kHead), M0 head (kHead, kBN)
+  const uint32_t bars = head + kHeadBytes;  // full[S], empty[S], then the head's
+  const uint32_t head_bar = bars + 16 * S;
   const int tid = threadIdx.x, wg = tid / 128;
   const int m_tile = blockIdx.x / n_tiles, n_tile = blockIdx.x - m_tile * n_tiles;
   // this block's k-chunk: boxes kb0 .. kb0 + n_local - 1 (all of them when
@@ -654,6 +724,7 @@ sweep_gemm_kernel(const __grid_constant__ CUtensorMap a_hi,
       mbar_init(bars + 8 * s, 1);
       mbar_init(bars + 8 * (S + s), kConsumerThreads);
     }
+    mbar_init(head_bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
@@ -661,6 +732,11 @@ sweep_gemm_kernel(const __grid_constant__ CUtensorMap a_hi,
   if (wg == 0) {  // producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
     if (tid == 0) {
+      if (blockIdx.y == 0) {  // the head's operands, read in the epilogue
+        mbar_expect_tx(head_bar, kHeadBytes);
+        tma_load_2d(head, &f_head, head_bar, 0, m_tile * kBM);
+        tma_load_2d(head + kBM * kHead * 4, &m_head, head_bar, n_tile * kBN, 0);
+      }
       for (int kb = 0; kb < n_local; ++kb) {
         const int s = kb % S;
         if (kb >= S) mbar_wait(bars + 8 * (S + s), ((kb / S) - 1) & 1);
@@ -704,6 +780,11 @@ sweep_gemm_kernel(const __grid_constant__ CUtensorMap a_hi,
   // columns 8j + 2(lane%4) (+1) in registers 4j (+1), (+2, +3 for row+8)
   const int w = (tid % 128) / 32, lane = tid % 32;
   const long long r0 = (long long)m_tile * kBM + c * 64 + 16 * w + lane / 4;
+  if (blockIdx.y == 0) {
+    mbar_wait(head_bar, 0);
+    const float* sf = reinterpret_cast<const float*>(smem_raw + (head - smem_u32(smem_raw)));
+    add_head(tot, sf, sf + kBM * kHead, c * 64 + 16 * w + lane / 4, 2 * (lane % 4));
+  }
   float* prows = part == nullptr ? nullptr : part + (long long)blockIdx.y * rows * n0;
 #pragma unroll
   for (int j = 0; j < kBN / 8; ++j) {
@@ -779,18 +860,36 @@ int tile_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, long long ro
   return r == CUDA_SUCCESS ? 0 : kEncodeError + (int)r;
 }
 
+// A (rows, cols) row-major f32 array, rows ld elements apart, seen as
+// unswizzled tiles of box_rows x box_cols; out-of-range reads fill zeros.
+int plain_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, long long rows, int cols,
+              int ld, int box_cols, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(ptr),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeError + (int)r;
+}
+
 template <typename OutT>
 int launch_gemm(const void* f_hi, const void* f_lo, const void* t_hi, const void* t_lo,
-                void* out, void* part, long long rows, int Kp, int n0, int k_chunk,
-                cudaStream_t stream) {
+                const void* head, void* out, void* part, long long rows, int Kp, int n0,
+                int k_chunk, cudaStream_t stream) {
   EncodeTiled encode;
   int rc = encoder(&encode);
   if (rc != 0) return rc;
-  CUtensorMap a_hi, a_lo, b_hi, b_lo;
+  CUtensorMap a_hi, a_lo, b_hi, b_lo, f_head, m_head;
   if ((rc = tile_map(encode, &a_hi, f_hi, rows, Kp, kBM)) != 0) return rc;
   if ((rc = tile_map(encode, &a_lo, f_lo, rows, Kp, kBM)) != 0) return rc;
   if ((rc = tile_map(encode, &b_hi, t_hi, n0, Kp, kBN)) != 0) return rc;
   if ((rc = tile_map(encode, &b_lo, t_lo, n0, Kp, kBN)) != 0) return rc;
+  if ((rc = plain_map(encode, &f_head, f_hi, rows, Kp, Kp, kHead, kBM)) != 0) return rc;
+  if ((rc = plain_map(encode, &m_head, head, kHead, n0, (n0 + 3) / 4 * 4, kBN, kHead)) != 0)
+    return rc;
   auto kernel = sweep_gemm_kernel<OutT>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem);
@@ -802,8 +901,8 @@ int launch_gemm(const void* f_hi, const void* f_lo, const void* t_hi, const void
   const int kb_chunk = part == nullptr ? n_kb : k_chunk / kBoxK;
   const dim3 grid((unsigned)blocks, (unsigned)((n_kb + kb_chunk - 1) / kb_chunk));
   kernel<<<grid, kGemmThreads, kGemmSmem, stream>>>(
-      a_hi, a_lo, b_hi, b_lo, static_cast<OutT*>(out), static_cast<float*>(part), rows, n0,
-      n_kb, kb_chunk, n_tiles);
+      a_hi, a_lo, b_hi, b_lo, f_head, m_head, static_cast<OutT*>(out), static_cast<float*>(part),
+      rows, n0, n_kb, kb_chunk, n_tiles);
   return (int)cudaGetLastError();
 }
 
@@ -856,7 +955,8 @@ extern "C" {
 // cut into k-slices of ks columns, zero past K.  Three modes:
 //   mslices null, out_lo null: out (B, ld = K) f32, F itself;
 //   mslices null, out_lo set:  out, out_lo (B, ld >= K, ld % 4 == 0): F's
-//                              tf32 hi and lo halves, zero past K;
+//                              tf32 hi and lo halves, zero past K; the
+//                              first kHead columns F itself and zero;
 //   mslices set:               out (B, ld = n0 <= 32), F . M0, f32 or
 //                              (out_bf16) bf16; mslices (n_slices, ks,
 //                              round4(n0)) the M0 rows, zero at or past
@@ -909,25 +1009,28 @@ long long pgd_factor_smem(int NP, int ndofp, int ks, int rows, int n0, int stage
   return factor_smem(NP, ndofp, ks, rows, n0, staged != 0);
 }
 
-// Stage 2.  f_hi, f_lo (rows, Kp) f32: the split factors; t_hi, t_lo
-// (n0, Kp) f32: the split M0^T with rows k >= n_modes zero; out (rows, n0)
+// Stage 2.  f_hi, f_lo (rows, Kp) f32: the split factors, the first kHead
+// columns whole in f_hi; t_hi, t_lo (n0, Kp) f32: the split M0^T with rows
+// k < kHead and k >= n_modes zero; head (kHead, round4(n0)) f32: M0's
+// first kHead rows, zero at or past n_modes and past n0; out (rows, n0)
 // f32 (out_bf16 == 0) or bf16.  Kp is a multiple of 8.  With part set, the
 // blocks of blockIdx.y = c sum k in [c k_chunk, (c + 1) k_chunk) only
 // (k_chunk a multiple of 32) and store their f32 partials to part
 // (ceil(Kp / k_chunk), rows, n0) instead of out (pgd_partial_sum adds
 // them).
 int pgd_sweep_gemm(const void* f_hi, const void* f_lo, const void* t_hi, const void* t_lo,
-                   void* out, void* part, long long rows, int Kp, int n0, int k_chunk,
-                   int out_bf16, void* stream) {
+                   const void* head, void* out, void* part, long long rows, int Kp, int n0,
+                   int k_chunk, int out_bf16, void* stream) {
   if (rows < 0 || Kp < 8 || Kp % 8 != 0 || n0 < 1 || rows > 0xffffffffLL ||
       !aligned16(f_hi) || !aligned16(f_lo) || !aligned16(t_hi) || !aligned16(t_lo) ||
+      !aligned16(head) ||
       (part != nullptr && (k_chunk < kBoxK || k_chunk % kBoxK != 0)))
     return (int)cudaErrorInvalidValue;
   if (rows == 0) return (int)cudaGetLastError();
   auto st = static_cast<cudaStream_t>(stream);
-  return out_bf16 ? launch_gemm<__nv_bfloat16>(f_hi, f_lo, t_hi, t_lo, out, part, rows, Kp, n0,
-                                               k_chunk, st)
-                  : launch_gemm<float>(f_hi, f_lo, t_hi, t_lo, out, part, rows, Kp, n0,
+  return out_bf16 ? launch_gemm<__nv_bfloat16>(f_hi, f_lo, t_hi, t_lo, head, out, part, rows,
+                                               Kp, n0, k_chunk, st)
+                  : launch_gemm<float>(f_hi, f_lo, t_hi, t_lo, head, out, part, rows, Kp, n0,
                                        k_chunk, st);
 }
 
@@ -953,6 +1056,10 @@ int pgd_partial_sum(const void* part, void* out, int n_chunks, long long count, 
 // Dynamic shared memory of a GEMM launch, in bytes (ptxas -v reports
 // static shared memory only).
 int pgd_sweep_gemm_smem(void) { return kGemmSmem; }
+
+// The head's width: modes summed in f32 FMAs by the GEMM's epilogue
+// (ops/fused_sweep.py::K_HEAD must agree).
+int pgd_k_head(void) { return kHead; }
 
 const char* pgd_error_string(int code) {
   if (code >= kEncodeError) return "cuTensorMapEncodeTiled failed (code - 100000 is the CUresult)";

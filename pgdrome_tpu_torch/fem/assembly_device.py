@@ -17,9 +17,10 @@ is one einsum over cells and a scatter-add, both traceable by
 ``SeparatedPGD(nonlinear=...)``.  The matrix-free applies skip the
 (n, n) scatter: gather, quadrature contraction, scatter-add of a vector.
 
-Interval spaces only (the spaces the port has).  The JAX package's table
-fingerprint keys its ahead-of-time cache; eager PyTorch compiles nothing
-ahead of a call, so there is none here.
+Scalar spaces on intervals, triangles and tets (vector and elasticity
+operators assemble on the host, as in the JAX package).  The JAX
+package's table fingerprint keys its ahead-of-time cache; eager PyTorch
+compiles nothing ahead of a call, so there is none here.
 """
 
 from __future__ import annotations

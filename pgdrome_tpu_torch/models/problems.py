@@ -1,12 +1,16 @@
 """Predefined separated model problems — the parametric-elliptic family,
-its nonlinear (cubic) variant and the transient family on intervals (counterpart of
+its nonlinear (cubic) variant, the transient family on intervals, 2D
+transient heat, 2D plane-strain elasticity (the ν-separated flagship) and
+3D parametric diffusion (counterpart of
 ``pgdrome_tpu/models/problems.py``: ``box_corners``,
 ``parametric_elliptic``, ``elliptic_fem_solver``,
 ``elliptic_dense_verifier``, ``corner_seeded_init``,
-``moving_heat_source``, ``transient_parametric_conductivity``,
-``transient_conductivity_fom``, ``transient_dense_verifier``,
-``nonlinear_elliptic``, ``nonlinear_elliptic_fom``,
-``nonlinear_dense_verifier``).
+``transient_heat_2d``, ``moving_heat_source``,
+``transient_parametric_conductivity``, ``transient_conductivity_fom``,
+``transient_dense_verifier``, ``plane_strain_C``,
+``elasticity_vademecum``, ``parametric_elliptic_3d``,
+``elliptic3d_dense_verifier``, ``nonlinear_elliptic``,
+``nonlinear_elliptic_fom``, ``nonlinear_dense_verifier``).
 
 Builders return a :class:`~pgdrome_tpu_torch.separated.SeparatedProblem`
 of host arrays plus the per-dim function spaces.
@@ -19,8 +23,8 @@ import warnings
 import numpy as np
 import torch
 
-from pgdrome_tpu_torch.fem.mesh import IntervalMesh
-from pgdrome_tpu_torch.fem.space import FunctionSpace
+from pgdrome_tpu_torch.fem.mesh import BoxMesh, IntervalMesh, Point, RectangleMesh
+from pgdrome_tpu_torch.fem.space import FunctionSpace, VectorFunctionSpace
 from pgdrome_tpu_torch.fem.bc import DirichletBC
 from pgdrome_tpu_torch.fem.assembly import (
     mass_matrix,
@@ -332,6 +336,38 @@ def corner_seeded_init(target_corners, p_lo, p_hi, q: int = 6,
         return tuple(out)
 
     return init
+
+
+def transient_heat_2d(nx: int = 12, ny: int = 12, n_t: int = 50, lx: float = 1.0,
+                      ly: float = 1.0, lt: float = 1.0, rho_cp: float = 1.0,
+                      k: float = 0.1, dtype=None):
+    """Transient heat on a 2D crossed triangulation ⊗ 1D FD-upwind time:
+    rho·cp ∂T/∂t − k ΔT = q(x, y), natural space conditions, T(t=0) = 0
+    (constant ambient lifts drop out of the homogenised rhs since K·1 = 0
+    and D1_up·1 = 0).  q is a Gaussian bump at the centre, constant in
+    time.  Returns ``(problem, [V2, Vt])``."""
+    from pgdrome_tpu_torch.ops.fd import FD_matrices
+
+    V2 = FunctionSpace(RectangleMesh(Point(0, 0), Point(lx, ly), nx, ny, "crossed"), "P", 1)
+    Vt = FunctionSpace(IntervalMesh(n_t, 0.0, lt), "P", 1)
+    M2 = mass_matrix(V2)
+    K2 = stiffness_matrix(V2)
+    t_grid = Vt.tabulate_dof_coordinates()[:, 0]
+    M_t, _, D1_up = FD_matrices(t_grid)
+    ops = [np.stack([rho_cp * M2, k * K2]), np.stack([D1_up, M_t])]
+    xc, yc, a = lx / 2, ly / 2, 0.15 * lx
+    q2 = load_vector(
+        V2, lambda p: np.exp(-(((p[..., 0] - xc) ** 2 + (p[..., 1] - yc) ** 2) / a ** 2)))
+    rhs = [q2[None, :], (M_t @ np.ones(len(t_grid)))[None, :]]
+    bc_dofs = [np.array([], dtype=np.int64), np.array([0], dtype=np.int64)]  # t = 0
+    dt = dtype or np.float64
+    prob = SeparatedProblem(
+        ops=[np.asarray(o, dtype=dt) for o in ops],
+        rhs=[np.asarray(r, dtype=dt) for r in rhs],
+        mass=[np.asarray(m, dtype=dt) for m in (M2, M_t)],
+        bc_dofs=bc_dofs,
+    )
+    return prob, [V2, Vt]
 
 
 def moving_heat_source(
@@ -698,6 +734,232 @@ def transient_dense_verifier(sep, Vs, factors, *, af: float = 0.08,
 
     verify.sample_errors = sample_errors
     verify.corner_indices = corner_idx
+    return verify
+
+
+def plane_strain_C(nu: float) -> np.ndarray:
+    """Plane-strain elasticity tensor (Voigt 3×3) for unit E."""
+    a = 1.0 / ((1 + nu) * (1 - 2 * nu))
+    return a * np.array(
+        [[1 - nu, nu, 0.0], [nu, 1 - nu, 0.0], [0.0, 0.0, (1 - 2 * nu) / 2]]
+    )
+
+
+# the ν-separated plane-strain tensor C(ν) = f1(ν)·C1 + f2(ν)·C2, with the
+# rational coefficients f1, f2 below
+_C1 = np.array([[1.0, 1.0, 0.0], [1.0, 1.0, 0.0], [0.0, 0.0, 0.0]])
+_C2 = np.array([[1.0, -1.0, 0.0], [-1.0, 1.0, 0.0], [0.0, 0.0, 1.0]])
+
+
+def _nu_f1(nu):
+    return 1.0 / (2.0 * (1.0 + nu) * (1.0 - 2.0 * nu))
+
+
+def _nu_f2(nu):
+    return 1.0 / (2.0 * (1.0 + nu))
+
+
+def elasticity_vademecum(nx: int = 40, ny: int = 8, n_p: int = 16, n_E: int = 16,
+                         p_range=(0.0, 2.0), E_range=(0.5, 1.5), E_0: float = 30000.0,
+                         nu: float = 0.2, L=(1000.0, 100.0), degree: int = 2,
+                         n_nu: int = 0, nu_range=(0.1, 0.4),
+                         param_discretization: str = "galerkin", dtype=None):
+    """2D plane-strain elasticity vademecum on a vector P2 (``degree``)
+    field over a crossed ``nx × ny`` mesh of ``L``:
+
+        ∫ ε(v) : λE·E0·C(ν) : ε(u) dx = λp · ∫ g·v ds(top),
+
+    clamped at x = 0, loaded downwards on the top edge (−0.5 left of the
+    middle, −1.5 right of it).  ``n_nu == 0``: ν fixed, u((x, y), λp, λE),
+    one elasticity term.  ``n_nu > 0``: Poisson's ratio is the fourth
+    coordinate (the 4-dim flagship), C(ν) = f1(ν)·C1 + f2(ν)·C2 with the
+    rational f1, f2 entering as collocation (diagonal) ν operators, so the
+    converged vademecum equals fixed-ν FEM at the ν grid points.
+
+    ``param_discretization``: ``"galerkin"`` (consistent P1 masses on the
+    λp/λE dims; on-grid values carry the O(h²) projection bias) or
+    ``"collocation"`` (pointwise-lumped λp/λE operators and loads: the
+    converged vademecum equals per-sample FEM at every grid point).
+
+    Returns ``(problem, [Vx, Vp, VE(, Vnu)], (C_or_(C1, C2), bL, bR))``."""
+    from pgdrome_tpu_torch.fem.assembly import (
+        boundary_load_vector,
+        elasticity_matrix,
+        vector_mass_matrix,
+    )
+    from pgdrome_tpu_torch.fem.function import Expression
+
+    if param_discretization not in ("galerkin", "collocation"):
+        raise ValueError(f"unknown param_discretization {param_discretization!r}")
+    mesh_x = RectangleMesh(Point(0, 0), Point(L[0], L[1]), nx, ny, "crossed")
+    Vx = VectorFunctionSpace(mesh_x, "P", degree)
+    Vp = FunctionSpace(IntervalMesh(n_p, *p_range), "P", 1)
+    VE = FunctionSpace(IntervalMesh(n_E, *E_range), "P", 1)
+
+    Mp = mass_matrix(Vp)
+    ME_w = mass_matrix(VE, weight=lambda E: E)
+    if param_discretization == "collocation":
+        # pointwise lumping: diagonal w_i·weight(x_i), so the plain weights
+        # w_i cancel per grid point (row sums of the weighted consistent
+        # mass would carry an endpoint bias at the box corners)
+        Mp_op = np.diag(Mp.sum(axis=1))
+        ME_w_op = np.diag(mass_matrix(VE).sum(axis=1) * VE.tabulate_dof_coordinates()[:, 0])
+    else:
+        Mp_op, ME_w_op = Mp, ME_w
+
+    g1 = Expression((lambda p: 0.0 * p[..., 0], lambda p: -0.5 * np.ones_like(p[..., 0])))
+    g2 = Expression((lambda p: 0.0 * p[..., 0], lambda p: -1.5 * np.ones_like(p[..., 0])))
+    bL = boundary_load_vector(Vx, g1, lambda m: abs(m[1] - L[1]) < 1e-9 and m[0] < L[0] / 2)
+    bR = boundary_load_vector(Vx, g2, lambda m: abs(m[1] - L[1]) < 1e-9 and m[0] > L[0] / 2)
+    if param_discretization == "collocation":
+        # the load lumped like the operators, or the weights would not
+        # cancel at the corners
+        bp = Mp.sum(axis=1) * Vp.tabulate_dof_coordinates()[:, 0]
+    else:
+        bp = load_vector(Vp, lambda p: p)
+    bE = load_vector(VE, lambda E: np.ones_like(E))  # exact either way: the row sums
+
+    bc_x = DirichletBC(Vx, (0.0, 0.0), lambda p: abs(p[0]) < 1e-9)
+    no_bc = np.array([], dtype=np.int64)
+    if n_nu:
+        Vnu = FunctionSpace(IntervalMesh(n_nu, *nu_range), "P", 1)
+        K1 = elasticity_matrix(Vx, _C1)
+        K2 = elasticity_matrix(Vx, _C2)
+        nu_pts = Vnu.tabulate_dof_coordinates()[:, 0]
+        w_nu = mass_matrix(Vnu).sum(axis=1)  # lumped collocation weights
+        ops = [E_0 * np.stack([K1, K2]), np.stack([Mp_op, Mp_op]),
+               np.stack([ME_w_op, ME_w_op]),
+               np.stack([np.diag(w_nu * _nu_f1(nu_pts)), np.diag(w_nu * _nu_f2(nu_pts))])]
+        rhs = [np.stack([bL, bR]), np.stack([bp, bp]), np.stack([bE, bE]),
+               np.stack([w_nu, w_nu])]  # the ones load in the collocation measure
+        bc_dofs = [bc_x.dofs, no_bc, no_bc, no_bc]
+        mass = [vector_mass_matrix(Vx), Mp, mass_matrix(VE), mass_matrix(Vnu)]
+        spaces = [Vx, Vp, VE, Vnu]
+        C_out = (_C1, _C2)
+    else:
+        C = plane_strain_C(nu)
+        ops = [E_0 * elasticity_matrix(Vx, C)[None], Mp_op[None], ME_w_op[None]]
+        rhs = [np.stack([bL, bR]), np.stack([bp, bp]), np.stack([bE, bE])]
+        bc_dofs = [bc_x.dofs, no_bc, no_bc]
+        mass = [vector_mass_matrix(Vx), Mp, mass_matrix(VE)]
+        spaces = [Vx, Vp, VE]
+        C_out = C
+    dt = dtype or np.float64
+    prob = SeparatedProblem(
+        ops=[np.asarray(o, dtype=dt) for o in ops],
+        rhs=[np.asarray(r, dtype=dt) for r in rhs],
+        mass=[np.asarray(m, dtype=dt) for m in mass],
+        bc_dofs=bc_dofs,
+    )
+    return prob, spaces, (C_out, bL, bR)
+
+
+def _kappa_weight_3d(i: int, num_params: int):
+    """Separated diffusion weight w_i(x, y, z) = sin²((i+1)πx)·sin²(πy)·
+    sin²(πz)/(2P): κ = 1 + Σ p_i w_i ≥ 1/2 on the unit parameter box."""
+
+    def w(pts):
+        return (np.sin((i + 1) * np.pi * pts[..., 0]) ** 2
+                * np.sin(np.pi * pts[..., 1]) ** 2
+                * np.sin(np.pi * pts[..., 2]) ** 2 / (2 * num_params))
+
+    return w
+
+
+def parametric_elliptic_3d(n: int = 8, n_p: int = 32, num_params: int = 2,
+                           p_range=(0.0, 1.0), dtype=None, degree_x: int = 1):
+    """3D parametric diffusion vademecum: −∇·(κ∇u) = 1 on the unit cube
+    (``BoxMesh`` Kuhn tets, P``degree_x``), homogeneous Dirichlet, with
+    κ(x; p) = 1 + Σ_i p_i·w_i(x) (:func:`_kappa_weight_3d`).  The parameter
+    dims use the collocation (lumped) discretization, so the converged
+    vademecum equals per-grid-point FEM.  Returns ``(problem, [V_xyz,
+    V_p1, ...])``."""
+    Vx = FunctionSpace(BoxMesh(Point(0, 0, 0), Point(1, 1, 1), n, n, n), "P", degree_x)
+    Vp = [FunctionSpace(IntervalMesh(n_p, p_range[0], p_range[1]), "P", 1)
+          for _ in range(num_params)]
+    K0 = stiffness_matrix(Vx)
+    Kw = [stiffness_matrix(Vx, weight=_kappa_weight_3d(i, num_params))
+          for i in range(num_params)]
+    Mp = [mass_matrix(v) for v in Vp]
+    # collocation lumping (exact for linear weights over P1 hats)
+    Mp_op = [np.diag(m.sum(axis=1)) for m in Mp]
+    Mp_w_op = [np.diag(mass_matrix(v, weight=lambda p: p).sum(axis=1)) for v in Vp]
+    T = 1 + num_params
+    ops = [np.stack([K0] + Kw)]
+    for j in range(num_params):
+        ops.append(np.stack([Mp_w_op[j] if t == j + 1 else Mp_op[j] for t in range(T)]))
+    rhs = [load_vector(Vx, lambda x: np.ones(x.shape[:-1]))[None, :]]
+    for v in Vp:
+        rhs.append(load_vector(v, lambda p: np.ones_like(p))[None, :])
+    bc_x = DirichletBC(Vx, 0.0, lambda x, onb: onb)
+    dt = dtype or np.float64
+    prob = SeparatedProblem(
+        ops=[np.asarray(o, dtype=dt) for o in ops],
+        rhs=[np.asarray(r, dtype=dt) for r in rhs],
+        mass=[np.asarray(m, dtype=dt) for m in [mass_matrix(Vx)] + Mp],
+        bc_dofs=[bc_x.dofs] + [np.array([], dtype=np.int64)] * num_params,
+    )
+    return prob, [Vx] + Vp
+
+
+def elliptic3d_dense_verifier(Vs, tf=None, n_random: int = 8, seeds=(7, 101)):
+    """Dense held-out verifier for :func:`parametric_elliptic_3d`: the max
+    relative L2 error vs a per-sample f64 3D FEM solve (dense LU on the
+    interior dofs) at the 2^d inset parameter-box corners plus
+    ``n_random`` on-grid samples per seed.  Returns ``verify(result) ->
+    {"corners", "interior", "max"}`` with ``verify.sample_errors(result,
+    points)``, ``verify.corners`` and ``verify.samples`` (the corners and
+    each seed's draws, as :func:`elliptic_dense_verifier` has them).  The
+    result's modes may be tensors on any device or arrays; they are
+    evaluated on the host in their own dtype, the reconstruction in f64."""
+    from pgdrome_tpu_torch.separated import evaluate_modes_1d
+
+    Vx = Vs[0]
+    num_params = len(Vs) - 1
+    b_full = load_vector(Vx, lambda x: np.ones(x.shape[:-1]))
+    grid = Vs[1].tabulate_dof_coordinates()[:, 0]
+    corners = box_corners(grid[1], grid[-2], num_params)
+    free = np.setdiff1d(np.arange(Vx.dim()), DirichletBC(Vx, 0.0, lambda x, onb: onb).dofs)
+    draws = {}
+    for seed in seeds:
+        rng = np.random.default_rng(seed)
+        draws[seed] = grid[rng.integers(1, len(grid) - 1, size=(n_random, num_params))]
+
+    def _errors(res, full0, samples):
+        errs = []
+        for p in np.asarray(samples, dtype=np.float64):
+            def kappa(pts, p=p):
+                return 1.0 + sum(p[i] * _kappa_weight_3d(i, num_params)(pts)
+                                 for i in range(num_params))
+
+            K = stiffness_matrix(Vx, weight=kappa)
+            u_ref = np.zeros(Vx.dim())
+            u_ref[free] = np.linalg.solve(K[np.ix_(free, free)], b_full[free])
+            fac = np.ones(res.n_modes)
+            for j in range(num_params):
+                m = torch.as_tensor(res.modes[1 + j]).detach().cpu()
+                vals = evaluate_modes_1d(Vs[1 + j], m, torch.tensor([p[j]], dtype=m.dtype))
+                fac *= host_f64(vals)[0, : res.n_modes]
+            u = fac @ full0[: res.n_modes]
+            errs.append(np.linalg.norm(u - u_ref) / np.linalg.norm(u_ref))
+        return np.asarray(errs)
+
+    def _full0(res):
+        m0 = res.modes[0]
+        return host_f64(tf.modes_to_full(m0) if tf is not None else m0)
+
+    def sample_errors(res, samples):
+        return _errors(res, _full0(res), samples)
+
+    def verify(res):
+        full0 = _full0(res)
+        mc = float(_errors(res, full0, corners).max())
+        mi = max((float(_errors(res, full0, r).max()) for r in draws.values()), default=0.0)
+        return {"corners": mc, "interior": mi, "max": max(mc, mi)}
+
+    verify.sample_errors = sample_errors
+    verify.corners = corners
+    verify.samples = {"corners": corners, **draws}
     return verify
 
 

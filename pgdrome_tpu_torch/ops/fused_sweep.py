@@ -22,7 +22,10 @@ its fused narrow product: F never leaves the chip.  Wider outputs
 (fields) take two kernels: the factor kernel writes F, split into tf32
 hi/lo halves, into a scratch buffer whose rows are K rounded up to a
 multiple of 8, and a TMA + wgmma GEMM multiplies it by the split,
-transposed, masked M0 table in three tf32 passes; the wrapper walks the
+transposed, masked M0 table in three tf32 passes; the first
+:data:`K_HEAD` modes skip the tensor cores (F's columns kept whole, their
+table rows zero) and are added in f32 FMAs by the GEMM's epilogue from an
+f32 head table (:func:`split_factors`, :func:`split_table`); the wrapper walks the
 batch in row chunks so the scratch stays under :data:`SCRATCH_BYTES`.
 Above K = :data:`SPLIT_K_MIN` both products sum over k in chunks of
 :data:`K_CHUNK`: each chunk's f32 partial goes to a scratch buffer and a
@@ -84,6 +87,7 @@ GEMM_ROWS = 128  # output rows of one GEMM block; chunks are multiples of it
 SPLIT_K_MIN = 1024
 K_CHUNK = 512
 K_GROUP = 16  # k per fresh tensor-core accumulator (the kernel's kGroupK)
+K_HEAD = 8  # leading modes summed in f32 FMAs by the GEMM's epilogue (kHead)
 K_ALIGN = 8  # F and table rows are padded to a multiple of this (TMA, k8 steps)
 _MAX_NP = 16
 
@@ -168,7 +172,7 @@ def _library():
         lib.pgd_sweep_factors.restype = i
         lib.pgd_factor_smem.argtypes = [i, i, i, i, i, i]
         lib.pgd_factor_smem.restype = ll
-        lib.pgd_sweep_gemm.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, p]
+        lib.pgd_sweep_gemm.argtypes = [p, p, p, p, p, p, p, ll, i, i, i, i, p]
         lib.pgd_sweep_gemm.restype = i
         lib.pgd_partial_sum.argtypes = [p, p, i, ll, i, p]
         lib.pgd_partial_sum.restype = i
@@ -176,6 +180,10 @@ def _library():
         lib.pgd_sweep_gemm_smem.restype = i
         lib.pgd_error_string.argtypes = [i]
         lib.pgd_error_string.restype = ctypes.c_char_p
+        lib.pgd_k_head.argtypes = []
+        lib.pgd_k_head.restype = i
+        if lib.pgd_k_head() != K_HEAD:
+            raise RuntimeError(f"kernel head width {lib.pgd_k_head()} != K_HEAD {K_HEAD}")
         _LIB = lib
     return _LIB
 
@@ -246,16 +254,33 @@ def split_tf32(x: torch.Tensor):
     return torch.where(finite, hi, x), lo
 
 
+def split_factors(f: torch.Tensor):
+    """The factor kernel's split store of float32 F (rows, Kp): columns
+    k ≥ :data:`K_HEAD` split by :func:`split_tf32`, the head columns kept
+    whole in hi with lo zero (the GEMM's epilogue sums them in f32 FMAs).
+    Returns (hi, lo)."""
+    hi, lo = split_tf32(f)
+    hi[:, :K_HEAD] = f[:, :K_HEAD]
+    lo[:, :K_HEAD] = 0.0
+    return hi, lo
+
+
 def split_table(m0: torch.Tensor, n_modes: int):
-    """The GEMM's B operand: M0 (K, n0) transposed to (n0, Kp), rows
-    k ≥ ``n_modes`` and the padding k ≥ K zero (whatever M0 holds there,
-    NaN included), split by :func:`split_tf32`.  Returns (hi, lo)."""
+    """The GEMM's M0 operands.  M0 (K, n0) with rows k ≥ ``n_modes`` taken
+    as zero (whatever M0 holds there, NaN included): its rows
+    k ≥ :data:`K_HEAD`, transposed to (n0, Kp) and split by
+    :func:`split_tf32`, the head and the padding k ≥ K zero; and its first
+    K_HEAD rows in f32, (K_HEAD, n0 rounded up to 4), zero past K and n0.
+    Returns (hi, lo, head)."""
     K, n0 = m0.shape
-    t = torch.zeros((n0, padded_k(K)), dtype=torch.float32, device=m0.device)
     keep = torch.arange(K, device=m0.device) < int(n_modes)
-    t[:, :K] = torch.where(keep[:, None], m0.to(torch.float32), 0.0).T
+    m = torch.where(keep[:, None], m0.to(torch.float32), 0.0)
+    t = torch.zeros((n0, padded_k(K)), dtype=torch.float32, device=m0.device)
+    t[:, K_HEAD:K] = m[K_HEAD:].T
     hi, lo = split_tf32(t)
-    return hi.contiguous(), lo.contiguous()
+    head = torch.zeros((K_HEAD, _round4(n0)), dtype=torch.float32, device=m0.device)
+    head[:min(K, K_HEAD), :n0] = m[:K_HEAD]
+    return hi.contiguous(), lo.contiguous(), head
 
 
 def k_chunks(K: int) -> int:
@@ -513,7 +538,7 @@ def partial_sum(part, out):
 def factors_stage(samples, grid, tabs, n_modes, out, out_lo=None, plan=None, sliced=None):
     """The factor kernel on the card: the masked factors of ``samples``
     (B, NP) into ``out`` (B, K), columns k ≥ ``n_modes`` zero — or, with
-    ``out_lo``, their tf32 halves (:func:`split_tf32`) into ``out`` and
+    ``out_lo``, their split (:func:`split_factors`) into ``out`` and
     ``out_lo`` (B, ldf), ldf ≥ K and a multiple of 4, the padding zero.
     ``samples``, ``grid`` and ``tabs`` as :func:`fused_sweep` takes them;
     ``plan`` and ``sliced`` (:func:`factor_plan`, :func:`slice_tables`)
@@ -533,24 +558,26 @@ def factors_stage(samples, grid, tabs, n_modes, out, out_lo=None, plan=None, sli
     _launch_factors(samples, grid, tabs, n_modes, plan, sliced, out, out_lo)
 
 
-def gemm_stage(f_hi, f_lo, t_hi, t_lo, out):
-    """Stage 2 on the card: ``out`` (rows, n0) = F · M0 in three tf32
-    passes, from the split factors ``f_hi``/``f_lo`` (rows, Kp) and the
-    split table ``t_hi``/``t_lo`` (n0, Kp) of :func:`split_table`; ``out``
-    float32 or bfloat16 (the store rounds).  Above :data:`SPLIT_K_MIN`
+def gemm_stage(f_hi, f_lo, t_hi, t_lo, head, out):
+    """Stage 2 on the card: ``out`` (rows, n0) = F · M0, from the split
+    factors ``f_hi``/``f_lo`` (rows, Kp) of :func:`split_factors` and the
+    table ``t_hi``/``t_lo`` (n0, Kp), ``head`` (K_HEAD, round4(n0)) of
+    :func:`split_table`: three tf32 passes over k ≥ :data:`K_HEAD`, then
+    the head in f32 FMAs; ``out`` float32 or bfloat16 (the store rounds).  Above :data:`SPLIT_K_MIN`
     the GEMM writes one f32 partial per :data:`K_CHUNK` of k into a
     scratch buffer and :func:`partial_sum` adds them.  rows ≥ 1."""
     dev = out.device
-    for name, t in (("f_hi", f_hi), ("f_lo", f_lo), ("t_hi", t_hi), ("t_lo", t_lo)):
+    for name, t in (("f_hi", f_hi), ("f_lo", f_lo), ("t_hi", t_hi), ("t_lo", t_lo),
+                    ("head", head)):
         _check(t, name, dev, 2)
     _check(out, "out", dev, 2, out.dtype)
     rows, Kp = f_hi.shape
     n0 = t_hi.shape[0]
     if (f_lo.shape != f_hi.shape or t_hi.shape != (n0, Kp) or t_lo.shape != t_hi.shape
-            or out.shape != (rows, n0)):
+            or out.shape != (rows, n0) or head.shape != (K_HEAD, _round4(n0))):
         raise ValueError(
             f"GEMM shapes do not match: F {tuple(f_hi.shape)}, table "
-            f"{tuple(t_hi.shape)}, out {tuple(out.shape)}"
+            f"{tuple(t_hi.shape)}, head {tuple(head.shape)}, out {tuple(out.shape)}"
         )
     if out.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"out must be float32 or bfloat16, got {out.dtype}")
@@ -563,7 +590,7 @@ def gemm_stage(f_hi, f_lo, t_hi, t_lo, out):
     with torch.cuda.device(dev):
         rc = lib.pgd_sweep_gemm(
             f_hi.data_ptr(), f_lo.data_ptr(), t_hi.data_ptr(), t_lo.data_ptr(),
-            out.data_ptr(), None if part is None else part.data_ptr(), rows, Kp, n0, K_CHUNK,
+            head.data_ptr(), out.data_ptr(), None if part is None else part.data_ptr(), rows, Kp, n0, K_CHUNK,
             int(out.dtype == torch.bfloat16), _stream(dev),
         )
     _raise_on(rc, lib, "sweep GEMM")
@@ -604,7 +631,7 @@ def _gemm_product(sweep, samples, bf16):
     chunk's rows of the (B, n0) output."""
     dev = samples.device
     B, K = samples.shape[0], sweep.tabs.shape[2]
-    t_hi, t_lo = sweep.table
+    t_hi, t_lo, head = sweep.table
     out = torch.empty((B, t_hi.shape[0]), dtype=torch.bfloat16 if bf16 else torch.float32,
                       device=dev)
     chunks = row_chunks(B, K, t_hi.shape[0])
@@ -614,7 +641,7 @@ def _gemm_product(sweep, samples, bf16):
         n = r1 - r0
         _launch_factors(samples[r0:r1], sweep.grid, sweep.tabs, sweep.n_modes, sweep.plan,
                         sweep.sliced, f_hi[:n], f_lo[:n])
-        gemm_stage(f_hi[:n], f_lo[:n], t_hi, t_lo, out[r0:r1])
+        gemm_stage(f_hi[:n], f_lo[:n], t_hi, t_lo, head, out[r0:r1])
     return out
 
 

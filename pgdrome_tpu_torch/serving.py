@@ -777,15 +777,14 @@ class Vademecum:
 
     def _output_gram(self):
         """(R, R) f64 Gram of the dim-0 modes under the spatial mass
-        measure over the domain volume (the aggregated variance is the
-        spatial mean of the pointwise variance); the banded mass matrix is
-        applied sparse."""
-        import scipy.sparse as sp
-
-        from pgdrome_tpu_torch.fem.assembly import mass_matrix
+        measure (the block mass of a vector space) over the domain volume:
+        the aggregated variance is the spatial mean of the pointwise
+        variance.  The mass matrix is assembled and applied sparse."""
+        from pgdrome_tpu_torch.fem.assembly import mass_matrix, vector_mass_matrix
 
         V0 = self.spaces[0]
-        W = sp.csr_matrix(mass_matrix(V0))
+        W = (vector_mass_matrix(V0, sparse=True) if V0.value_size > 1
+             else mass_matrix(V0, sparse=True))
         U = host_f64(self._modes[0])
         return U @ (W @ U.T) / float(np.sum(V0.q_weights))
 
@@ -806,14 +805,47 @@ class Vademecum:
 
     def derivative(self, direction: int = 0):
         """The derivative vademecum: a new container over the DG(degree−1)
-        space with every dim-0 mode replaced by its exact d/dx
+        space with every dim-0 mode replaced by its exact derivative
         (:func:`pgdrome_tpu_torch.fem.derivative.derivative_function`,
         once per mode), so fields, sensors, streams and moments serve the
-        derivative field at full sweep rate.  1D dim-0 spaces:
-        ``direction`` 0."""
+        derivative field at full sweep rate.  1D and 2D/3D scalar dim-0
+        spaces: ∂/∂x_direction (scalar DG fields); a vector dim-0 space
+        (the elasticity flagship): the full ∇u tensor, fields (B,
+        n_scalar_dofs·vs·gdim) with ∂u_i/∂x_j at ``i·gdim + j`` — see
+        :meth:`strain` for its symmetric part."""
         from pgdrome_tpu_torch.fem.derivative import derivative_function
 
         return self._dim0_mode_map(lambda f: derivative_function(f, direction=direction))
+
+    def gradient(self):
+        """The ∇u vademecum: a 2D/3D scalar dim-0 space gives DG gdim-vector
+        fields, a vector one the ∇u tensor (as :meth:`derivative`)."""
+        from pgdrome_tpu_torch.fem.derivative import gradient_function
+
+        return self._dim0_mode_map(gradient_function)
+
+    def strain(self):
+        """The ε(u) = sym(∇u) vademecum of a 2D vector dim-0 space
+        (elasticity): Voigt components (ε_xx, ε_yy, γ_xy = 2ε_xy) per DG
+        dof.  Strain is parameter-independent and linear in the modes, so
+        it is exact per-mode preprocessing and serves at full sweep rate;
+        stress needs the material law's parameter dependence (ν is a swept
+        coordinate of the flagship), so it is left to the caller."""
+        from pgdrome_tpu_torch.fem.derivative import _dg_space, gradient_function
+        from pgdrome_tpu_torch.fem.function import Function
+
+        V0 = self.spaces[0]
+        if V0.value_size != 2 or V0.mesh().topology_dim() != 2:
+            raise ValueError("strain() needs a 2D vector dim-0 space")
+
+        def to_strain(f):
+            G = gradient_function(f)  # 4 components: ux,x ux,y uy,x uy,y
+            Vg = G.function_space()
+            g = np.asarray(G.array).reshape(-1, 4)
+            eps = np.stack([g[:, 0], g[:, 3], g[:, 1] + g[:, 2]], axis=1)
+            return Function(_dg_space(Vg.mesh(), Vg.degree, dim=3), eps.reshape(-1))
+
+        return self._dim0_mode_map(to_strain)
 
     # -------------------------------------------------------- persistence
 

@@ -184,8 +184,9 @@ def test_nan_rows_past_n_modes(cuda, n0):
 
 
 def test_split_store_matches_plain(cuda):
-    # stage 1's hi/lo store is the plain split_tf32 of its own f32 factors,
-    # bit for bit; the padding columns past K are zero
+    # stage 1's hi/lo store is the plain split_factors of its own f32
+    # factors (the head whole, the rest split_tf32), bit for bit; the
+    # padding columns past K are zero
     spaces, modes = _case(1, 16, 45, 20, 4, seed=11)
     kern = fs.make_fused_sweep(spaces, [None] + modes[1:], 41, device=cuda)
     s = torch.as_tensor(np.random.default_rng(10).uniform(0.0, 2.0, size=(333, 4)),
@@ -198,7 +199,7 @@ def test_split_store_matches_plain(cuda):
     torch.cuda.synchronize()
     assert bool((f[:, 41:] == 0).all())
     assert bool((hi[:, 45:] == 0).all()) and bool((lo[:, 45:] == 0).all())
-    ph, pl = fs.split_tf32(f)
+    ph, pl = fs.split_factors(f)
     assert torch.equal(hi[:, :45].view(torch.int32), ph.view(torch.int32))
     assert torch.equal(lo[:, :45].view(torch.int32), pl.view(torch.int32))
 
@@ -301,12 +302,12 @@ def test_split_k(cuda, K):
     hi = torch.empty((200, fs.padded_k(K)), device=cuda)
     lo = torch.empty_like(hi)
     fs.factors_stage(s, sweep.grid, sweep.tabs, K - 2, hi, lo)
-    t_hi, t_lo = sweep.table
+    t_hi, t_lo, head = sweep.table
     lib = fs._library()
     part = torch.empty((n_ch, 200, 300), device=cuda)
     direct = torch.empty((200, 300), device=cuda)
     rc = lib.pgd_sweep_gemm(hi.data_ptr(), lo.data_ptr(), t_hi.data_ptr(), t_lo.data_ptr(),
-                            direct.data_ptr(), None if n_ch == 1 else part.data_ptr(), 200,
+                            head.data_ptr(), direct.data_ptr(), None if n_ch == 1 else part.data_ptr(), 200,
                             fs.padded_k(K), 300, fs.K_CHUNK, 0,
                             fs._stream(torch.device(cuda)))
     assert rc == 0
@@ -359,7 +360,7 @@ def test_factors_bitwise(cuda, deg_p, n_cells, NP, K, n_modes, B):
         fs.factors_stage(s, sweep.grid, sweep.tabs, n_modes, hi, lo, plan=plan)
         torch.cuda.synchronize()
         assert torch.equal(f, ref), ks
-        ph, pl = fs.split_tf32(ref)
+        ph, pl = fs.split_factors(ref)
         assert torch.equal(hi[:, :K].view(torch.int32), ph.view(torch.int32))
         assert torch.equal(lo[:, :K].view(torch.int32), pl.view(torch.int32))
         assert bool((hi[:, K:] == 0).all()) and bool((lo[:, K:] == 0).all())
@@ -867,3 +868,104 @@ def test_space_time_corrected_sweep_on_card(cuda):
     assert fs.LAUNCHES["factors"] == 2 and sum(fs.LAUNCHES.values()) == 2
     bound, _ = corrected_sweep_bound(dc, pts)
     assert bool((np.abs(s32.double().cpu().numpy() - dc.corrected(pts)) <= bound).all())
+
+
+def _flagship_on_card(cuda):
+    """A toy elasticity-ν flagship (vector P2, collocation) trained in f32
+    on the card; power-of-two parameter spacings, so the f32 cell locate
+    is exact and an f64 reference can be taken at the same samples."""
+    from pgdrome_tpu_torch.models.problems import elasticity_vademecum
+    from pgdrome_tpu_torch.separated import SeparatedPGD, precondition_dim
+    from pgdrome_tpu_torch.serving import Vademecum
+
+    sep, Vs, _ = elasticity_vademecum(nx=8, ny=3, n_p=8, n_E=8, n_nu=8,
+                                      nu_range=(0.125, 0.375), degree=2,
+                                      param_discretization="collocation")
+    base = np.asarray(sep.ops[0][0]) + np.asarray(sep.ops[0][1])
+    sep_pc, tf = precondition_dim(sep, dim=0, dtype=np.float64, base=base)
+    res = SeparatedPGD(sep_pc, n_max=8, tol=0.0, tol_fp=1e-6, max_fp_it=30, solver="cg",
+                       cg_iters=30, residual_check=False, dtype=np.float32,
+                       device=cuda).solve_fused()
+    vd = Vademecum(Vs, res, dim0_transform=tf, method="fused", device=cuda)
+    rng = np.random.default_rng(21)
+    lo = np.array([V.tabulate_dof_coordinates()[0, 0] for V in Vs[1:]])
+    hi = np.array([V.tabulate_dof_coordinates()[-1, 0] for V in Vs[1:]])
+    samples = (lo + (hi - lo) * rng.uniform(size=(600, 3))).astype(np.float32)
+    samples[0], samples[1] = lo, hi
+    return vd, res, tf, samples
+
+
+def test_flagship_fields_and_vector_sensors_on_card(cuda):
+    # the flagship's field wiring (n0 = 430) and its vector sensors (6
+    # points x 2 components, the narrow product) within 2γ_c of the plain
+    # version, c = K + 4·NP
+    vd, _, _, samples = _flagship_on_card(cuda)
+    pts = np.array([[100.0, 20.0], [300.0, 50.0], [500.0, 80.0], [700.0, 10.0],
+                    [900.0, 60.0], [999.0, 99.0]])
+    sens = vd.sensors(pts)
+    fs.reset_launch_counts()
+    out = vd.fields(torch.as_tensor(samples, device=cuda))
+    resp = sens(torch.as_tensor(samples, device=cuda))
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES["fields_f32"] == 1 and fs.LAUNCHES["sensors"] == 1
+    assert fs.STAGE_LAUNCHES["sensor_fused"] == 1 and resp.shape == (600, 12)
+    K = vd.n_modes
+    for got, table in ((out, vd._modes[0]), (resp, sens.m0)):
+        modes = [table.cpu().numpy()] + [m.cpu().numpy() for m in vd._modes[1:]]
+        plain = fs.make_fused_sweep(vd.spaces, modes, K, device="cpu")(
+            torch.as_tensor(samples))
+        bound = _gamma_bound(vd.spaces, modes, K, samples, K + 4 * 3)
+        assert bool(((got.cpu().double() - plain.double()).abs() <= 2 * bound).all())
+
+
+def test_flagship_strain_on_card_vs_cpu_f64(cuda):
+    # the strain vademecum (DG1, 3 Voigt components) served through the
+    # field kernels against the strain vademecum of the same served modes
+    # in f64 on the CPU: within 2γ_c of |F|·|T| (the f32 table adds one
+    # rounding).  Not against the transform's f64 modes: differentiating
+    # their f32 rounding is no rounding of the strain
+    from pgdrome_tpu_torch.serving import Vademecum
+
+    vd, _, _, samples = _flagship_on_card(cuda)
+    strain = vd.strain()
+    assert isinstance(strain._sweep(), fs.FusedSweep) and strain._modes[0].shape[1] == 96 * 9
+    fs.reset_launch_counts()
+    out = strain.fields(torch.as_tensor(samples, device=cuda))
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES["fields_f32"] == 1
+    vd64 = Vademecum(vd.spaces, vd.result, method="torch", dtype=torch.float64,
+                     device="cpu").strain()
+    ref = vd64.fields(samples.astype(np.float64))
+    modes = [m.numpy() for m in vd64._modes]
+    bound = _gamma_bound(vd64.spaces, modes, vd64.n_modes, samples, vd64.n_modes + 4 * 3)
+    assert bool(((out.cpu().double() - ref).abs() <= 2 * bound).all())
+
+
+def test_heat3d_sensors_on_card(cuda):
+    # a 3D P2 space dim trained in f64 on the CPU, served in f32 on the
+    # card: 3D-point sensors through the narrow product and fields through
+    # the GEMM, each within 2γ_c of the plain version
+    from pgdrome_tpu_torch.models.problems import parametric_elliptic_3d
+    from pgdrome_tpu_torch.separated import SeparatedPGD
+    from pgdrome_tpu_torch.serving import Vademecum
+
+    sep, Vs = parametric_elliptic_3d(n=3, n_p=8, num_params=2, degree_x=2)
+    res = SeparatedPGD(sep, n_max=12, tol=1e-12, tol_fp=1e-6, dtype=np.float64,
+                       device="cpu").solve()
+    vd = Vademecum(Vs, res, method="fused", device=cuda)
+    pts = np.array([[0.5, 0.5, 0.5], [0.25, 0.5, 0.75], [0.1, 0.9, 0.3], [0.8, 0.2, 0.6]])
+    samples = np.random.default_rng(22).uniform(0.0, 1.0, size=(500, 2)).astype(np.float32)
+    samples[0], samples[1] = 0.0, 1.0
+    sens = vd.sensors(pts)
+    fs.reset_launch_counts()
+    resp = sens(torch.as_tensor(samples, device=cuda))
+    out = vd.fields(torch.as_tensor(samples, device=cuda))
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES["sensors"] == 1 and fs.LAUNCHES["fields_f32"] == 1
+    assert resp.shape == (500, 4) and out.shape == (500, Vs[0].dim())
+    K = vd.n_modes
+    for got, table in ((resp, sens.m0), (out, vd._modes[0])):
+        modes = [table.cpu().numpy()] + [m.cpu().numpy() for m in vd._modes[1:]]
+        plain = fs.make_fused_sweep(Vs, modes, K, device="cpu")(torch.as_tensor(samples))
+        bound = _gamma_bound(Vs, modes, K, samples, K + 4 * 2)
+        assert bool(((got.cpu().double() - plain.double()).abs() <= 2 * bound).all())

@@ -2,8 +2,8 @@
 
 A subprocess imports ``pgdrome_tpu_torch`` and every submodule and reports
 what ``sys.modules`` then holds; a source scan checks every import
-statement of the package and of its two scripts, ``chip_smoke.py`` and
-``run_frontier_torch.py``.  The one exception is ``h5py`` inside a function
+statement of the package and of its scripts, ``chip_smoke.py`` and every
+``run_*_torch.py`` at the root.  The one exception is ``h5py`` inside a function
 body: the reader of the JAX package's HDF5 snapshots imports it when it is
 called, never at import time.
 """
@@ -20,8 +20,9 @@ ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "pgdrome_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "h5py", "pgdrome_tpu")
 LAZY_ALLOWED = ("h5py",)  # may be imported inside a function body
+RUNNERS = sorted(p.name for p in ROOT.glob("run_*_torch.py"))
 SOURCES = sorted(p.relative_to(ROOT).as_posix() for p in PKG.rglob("*.py")) + [
-    "chip_smoke.py", "run_frontier_torch.py"]
+    "chip_smoke.py"] + RUNNERS
 MODULES = sorted(
     p.relative_to(ROOT).with_suffix("").as_posix().replace("/", ".").removesuffix(".__init__")
     for p in PKG.rglob("*.py")
@@ -101,3 +102,21 @@ def test_serving_modules_covered():
         assert module.replace(".", "/") + ".py" in SOURCES
     lazy = [f for n, f in _imports(ast.parse((PKG / "convert.py").read_text())) if n == "h5py"]
     assert lazy and all(lazy)
+
+
+def test_runner_scripts_covered():
+    # every runner script at the root is scanned, the three known ones too
+    for name in ("run_frontier_torch.py", "run_nonlinear_torch.py",
+                 "run_transient_goal_torch.py"):
+        assert name in RUNNERS and name in SOURCES
+
+
+def test_fem_modules_covered():
+    # the 2D/3D FEM's modules are among those imported and scanned
+    for module in ("pgdrome_tpu_torch.fem.mesh", "pgdrome_tpu_torch.fem.space",
+                   "pgdrome_tpu_torch.fem.assembly", "pgdrome_tpu_torch.fem.bc",
+                   "pgdrome_tpu_torch.fem.function", "pgdrome_tpu_torch.fem.interpolate",
+                   "pgdrome_tpu_torch.fem.derivative", "pgdrome_tpu_torch.fem.assembly_device",
+                   "pgdrome_tpu_torch.models.problems"):
+        assert module in MODULES
+        assert module.replace(".", "/") + ".py" in SOURCES

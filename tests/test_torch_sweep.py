@@ -260,14 +260,30 @@ def test_split_table(K, n0, n_modes):
     rng = np.random.default_rng(K)
     m0 = rng.normal(size=(K, n0)).astype(np.float32)
     m0[n_modes:] = np.nan  # padded-buffer rows never reach the product
-    hi, lo = fs.split_table(torch.as_tensor(m0), n_modes)
-    Kp = fs.padded_k(K)
+    hi, lo, head = fs.split_table(torch.as_tensor(m0), n_modes)
+    Kp, H = fs.padded_k(K), fs.K_HEAD
     assert Kp % 8 == 0 and K <= Kp < K + 8
     assert hi.shape == lo.shape == (n0, Kp) and hi.is_contiguous() and lo.is_contiguous()
     assert bool((hi[:, n_modes:] == 0).all()) and bool((lo[:, n_modes:] == 0).all())
+    # the head's rows go to the f32 table, whole; the split holds the rest
+    assert bool((hi[:, :H] == 0).all()) and bool((lo[:, :H] == 0).all())
+    ref_head = np.zeros((H, -(-n0 // 4) * 4), np.float32)
+    ref_head[:min(H, n_modes), :n0] = m0[:min(H, n_modes)]
+    assert head.shape == ref_head.shape and np.array_equal(head.numpy(), ref_head)
     rebuilt = hi.double() + lo.double()
     ref = torch.as_tensor(m0[:n_modes]).double().T
-    assert bool(((rebuilt[:, :n_modes] - ref).abs() <= 2.0 ** -22 * ref.abs()).all())
+    assert bool(((rebuilt[:, H:n_modes] - ref[:, H:]).abs() <= 2.0 ** -22 * ref[:, H:].abs()).all())
+
+
+def test_split_factors():
+    # the factor kernel's split store: head columns whole with lo zero,
+    # split_tf32 past them
+    f = torch.as_tensor(np.random.default_rng(3).normal(size=(7, 40)).astype(np.float32))
+    hi, lo = fs.split_factors(f)
+    H = fs.K_HEAD
+    th, tl = fs.split_tf32(f)
+    assert torch.equal(hi[:, :H], f[:, :H]) and bool((lo[:, :H] == 0).all())
+    assert torch.equal(hi[:, H:], th[:, H:]) and torch.equal(lo[:, H:], tl[:, H:])
 
 
 @pytest.mark.parametrize("B,K,cap", [
@@ -291,18 +307,23 @@ def _emulate_3xtf32(fac, m0, n_modes, depth=32):
     """The GEMM's arithmetic with a round-to-nearest accumulator: per
     ``depth``-k chunk hi·lo + lo·hi + hi·hi summed exactly (f64 holds the
     tf32 products and their short sums), rounded to f32, and the chunks
-    added in f32."""
+    added in f32; then the head, k = K_HEAD − 1 down to 0, in f32 FMAs
+    (the product exact in f64, one rounding to f32 per step)."""
     K = fac.shape[1]
     Kp = fs.padded_k(K)
     f = torch.zeros((fac.shape[0], Kp), dtype=torch.float32)
     f[:, :K] = fac
-    fh, fl = (t.double() for t in fs.split_tf32(f))
-    th, tl = (t.double() for t in fs.split_table(m0, n_modes))
+    fh, fl = (t.double() for t in fs.split_factors(f))
+    th, tl, head = fs.split_table(m0, n_modes)
+    th, tl = th.double(), tl.double()
     tot = torch.zeros((fac.shape[0], m0.shape[1]), dtype=torch.float32)
     for k0 in range(0, Kp, depth):
         k = slice(k0, k0 + depth)
         part = fh[:, k] @ tl[:, k].T + fl[:, k] @ th[:, k].T + fh[:, k] @ th[:, k].T
         tot += part.float()
+    for k in range(min(fs.K_HEAD, Kp) - 1, -1, -1):
+        prod = f[:, k, None].double() * head[k, None, :m0.shape[1]].double()
+        tot = (prod + tot.double()).float()
     return tot
 
 
