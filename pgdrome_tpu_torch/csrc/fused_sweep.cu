@@ -56,6 +56,20 @@
 // from the sliced tables in global memory (L2) instead of a stage --
 // chosen by shape before launch, never on a failure.
 //
+// The grid is 2D: row tiles (blockIdx.x) x k-ranges (blockIdx.y), each
+// block staging only its own range's slices through the same ring.  A
+// launch of at least one tile an SM (pgd_sm_count: 132 on an H100 SXM)
+// keeps one range, the launch of the 1D design, which was built for
+// 0.5-4 M-row batches.  A smaller one -- the d=10 corners (1,024 rows of
+// K = 2717 ran as one block on one SM, 2.35 ms: PERF.md 6.1), the dual's
+// 1,360 samples, the posterior's 64 chains, a call's last row chunk --
+// shortens its tiles, down to one pass of the block's threads, towards
+// two blocks an SM, then splits the slices into k-ranges until there are
+// about two blocks an SM (ops/fused_sweep.py::factor_grid, from the
+// launch's own rows and slices).
+// F's columns are disjoint, so F and its split are bit for bit the same
+// on any grid.
+//
 // The narrow product (sensors; 512-thread blocks, ~75 registers) keeps a
 // (S, n0) f32 accumulator in shared memory.  Per slice the block writes F
 // of 512 rows into a shared tile, then each thread takes one row: a
@@ -64,7 +78,15 @@
 // row's accumulator; the rows are stored, f32 or bf16
 // (__float2bfloat16_rn), after the last slice that holds a mode.  Blocked
 // so: KS-deep partial sums, K/KS of them per output, far inside the
-// K + 4*NP roundings the checks allow.  F never reaches HBM.
+// K + 4*NP roundings the checks allow.  F never reaches HBM.  Its k
+// splits into ranges (blockIdx.y) when the batch is small, as above, and
+// on any batch whose modes pass K = 1024; a range is a power of two of
+// slices, at most one 512-k chunk and never across a chunk boundary.  On
+// more than one range each block stores its accumulator as an f32
+// partial, and partial_sum_kernel adds the ranges in f64, rounding once:
+// KS + range + 1 roundings an output, under the count the checks take
+// (ops/fused_sweep.py::sum_roundings).  One range stores the output
+// itself.
 
 // Stage 2 is a GEMM of 2*K*n0 FLOPs per sample (2.62 MFLOP at K=640,
 // n0=2049), bound by tensor-core FLOPs at the field width.  Its 128 x 128
@@ -98,8 +120,8 @@
 // against FEM at its inset corners, where the f64 product of the same f32
 // tables gives 8.88e-7 (PERF.md 6.1): the sum's reach, not the split, set
 // the error.  At K <= 1024 there is one chunk and the kernel stores the
-// total as before, bit for bit.  The narrow product (stage 1) flushes its
-// shared accumulator to the same kind of scratch every 512 k.
+// total as before, bit for bit.  The narrow product (stage 1) does the
+// same by k-ranges: above K = 1024 each range is at most one 512-k chunk.
 //
 // The head.  The first kHead = 8 modes do not go through the tensor
 // cores: the factor kernel stores their F columns whole (hi = F, lo = 0),
@@ -130,24 +152,52 @@
 // setmaxnreg gives the producer 40 registers and the consumers 232.  A
 // version with a second accumulator set, to keep one group in flight while
 // folding, compiled to 168 registers with 540 bytes of spills and ran the
-// GEMM 2.6x slower; hence one accumulator and a wait per group.  The
-// epilogue stores straight from the accumulator layout, masked at the
-// ragged edges (n0 = 2049 rows are 8196 B apart, so no TMA store).  TMA's
+// GEMM 2.6x slower; hence one accumulator and a wait per group.  TMA's
 // zero fill covers rows past the batch and k past Kp; M0 rows at or past
 // n_modes are zero in the table (the wrapper builds it), as the TPU kernel
 // folds its mask into m0.
 //
+// The blocks are persistent, one an SM: block b walks the work items b,
+// b + gridDim.x, .. of (k-chunk, m-tile, n-tile), the stage ring running
+// on across items, so the producer loads the next item's stages (and its
+// head tiles, once the epilogue has read the last) while the consumers
+// fold, add the head and store.  At K = 30-32 (the elasticity flagship,
+// its strain, the 3D vademecum) an item is one 32-k stage and the time is
+// the store: the one-tile-a-block kernel wrote it straight from the
+// fragment layout, 8 rows x 32 B an instruction on rows 8196-20736 B apart
+// (no 16-byte multiple), 3.88 ms for a 2.54 GB batch whose byte bound is
+// 0.76 ms (PERF.md 6.1).  The epilogue now stages each warpgroup's 64 x 128
+// result through a 64 x 32 shared tile, rows swizzled as TMA's 128-byte
+// swizzle (conflict-free fragment writes and row reads), four passes an
+// item, each warp writing its 16 rows in stores as wide as the rows allow:
+// 16 bytes a lane (4 rows x 32 columns an instruction) where the rows are
+// 16-byte multiples (f32, n0 % 4 == 0), 8 bytes where they are 8-byte
+// multiples (n0 even), else 4 (32 neighbouring columns of one row, 128
+// contiguous bytes an instruction; a bf16 output too); the chunk partials
+// go the same way (store_pass, the width a template argument: a loop over a
+// run-time width cost the 3D and strain GEMMs ~18 % on an H100).  A TMA store
+// a pass was tried for the aligned rows and lost: each pass must wait for
+// the bulk copy to have read the staging before the next overwrites it,
+// and there is no shared memory left for a second staging (H100, PERF.md
+// 6.1: the n0 = 2048 GEMM 12.45 ms with TMA stores, 11.33 with 16-byte
+// ones).  The arithmetic of an output is the one-tile kernel's: the same
+// 16-k groups, 512-k chunks and head, so its bits are too (the served d=5
+// and d=10 fields equal the one-tile kernel's bit for bit).
+//
 // Every entry point launches on the given stream, does not synchronise,
 // allocates nothing, and returns 0 on success, a CUDA error code, or
 // kEncodeError + a CUresult when a tensor map cannot be encoded.  Tensor
-// maps are encoded per call (the pointers change) through
-// cuTensorMapEncodeTiled, found with cudaGetDriverEntryPoint, so the
-// library links only the CUDA runtime.
+// maps are encoded through cuTensorMapEncodeTiled, found with
+// cudaGetDriverEntryPoint, so the library links only the CUDA runtime:
+// the M0 table's three once per table (pgd_gemm_table_maps), F's and the
+// store's per call (the pointers change); cudaFuncSetAttribute runs once
+// per kernel instance and device.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -156,6 +206,7 @@ constexpr int kMaxN0 = 32;           // widest output of the fused narrow produc
 constexpr int kHead = 8;             // leading modes summed in f32 FMAs (see the header)
 static_assert(kHead % 4 == 0 && kHead <= 8, "the head is whole float4s of F rows, Kp >= 8");
 constexpr int kMaxSmem = 232448;     // 227 KB per block on sm_90
+constexpr int kFactorSmemMax = kMaxSmem - 1024;  // a factor launch's dynamic share
 constexpr int kEncodeError = 100000;
 constexpr long long kHangCycles = 20000000000LL;  // ~10 s: a lost barrier traps
 
@@ -368,18 +419,24 @@ __device__ __forceinline__ void store_factors(float* out, float* out_lo, long lo
   }
 }
 
-// One block per tile of `S` sample rows (a multiple of the block's threads).  tslices
-// (n_slices, NP*ndofp, KS): the tables by k-slice, zero past K; mslices
-// (n_slices, KS, round4(n0)): the masked M0 by k-slice (narrow mode).
-// out: F (B, ld = K), F's hi half (B, ld = ldf, out_lo the lo half), or
-// the narrow product (B, ld = n0), f32 or (out_bf16) bf16.
+// One block per (tile of `S` sample rows, range of `range_slices` k-slices):
+// blockIdx.x the tile, blockIdx.y the range (slices y*range_slices ..,
+// clipped to the slices the mode walks).  S is a multiple of the rows one
+// pass of the block's threads covers (of the block's threads in narrow
+// mode).  tslices (n_slices, NP*ndofp, KS): the tables by k-slice, zero
+// past K; mslices (n_slices, KS, round4(n0)): the masked M0 by k-slice
+// (narrow mode).  out: F (B, ld = K), F's hi half (B, ld = ldf, out_lo the
+// lo half), or the narrow product (B, ld = n0), f32 or (out_bf16) bf16.
+// In narrow mode with chunk_out set, the block's accumulator over its
+// range is its f32 partial, chunk_out[blockIdx.y] of (n_ranges, B, n0),
+// and out is not written.
 template <int KS, int kMode, bool kStaged>
 __global__ void __launch_bounds__(factor_threads(kMode))
 sweep_factors_kernel(const float* __restrict__ samples, const float* __restrict__ grid,
                      const float* __restrict__ tslices, const float* __restrict__ mslices,
                      float* __restrict__ out, float* __restrict__ out_lo,
                      float* __restrict__ chunk_out, long long B, int NP, int ndofp, int n_modes,
-                     int ld, int S, int vec, int out_bf16, int chunk_slices) {
+                     int ld, int S, int vec, int out_bf16, int range_slices) {
   constexpr int kThreads = factor_threads(kMode);
   constexpr int L = KS / 4;             // lanes per sample row
   constexpr int kRowsPerPass = kThreads / L;
@@ -400,6 +457,10 @@ sweep_factors_kernel(const float* __restrict__ samples, const float* __restrict_
   float* s_acc = s_f + kThreads * kTileLd;
   const int n_active = (n_modes + KS - 1) / KS;  // slices holding a mode
   const int n_slices = kMode == kNarrow ? n_active : (ld + KS - 1) / KS;
+  // this block's slices q0 .. q_end - 1; those that hold a mode end at a_end
+  const int q0 = blockIdx.y * range_slices;
+  const int q_end = min(q0 + range_slices, n_slices);
+  const int a_end = min(q_end, n_active);
   const uint32_t bar0 = smem_u32(&s_bar[0]);
 
   if (kStaged && tid == 0) {
@@ -414,19 +475,20 @@ sweep_factors_kernel(const float* __restrict__ samples, const float* __restrict_
     for (int i = tid; i < S * ldacc; i += kThreads) s_acc[i] = 0.0f;
   __syncthreads();
 
-  // slice q goes to stage q % 2, its (q / 2)-th fill
+  // the block's i-th slice q0 + i goes to stage i % 2, its (i / 2)-th fill
   auto fill = [&](int q) {
-    const uint32_t bar = bar0 + 8 * (q & 1);
-    const uint32_t dst = smem_u32(smem + (q & 1) * stage_floats);
+    const int i = q - q0;
+    const uint32_t bar = bar0 + 8 * (i & 1);
+    const uint32_t dst = smem_u32(smem + (i & 1) * stage_floats);
     mbar_expect_tx(bar, stage_floats * 4);
     bulk_load(dst, tslices + (size_t)q * tab_floats, tab_floats * 4, bar);
     if (kMode == kNarrow)
       bulk_load(dst + tab_floats * 4, mslices + (size_t)q * KS * n0p, KS * n0p * 4, bar);
   };
   if (kStaged && tid == 0)
-    for (int q = 0; q < 2 && q < n_active; ++q) fill(q);
+    for (int q = q0; q < q0 + 2 && q < a_end; ++q) fill(q);
 
-  for (int q = 0; q < n_slices; ++q) {
+  for (int q = q0; q < q_end; ++q) {
     const int k = q * KS + 4 * g;  // this lane's first column
     if (q >= n_active) {           // every column at or past n_modes
       for (int p = 0; p < rows; p += kRowsPerPass)
@@ -438,8 +500,9 @@ sweep_factors_kernel(const float* __restrict__ samples, const float* __restrict_
     const float* tab;
     const float* m0s;
     if constexpr (kStaged) {
-      mbar_wait(bar0 + 8 * (q & 1), (q >> 1) & 1);
-      tab = smem + (q & 1) * stage_floats;
+      const int i = q - q0;
+      mbar_wait(bar0 + 8 * (i & 1), (i >> 1) & 1);
+      tab = smem + (i & 1) * stage_floats;
       m0s = tab + tab_floats;
     } else {
       tab = tslices + (size_t)q * tab_floats;
@@ -498,21 +561,13 @@ sweep_factors_kernel(const float* __restrict__ samples, const float* __restrict_
               *reinterpret_cast<float4*>(acc + c) = a;
             }
           }
-          if (chunk_out != nullptr && (q + 1) % chunk_slices == 0 && q + 1 < n_active) {
-            // the end of a k-chunk: its f32 partial out, a fresh accumulator
-            float* dst = chunk_out + ((long long)(q / chunk_slices) * B + tile0 + c0 + tid) * n0;
-            for (int c = 0; c < n0; ++c) {
-              dst[c] = acc[c];
-              acc[c] = 0.0f;
-            }
-          }
         }
         __syncthreads();
       }
     }
     if constexpr (kStaged) {
       __syncthreads();  // every thread is done with this stage
-      if (tid == 0 && q + 2 < n_active) {
+      if (tid == 0 && q + 2 < a_end) {
         asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
         fill(q + 2);
       }
@@ -521,12 +576,11 @@ sweep_factors_kernel(const float* __restrict__ samples, const float* __restrict_
 
   if constexpr (kMode == kNarrow) {
     // each row's accumulator was written by thread (row % kThreads) alone
-    const long long last = n_active > 0 ? (n_active - 1) / chunk_slices : 0;
     for (int r = tid; r < rows; r += kThreads) {
       const float* acc = s_acc + r * ldacc;
       const long long at = (tile0 + r) * n0;
-      if (chunk_out != nullptr) {  // the last chunk's partial
-        for (int c = 0; c < n0; ++c) chunk_out[last * B * n0 + at + c] = acc[c];
+      if (chunk_out != nullptr) {  // this range's partial
+        for (int c = 0; c < n0; ++c) chunk_out[blockIdx.y * B * n0 + at + c] = acc[c];
       } else if (out_bf16) {
         __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(out) + at;
         for (int c = 0; c < n0; ++c) o[c] = __float2bfloat16_rn(acc[c]);
@@ -552,8 +606,16 @@ constexpr int kBTileBytes = kBN * kBoxK * 4;
 constexpr int kStageBytes = 2 * kATileBytes + 2 * kBTileBytes;
 constexpr int kStages = 3;
 constexpr int kHeadBytes = kBM * kHead * 4 + kHead * kBN * 4;  // F and M0 head tiles
-constexpr int kGemmSmem = kStages * kStageBytes + kHeadBytes + (2 * kStages + 1) * 8 + 1024;
+constexpr int kEpiCols = 32;  // output columns per epilogue pass: one 128-byte swizzle row
+constexpr int kEpiBytes = (kBM / 2) * kEpiCols * 4;  // a consumer warpgroup's staging, 8 KiB
+// the ring, two head buffers, two epilogue stagings, then full[S],
+// empty[S], head full[2] and head empty[2]; 1024 bytes to align the base
+constexpr int kGemmSmem =
+    kStages * kStageBytes + 2 * kHeadBytes + 2 * kEpiBytes + (2 * kStages + 4) * 8 + 1024;
 static_assert(kGemmSmem <= kMaxSmem, "stage ring exceeds shared memory");
+static_assert((kStages * kStageBytes + 2 * kHeadBytes) % 1024 == 0,
+              "staging off its swizzle alignment");
+
 
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
                                             uint32_t bar, int c0, int c1) {
@@ -691,10 +753,63 @@ __device__ inline void store<__nv_bfloat16>(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory");
+}
+
+// Byte offset of element (r, c) of a 64 x 32 f32 staging tile, 128-byte
+// rows swizzled as TMA's SWIZZLE_128B: row r's 16-byte chunk q sits at
+// chunk q ^ (r % 8), so the fragment's float2 writes (8 rows, one column
+// pair) and the stores' row reads both hit 32 distinct banks.
+__device__ __forceinline__ int epi_offset(int r, int c) {
+  return r * 128 + ((((c >> 2) ^ (r & 7)) << 4) | ((c & 3) << 2));
+}
+
+// Store one staged pass of a consumer warpgroup: warp w's 16 rows of the
+// 32 columns from col0, VW floats a lane (a row's 32 / VW lanes, VW rows an
+// instruction) to the chunk partial prows or, without one, to out.
+template <int VW, typename OutT>
+__device__ __forceinline__ void store_pass(const uint8_t* epi_ptr, OutT* out, float* prows,
+                                           long long row0, long long rows, int n0, int col0,
+                                           int w, int lane) {
+  constexpr int kPerRow = kEpiCols / VW;
+  const int cl = VW * (lane % kPerRow), col = col0 + cl;
+  if (col >= n0) return;
+  float* dst = prows != nullptr ? prows : reinterpret_cast<float*>(out);
+#pragma unroll 4
+  for (int i = 0; i < 16 / VW; ++i) {
+    const int r = 16 * w + VW * i + lane / kPerRow;
+    const long long row = row0 + r;
+    if (row >= rows) return;
+    const uint8_t* src = epi_ptr + epi_offset(r, cl);
+    if constexpr (VW == 4) {
+      *reinterpret_cast<float4*>(dst + row * n0 + col) = *reinterpret_cast<const float4*>(src);
+    } else if constexpr (VW == 2) {
+      *reinterpret_cast<float2*>(dst + row * n0 + col) = *reinterpret_cast<const float2*>(src);
+    } else {
+      const float v = *reinterpret_cast<const float*>(src);
+      if (prows != nullptr)
+        prows[row * n0 + col] = v;
+      else
+        store<OutT>(out + row * n0 + col, v);
+    }
+  }
+}
+
 // out (rows, n0) = F (rows, Kp) . M0 (Kp, n0), from a_hi/a_lo over F's
 // halves (box 32 x 128 rows) and b_hi/b_lo over M0^T's (n0, Kp) halves (box
-// 32 x 128).  Block x = m_tile * n_tiles + n_tile, so neighbouring blocks
-// share an F tile in L2.
+// 32 x 128).  Persistent: block b walks the work items b, b + gridDim.x, ..
+// of the n_items = n_chunks x m_tiles x n_tiles space, item =
+// (chunk * m_tiles + m_tile) * n_tiles + n_tile, so the blocks at work at
+// one time share F tiles in L2.  The stage ring and its barriers run on
+// across items: the producer loads the next items' stages (and, for a
+// chunk-0 item, its head tiles into the head buffer the epilogue two
+// items back has read) while the consumers finish and store the current
+// one.  The epilogue stages each warpgroup's 64 x 128 result in four
+// 64 x 32 passes through a swizzled shared tile and stores it
+// row-contiguous in stores of vw floats (4 for f32 rows 16-byte aligned,
+// 2 for 8-byte aligned, else 1; 1 for a bf16 output), a warp writing vw
+// rows x 32 columns an instruction.
 template <typename OutT>
 __global__ void __launch_bounds__(kGemmThreads, 1)
 sweep_gemm_kernel(const __grid_constant__ CUtensorMap a_hi,
@@ -704,27 +819,28 @@ sweep_gemm_kernel(const __grid_constant__ CUtensorMap a_hi,
                   const __grid_constant__ CUtensorMap f_head,
                   const __grid_constant__ CUtensorMap m_head, OutT* __restrict__ out,
                   float* __restrict__ part, long long rows, int n0, int n_kb, int kb_chunk,
-                  int n_tiles) {
+                  int m_tiles, int n_tiles, long long n_items, int vw) {
   constexpr int S = kStages;
   constexpr int R = kBN / 2;  // accumulator floats per thread
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t head = base + S * kStageBytes;  // F head (kBM, kHead), M0 head (kHead, kBN)
-  const uint32_t bars = head + kHeadBytes;  // full[S], empty[S], then the head's
-  const uint32_t head_bar = bars + 16 * S;
+  // two head buffers, each F head (kBM, kHead) then M0 head (kHead, kBN)
+  const uint32_t head = base + S * kStageBytes;
+  const uint32_t epi0 = head + 2 * kHeadBytes;   // the two warpgroups' stagings
+  const uint32_t bars = epi0 + 2 * kEpiBytes;    // full[S], empty[S], head full[2], empty[2]
+  const uint32_t head_full = bars + 16 * S, head_empty = head_full + 16;
   const int tid = threadIdx.x, wg = tid / 128;
-  const int m_tile = blockIdx.x / n_tiles, n_tile = blockIdx.x - m_tile * n_tiles;
-  // this block's k-chunk: boxes kb0 .. kb0 + n_local - 1 (all of them when
-  // there is one chunk)
-  const int kb0 = blockIdx.y * kb_chunk;
-  const int n_local = min(n_kb - kb0, kb_chunk);
+  const long long tiles = (long long)m_tiles * n_tiles;
 
   if (tid == 0) {
     for (int s = 0; s < S; ++s) {
       mbar_init(bars + 8 * s, 1);
       mbar_init(bars + 8 * (S + s), kConsumerThreads);
     }
-    mbar_init(head_bar, 1);
+    for (int h = 0; h < 2; ++h) {
+      mbar_init(head_full + 8 * h, 1);
+      mbar_init(head_empty + 8 * h, kConsumerThreads);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
@@ -732,21 +848,33 @@ sweep_gemm_kernel(const __grid_constant__ CUtensorMap a_hi,
   if (wg == 0) {  // producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
     if (tid == 0) {
-      if (blockIdx.y == 0) {  // the head's operands, read in the epilogue
-        mbar_expect_tx(head_bar, kHeadBytes);
-        tma_load_2d(head, &f_head, head_bar, 0, m_tile * kBM);
-        tma_load_2d(head + kBM * kHead * 4, &m_head, head_bar, n_tile * kBN, 0);
-      }
-      for (int kb = 0; kb < n_local; ++kb) {
-        const int s = kb % S;
-        if (kb >= S) mbar_wait(bars + 8 * (S + s), ((kb / S) - 1) & 1);
-        const uint32_t st = base + s * kStageBytes, full = bars + 8 * s;
-        mbar_expect_tx(full, kStageBytes);
-        const int k = (kb0 + kb) * kBoxK, ra = m_tile * kBM, rb = n_tile * kBN;
-        tma_load_2d(st, &a_hi, full, k, ra);
-        tma_load_2d(st + kATileBytes, &a_lo, full, k, ra);
-        tma_load_2d(st + 2 * kATileBytes, &b_hi, full, k, rb);
-        tma_load_2d(st + 2 * kATileBytes + kBTileBytes, &b_lo, full, k, rb);
+      int ip = 0, hc = 0;  // k-blocks and head tiles loaded so far
+      for (long long item = blockIdx.x; item < n_items; item += gridDim.x) {
+        const int chunk = (int)(item / tiles);
+        const long long t = item - chunk * tiles;
+        const int m_tile = (int)(t / n_tiles), n_tile = (int)(t - (long long)m_tile * n_tiles);
+        const int kb0 = chunk * kb_chunk, n_local = min(n_kb - kb0, kb_chunk);
+        const int ra = m_tile * kBM, rb = n_tile * kBN;
+        for (int kb = 0; kb < n_local; ++kb, ++ip) {
+          const int s = ip % S;
+          if (ip >= S) mbar_wait(bars + 8 * (S + s), ((ip / S) - 1) & 1);
+          const uint32_t st = base + s * kStageBytes, full = bars + 8 * s;
+          mbar_expect_tx(full, kStageBytes);
+          const int k = (kb0 + kb) * kBoxK;
+          tma_load_2d(st, &a_hi, full, k, ra);
+          tma_load_2d(st + kATileBytes, &a_lo, full, k, ra);
+          tma_load_2d(st + 2 * kATileBytes, &b_hi, full, k, rb);
+          tma_load_2d(st + 2 * kATileBytes + kBTileBytes, &b_lo, full, k, rb);
+        }
+        if (chunk == 0) {  // the head's operands, read in the epilogue
+          const int h = hc & 1;  // buffer h's (hc / 2)-th fill
+          const uint32_t hb = head + h * kHeadBytes, full = head_full + 8 * h;
+          if (hc >= 2) mbar_wait(head_empty + 8 * h, ((hc >> 1) - 1) & 1);
+          mbar_expect_tx(full, kHeadBytes);
+          tma_load_2d(hb, &f_head, full, 0, ra);
+          tma_load_2d(hb + kBM * kHead * 4, &m_head, full, rb, 0);
+          ++hc;
+        }
       }
     }
     return;
@@ -758,50 +886,70 @@ sweep_gemm_kernel(const __grid_constant__ CUtensorMap a_hi,
   // folded into the total.
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
   const int c = wg - 1;
-  float acc[R], tot[R];
-#pragma unroll
-  for (int i = 0; i < R; ++i) acc[i] = tot[i] = 0.0f;
-  const int n_groups = n_local * kGroups;
-  for (int g = 0; g < n_groups; ++g) {
-    const int kb = g / kGroups, half = g % kGroups, s = kb % S;
-    if (half == 0) mbar_wait(bars + 8 * s, (kb / S) & 1);
-    const uint32_t st = base + s * kStageBytes;
-    const uint64_t ahi = smem_desc(st + c * 64 * 128);
-    const uint64_t alo = smem_desc(st + kATileBytes + c * 64 * 128);
-    const uint64_t bhi = smem_desc(st + 2 * kATileBytes);
-    const uint64_t blo = smem_desc(st + 2 * kATileBytes + kBTileBytes);
-    issue_group(acc, ahi, alo, bhi, blo, half);
-    wgmma_wait<0>();
-    fold(tot, acc);
-    if (half == kGroups - 1) mbar_arrive(bars + 8 * (S + s));
-  }
-
   // accumulator layout: warp w of the group holds rows 16w + lane/4 (+8),
   // columns 8j + 2(lane%4) (+1) in registers 4j (+1), (+2, +3 for row+8)
   const int w = (tid % 128) / 32, lane = tid % 32;
-  const long long r0 = (long long)m_tile * kBM + c * 64 + 16 * w + lane / 4;
-  if (blockIdx.y == 0) {
-    mbar_wait(head_bar, 0);
-    const float* sf = reinterpret_cast<const float*>(smem_raw + (head - smem_u32(smem_raw)));
-    add_head(tot, sf, sf + kBM * kHead, c * 64 + 16 * w + lane / 4, 2 * (lane % 4));
-  }
-  float* prows = part == nullptr ? nullptr : part + (long long)blockIdx.y * rows * n0;
+  const uint32_t epi = epi0 + c * kEpiBytes;
+  uint8_t* epi_ptr = smem_raw + (epi - smem_u32(smem_raw));
+  const float* sf0 = reinterpret_cast<const float*>(smem_raw + (head - smem_u32(smem_raw)));
+  float acc[R], tot[R];
 #pragma unroll
-  for (int j = 0; j < kBN / 8; ++j) {
-    const int col = n_tile * kBN + 8 * j + 2 * (lane % 4);
+  for (int i = 0; i < R; ++i) acc[i] = 0.0f;
+  int ic = 0, hc = 0;  // k-blocks and head tiles consumed so far
+  for (long long item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int chunk = (int)(item / tiles);
+    const long long t = item - chunk * tiles;
+    const int m_tile = (int)(t / n_tiles), n_tile = (int)(t - (long long)m_tile * n_tiles);
+    const int n_local = min(n_kb - chunk * kb_chunk, kb_chunk);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long row = r0 + 8 * h;
-      if (row >= rows) continue;
-      if (prows != nullptr) {  // this chunk's f32 partial
-        float* prow = prows + row * n0;
-        if (col < n0) prow[col] = tot[4 * j + 2 * h];
-        if (col + 1 < n0) prow[col + 1] = tot[4 * j + 2 * h + 1];
-        continue;
+    for (int i = 0; i < R; ++i) tot[i] = 0.0f;
+    const int n_groups = n_local * kGroups;
+    for (int g = 0; g < n_groups; ++g) {
+      const int kb = g / kGroups, half = g % kGroups, s = (ic + kb) % S;
+      if (half == 0) mbar_wait(bars + 8 * s, ((ic + kb) / S) & 1);
+      const uint32_t st = base + s * kStageBytes;
+      const uint64_t ahi = smem_desc(st + c * 64 * 128);
+      const uint64_t alo = smem_desc(st + kATileBytes + c * 64 * 128);
+      const uint64_t bhi = smem_desc(st + 2 * kATileBytes);
+      const uint64_t blo = smem_desc(st + 2 * kATileBytes + kBTileBytes);
+      issue_group(acc, ahi, alo, bhi, blo, half);
+      wgmma_wait<0>();
+      fold(tot, acc);
+      if (half == kGroups - 1) mbar_arrive(bars + 8 * (S + s));
+    }
+    ic += n_local;
+    if (chunk == 0) {
+      const int h = hc & 1;
+      const float* sf = sf0 + h * (kHeadBytes / 4);
+      mbar_wait(head_full + 8 * h, (hc >> 1) & 1);
+      add_head(tot, sf, sf + kBM * kHead, c * 64 + 16 * w + lane / 4, 2 * (lane % 4));
+      mbar_arrive(head_empty + 8 * h);
+      ++hc;
+    }
+
+    const long long row0 = (long long)m_tile * kBM + c * 64;
+    float* prows = part == nullptr ? nullptr : part + (long long)chunk * rows * n0;
+#pragma unroll
+    for (int p = 0; p < kBN / kEpiCols; ++p) {
+      named_sync(1 + c);  // the last pass's stores have read the staging
+#pragma unroll
+      for (int jj = 0; jj < kEpiCols / 8; ++jj) {
+        const int j = p * (kEpiCols / 8) + jj;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 16 * w + lane / 4 + 8 * h;
+          *reinterpret_cast<float2*>(epi_ptr + epi_offset(r, 8 * jj + 2 * (lane % 4))) =
+              make_float2(tot[4 * j + 2 * h], tot[4 * j + 2 * h + 1]);
+        }
       }
-      OutT* orow = out + row * n0;
-      if (col < n0) store<OutT>(orow + col, tot[4 * j + 2 * h]);
-      if (col + 1 < n0) store<OutT>(orow + col + 1, tot[4 * j + 2 * h + 1]);
+      named_sync(1 + c);
+      const int col0 = n_tile * kBN + p * kEpiCols;
+      if (vw == 4)
+        store_pass<4>(epi_ptr, out, prows, row0, rows, n0, col0, w, lane);
+      else if (vw == 2)
+        store_pass<2>(epi_ptr, out, prows, row0, rows, n0, col0, w, lane);
+      else
+        store_pass<1>(epi_ptr, out, prows, row0, rows, n0, col0, w, lane);
     }
   }
 }
@@ -822,6 +970,24 @@ partial_sum_kernel(const float* __restrict__ part, OutT* __restrict__ out, int n
 }
 
 // -------------------------------------------------------------- host side
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// cudaFuncSetAttribute once per kernel instantiation and device (an API
+// call per launch otherwise): `bytes` is the most any launch of it takes;
+// `done` is the instantiation's own mask of devices.
+template <typename Kernel>
+int set_smem_once(Kernel kernel, int bytes, unsigned long long* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (*done & bit) return 0;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  *done |= bit;
+  return 0;
+}
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -875,38 +1041,67 @@ int plain_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, long long r
   return r == CUDA_SUCCESS ? 0 : kEncodeError + (int)r;
 }
 
+// The M0 side's maps, made once per table: b_hi, b_lo, m_head.
+struct TableMaps {
+  CUtensorMap b_hi, b_lo, m_head;
+};
+
+// Streaming multiprocessors of the current device (asked once per device).
+int sm_count(int* n) {
+  static int cached[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (cached[dev & 63] == 0) {
+    int v = 0;
+    err = cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    cached[dev & 63] = v;
+  }
+  *n = cached[dev & 63];
+  return 0;
+}
+
 template <typename OutT>
-int launch_gemm(const void* f_hi, const void* f_lo, const void* t_hi, const void* t_lo,
-                const void* head, void* out, void* part, long long rows, int Kp, int n0,
-                int k_chunk, cudaStream_t stream) {
+int launch_gemm(const void* f_hi, const void* f_lo, const TableMaps& tm, void* out, void* part,
+                long long rows, int Kp, int n0, int k_chunk, long long* launched,
+                cudaStream_t stream) {
   EncodeTiled encode;
   int rc = encoder(&encode);
   if (rc != 0) return rc;
-  CUtensorMap a_hi, a_lo, b_hi, b_lo, f_head, m_head;
+  CUtensorMap a_hi, a_lo, f_head;
   if ((rc = tile_map(encode, &a_hi, f_hi, rows, Kp, kBM)) != 0) return rc;
   if ((rc = tile_map(encode, &a_lo, f_lo, rows, Kp, kBM)) != 0) return rc;
-  if ((rc = tile_map(encode, &b_hi, t_hi, n0, Kp, kBN)) != 0) return rc;
-  if ((rc = tile_map(encode, &b_lo, t_lo, n0, Kp, kBN)) != 0) return rc;
   if ((rc = plain_map(encode, &f_head, f_hi, rows, Kp, Kp, kHead, kBM)) != 0) return rc;
-  if ((rc = plain_map(encode, &m_head, head, kHead, n0, (n0 + 3) / 4 * 4, kBN, kHead)) != 0)
-    return rc;
-  auto kernel = sweep_gemm_kernel<OutT>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem);
-  if (err != cudaSuccess) return (int)err;
-  const int n_tiles = (n0 + kBN - 1) / kBN;
-  const long long blocks = (rows + kBM - 1) / kBM * n_tiles;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const int n_kb = (Kp + kBoxK - 1) / kBoxK;
   const int kb_chunk = part == nullptr ? n_kb : k_chunk / kBoxK;
-  const dim3 grid((unsigned)blocks, (unsigned)((n_kb + kb_chunk - 1) / kb_chunk));
-  kernel<<<grid, kGemmThreads, kGemmSmem, stream>>>(
-      a_hi, a_lo, b_hi, b_lo, f_head, m_head, static_cast<OutT*>(out), static_cast<float*>(part),
-      rows, n0, n_kb, kb_chunk, n_tiles);
+  const int n_chunks = (n_kb + kb_chunk - 1) / kb_chunk;
+  // the widest f32 store the rows' alignment allows (partials are f32; a
+  // bf16 output stores one value at a time)
+  const void* dst = part != nullptr ? part : out;
+  const bool f32 = part != nullptr || sizeof(OutT) == 4;
+  const int vw = !f32 ? 1 : n0 % 4 == 0 && aligned16(dst) ? 4
+                 : n0 % 2 == 0 && (reinterpret_cast<uintptr_t>(dst) & 7) == 0 ? 2 : 1;
+  auto kernel = sweep_gemm_kernel<OutT>;
+  static unsigned long long done = 0;
+  if ((rc = set_smem_once(kernel, kGemmSmem, &done)) != 0) return rc;
+  int n_sm = 0;
+  if ((rc = sm_count(&n_sm)) != 0) return rc;
+  const long long m_tiles = (rows + kBM - 1) / kBM;
+  const int n_tiles = (n0 + kBN - 1) / kBN;
+  if (m_tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const long long n_items = m_tiles * n_tiles * n_chunks;
+  const unsigned blocks = (unsigned)(n_items < n_sm ? n_items : n_sm);
+  kernel<<<blocks, kGemmThreads, kGemmSmem, stream>>>(
+      a_hi, a_lo, tm.b_hi, tm.b_lo, f_head, tm.m_head, static_cast<OutT*>(out),
+      static_cast<float*>(part), rows, n0, n_kb, kb_chunk, (int)m_tiles, n_tiles, n_items,
+      vw);
+  if (launched != nullptr) {
+    launched[0] = n_items;
+    launched[1] = blocks;
+  }
   return (int)cudaGetLastError();
 }
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 struct FactorArgs {
   const float* samples;
@@ -917,19 +1112,20 @@ struct FactorArgs {
   float* out_lo;
   float* chunk_out;
   long long B;
-  int NP, ndofp, n_modes, ld, S, vec, out_bf16, chunk_slices;
+  int NP, ndofp, n_modes, ld, S, vec, out_bf16, range_slices, n_ranges;
 };
 
 template <int KS, int kMode, bool kStaged>
 int launch_factors(const FactorArgs& a, int smem, cudaStream_t stream) {
   auto kernel = sweep_factors_kernel<KS, kMode, kStaged>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
+  static unsigned long long done = 0;
+  const int rc = set_smem_once(kernel, kFactorSmemMax, &done);
+  if (rc != 0) return rc;
   const long long blocks = (a.B + a.S - 1) / a.S;
-  kernel<<<(unsigned)blocks, factor_threads(kMode), smem, stream>>>(
+  const dim3 grid((unsigned)blocks, (unsigned)a.n_ranges);
+  kernel<<<grid, factor_threads(kMode), smem, stream>>>(
       a.samples, a.grid, a.tslices, a.mslices, a.out, a.out_lo, a.chunk_out, a.B, a.NP, a.ndofp,
-      a.n_modes, a.ld, a.S, a.vec, a.out_bf16, a.chunk_slices);
+      a.n_modes, a.ld, a.S, a.vec, a.out_bf16, a.range_slices);
   return (int)cudaGetLastError();
 }
 
@@ -960,41 +1156,49 @@ extern "C" {
 //   mslices set:               out (B, ld = n0 <= 32), F . M0, f32 or
 //                              (out_bf16) bf16; mslices (n_slices, ks,
 //                              round4(n0)) the M0 rows, zero at or past
-//                              n_modes.  With chunk_out set, the product
-//                              is summed in k-chunks of chunk_slices
-//                              slices: chunk c's f32 partial goes to
-//                              chunk_out (n_chunks, B, n0), n_chunks =
-//                              ceil(ceil(n_modes / ks) / chunk_slices), and
-//                              out is not written (pgd_partial_sum adds
+//                              n_modes.  On more than one k-range the
+//                              product goes as range r's f32 partial to
+//                              chunk_out (n_ranges, B, n0) [r], and out
+//                              is not written (pgd_partial_sum adds
 //                              them).
-// Columns k >= n_modes of F are zero.  rows: sample rows per block, a
-// multiple of factor_threads (512 for the narrow product, else 1024);
-// staged: the tables go through shared memory (else ks
-// must be 32 and the gathers read tslices in global memory).  All arrays
-// C-contiguous on the current device, tslices and mslices 16-byte aligned.
+// Columns k >= n_modes of F are zero.  The grid is ceil(B / rows) row tiles
+// x n_ranges k-ranges of range_slices slices each, together covering every
+// slice the mode walks (ceil(ld / ks) for F and its split, ceil(n_modes /
+// ks) for the narrow product); in narrow mode chunk_out is set exactly
+// when n_ranges > 1.
+// rows: sample rows per block, a multiple of one pass of the block's
+// threads (512 rows for the narrow product, 1024 / (ks / 4) else); staged:
+// the tables go through shared memory (else ks must be 32 and the gathers
+// read tslices in global memory).  All arrays C-contiguous on the current
+// device, tslices and mslices 16-byte aligned.
 int pgd_sweep_factors(const void* samples, const void* grid, const void* tslices,
                       const void* mslices, void* out, void* out_lo, void* chunk_out, long long B,
                       int NP, int ndofp, int K, int n_modes, int ld, int ks, int rows,
-                      int staged, int out_bf16, int chunk_slices, void* stream) {
+                      int staged, int out_bf16, int range_slices, int n_ranges,
+                      void* stream) {
   const int mode = mslices ? kNarrow : out_lo ? kSplit : kFactors;
-  if (chunk_out != nullptr && (mode != kNarrow || chunk_slices < 1))
-    return (int)cudaErrorInvalidValue;
+  if (ks != 4 && ks != 8 && ks != 16 && ks != 32) return (int)cudaErrorInvalidValue;
+  // rows one pass of the block covers: one a thread in narrow mode
+  const int pass = mode == kNarrow ? factor_threads(mode) : factor_threads(mode) / (ks / 4);
+  // the slices the mode walks, all covered by the ranges
+  const int walked = mode == kNarrow ? (n_modes + ks - 1) / ks : (ld + ks - 1) / ks;
   if (B < 0 || NP < 1 || NP > kMaxNP || ndofp < 2 || K < 1 || n_modes < 0 || n_modes > K ||
-      rows < factor_threads(mode) || rows % factor_threads(mode) != 0 || !aligned16(tslices) ||
+      rows < pass || rows % pass != 0 || !aligned16(tslices) || range_slices < 1 ||
+      n_ranges < 1 || n_ranges > 65535 || (long long)range_slices * n_ranges < walked ||
+      (chunk_out != nullptr) != (mode == kNarrow && n_ranges > 1) ||
       (mode == kFactors && ld != K) ||
       (mode == kSplit && (ld < K || ld % 4 != 0 || !aligned16(out) || !aligned16(out_lo))) ||
       (mode == kNarrow && (ld < 1 || ld > kMaxN0 || !aligned16(mslices))))
     return (int)cudaErrorInvalidValue;
   const long long smem = factor_smem(NP, ndofp, ks, rows, mode == kNarrow ? ld : 0, staged);
-  if (smem > kMaxSmem - 1024) return (int)cudaErrorInvalidValue;
+  if (smem > kFactorSmemMax) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaGetLastError();
   if ((B + rows - 1) / rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const FactorArgs a = {static_cast<const float*>(samples), static_cast<const float*>(grid),
                         static_cast<const float*>(tslices), static_cast<const float*>(mslices),
                         static_cast<float*>(out), static_cast<float*>(out_lo),
                         static_cast<float*>(chunk_out), B, NP, ndofp, n_modes, ld, rows,
-                        ld % 4 == 0 && aligned16(out), out_bf16,
-                        chunk_out != nullptr ? chunk_slices : 1};
+                        ld % 4 == 0 && aligned16(out), out_bf16, range_slices, n_ranges};
   auto st = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case kFactors: return factors_for_mode<kFactors>(a, ks, staged, (int)smem, st);
@@ -1009,39 +1213,69 @@ long long pgd_factor_smem(int NP, int ndofp, int ks, int rows, int n0, int stage
   return factor_smem(NP, ndofp, ks, rows, n0, staged != 0);
 }
 
+// The M0 side of stage 2, encoded once per table: t_hi, t_lo (n0, Kp) f32,
+// the split M0^T with rows k < kHead and k >= n_modes zero; head (kHead,
+// round4(n0)) f32: M0's first kHead rows, zero at or past n_modes and past
+// n0.  Writes pgd_gemm_maps_bytes() bytes to `maps` (any alignment); the
+// tables must outlive every launch given them.
+int pgd_gemm_table_maps(const void* t_hi, const void* t_lo, const void* head, int Kp, int n0,
+                        void* maps) {
+  if (Kp < 8 || Kp % 8 != 0 || n0 < 1 || !aligned16(t_hi) || !aligned16(t_lo) ||
+      !aligned16(head) || maps == nullptr)
+    return (int)cudaErrorInvalidValue;
+  EncodeTiled encode;
+  int rc = encoder(&encode);
+  if (rc != 0) return rc;
+  TableMaps tm;
+  if ((rc = tile_map(encode, &tm.b_hi, t_hi, n0, Kp, kBN)) != 0) return rc;
+  if ((rc = tile_map(encode, &tm.b_lo, t_lo, n0, Kp, kBN)) != 0) return rc;
+  if ((rc = plain_map(encode, &tm.m_head, head, kHead, n0, (n0 + 3) / 4 * 4, kBN, kHead)) != 0)
+    return rc;
+  memcpy(maps, &tm, sizeof(tm));
+  return 0;
+}
+
+int pgd_gemm_maps_bytes(void) { return (int)sizeof(TableMaps); }
+
 // Stage 2.  f_hi, f_lo (rows, Kp) f32: the split factors, the first kHead
-// columns whole in f_hi; t_hi, t_lo (n0, Kp) f32: the split M0^T with rows
-// k < kHead and k >= n_modes zero; head (kHead, round4(n0)) f32: M0's
-// first kHead rows, zero at or past n_modes and past n0; out (rows, n0)
-// f32 (out_bf16 == 0) or bf16.  Kp is a multiple of 8.  With part set, the
-// blocks of blockIdx.y = c sum k in [c k_chunk, (c + 1) k_chunk) only
-// (k_chunk a multiple of 32) and store their f32 partials to part
-// (ceil(Kp / k_chunk), rows, n0) instead of out (pgd_partial_sum adds
-// them).
-int pgd_sweep_gemm(const void* f_hi, const void* f_lo, const void* t_hi, const void* t_lo,
-                   const void* head, void* out, void* part, long long rows, int Kp, int n0,
-                   int k_chunk, int out_bf16, void* stream) {
+// columns whole in f_hi; maps: the table's from pgd_gemm_table_maps, made
+// for the same Kp and n0; out (rows, n0) f32 (out_bf16 == 0) or bf16.  Kp
+// is a multiple of 8.  With part set, the work items of chunk c sum k in
+// [c k_chunk, (c + 1) k_chunk) only (k_chunk a multiple of 32) and store
+// their f32 partials to part (ceil(Kp / k_chunk), rows, n0) instead of out
+// (pgd_partial_sum adds them).  At most one block per SM, persistent;
+// `launched`, when set, gets the work items and the blocks launched.
+int pgd_sweep_gemm(const void* f_hi, const void* f_lo, const void* maps, void* out, void* part,
+                   long long rows, int Kp, int n0, int k_chunk, int out_bf16,
+                   long long* launched, void* stream) {
   if (rows < 0 || Kp < 8 || Kp % 8 != 0 || n0 < 1 || rows > 0xffffffffLL ||
-      !aligned16(f_hi) || !aligned16(f_lo) || !aligned16(t_hi) || !aligned16(t_lo) ||
-      !aligned16(head) ||
+      !aligned16(f_hi) || !aligned16(f_lo) || maps == nullptr ||
       (part != nullptr && (k_chunk < kBoxK || k_chunk % kBoxK != 0)))
     return (int)cudaErrorInvalidValue;
   if (rows == 0) return (int)cudaGetLastError();
+  TableMaps tm;
+  memcpy(&tm, maps, sizeof(tm));
   auto st = static_cast<cudaStream_t>(stream);
-  return out_bf16 ? launch_gemm<__nv_bfloat16>(f_hi, f_lo, t_hi, t_lo, head, out, part, rows,
-                                               Kp, n0, k_chunk, st)
-                  : launch_gemm<float>(f_hi, f_lo, t_hi, t_lo, head, out, part, rows, Kp, n0,
-                                       k_chunk, st);
+  return out_bf16 ? launch_gemm<__nv_bfloat16>(f_hi, f_lo, tm, out, part, rows, Kp, n0, k_chunk,
+                                               launched, st)
+                  : launch_gemm<float>(f_hi, f_lo, tm, out, part, rows, Kp, n0, k_chunk,
+                                       launched, st);
 }
 
 // The f64 sum of chunk partials.  part (n_chunks, count) f32; out (count)
 // f32 (out_bf16 == 0) or bf16: out[i] = sum_c part[c, i], c ascending.
+// A grid-stride loop of 256-thread blocks, at most 16 an SM; `blocks_out`,
+// when set, gets the blocks launched.
 int pgd_partial_sum(const void* part, void* out, int n_chunks, long long count, int out_bf16,
-                    void* stream) {
+                    int* blocks_out, void* stream) {
   if (n_chunks < 1 || count < 0) return (int)cudaErrorInvalidValue;
   if (count == 0) return (int)cudaGetLastError();
+  int n_sm = 0;
+  const int rc = sm_count(&n_sm);
+  if (rc != 0) return rc;
   const long long want = (count + 255) / 256;
-  const unsigned blocks = (unsigned)(want < 132 * 16 ? want : 132 * 16);
+  const unsigned blocks = (unsigned)(want < 16LL * n_sm ? want : 16LL * n_sm);
+  if (blocks_out != nullptr) *blocks_out = (int)blocks;
   auto st = static_cast<cudaStream_t>(stream);
   auto p = static_cast<const float*>(part);
   if (out_bf16)
@@ -1051,6 +1285,15 @@ int pgd_partial_sum(const void* part, void* out, int n_chunks, long long count, 
     partial_sum_kernel<float><<<blocks, 256, 0, st>>>(p, static_cast<float*>(out), n_chunks,
                                                       count);
   return (int)cudaGetLastError();
+}
+
+// Streaming multiprocessors of the current device: the one count the
+// GEMM's and the partial sum's grids and ops/fused_sweep.py::factor_grid
+// take.  Negative: a CUDA error code, negated.
+int pgd_sm_count(void) {
+  int n = 0;
+  const int rc = sm_count(&n);
+  return rc != 0 ? -rc : n;
 }
 
 // Dynamic shared memory of a GEMM launch, in bytes (ptxas -v reports

@@ -16,8 +16,9 @@ multiplied by an identity table.
 On the card (``csrc/fused_sweep.cu``; design and bounds in its header)
 the factor kernel reads the tables by k-slices staged in shared memory
 (:func:`slice_tables`; tile, slice width and route from
-:func:`factor_plan`) and computes F in the plain version's rounding, bit
-for bit.  Outputs of at most :data:`SENSORS_MAX` columns (sensors) are
+:func:`factor_plan`; a batch of few rows gets shorter tiles and k-ranges
+across the grid's second axis, :func:`factor_grid`) and computes F in the
+plain version's rounding, bit for bit.  Outputs of at most :data:`SENSORS_MAX` columns (sensors) are
 its fused narrow product: F never leaves the chip.  Wider outputs
 (fields) take two kernels: the factor kernel writes F, split into tf32
 hi/lo halves, into a scratch buffer whose rows are K rounded up to a
@@ -25,8 +26,10 @@ multiple of 8, and a TMA + wgmma GEMM multiplies it by the split,
 transposed, masked M0 table in three tf32 passes; the first
 :data:`K_HEAD` modes skip the tensor cores (F's columns kept whole, their
 table rows zero) and are added in f32 FMAs by the GEMM's epilogue from an
-f32 head table (:func:`split_factors`, :func:`split_table`); the wrapper walks the
-batch in row chunks so the scratch stays under :data:`SCRATCH_BYTES`.
+f32 head table (:func:`split_factors`, :func:`split_table`).  The GEMM's
+blocks are persistent and store through shared memory; the table's tensor
+maps are encoded once per sweep (:func:`table_maps`).  The wrapper walks
+the batch in row chunks so the scratch stays under :data:`SCRATCH_BYTES`.
 Above K = :data:`SPLIT_K_MIN` both products sum over k in chunks of
 :data:`K_CHUNK`: each chunk's f32 partial goes to a scratch buffer and a
 third kernel adds the partials in f64 (:func:`chunked_product` is the
@@ -42,6 +45,7 @@ kernel launch one to its entry in :data:`STAGE_LAUNCHES`.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -168,14 +172,20 @@ def _library():
         lib = ctypes.CDLL(str(info.path))
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.pgd_sweep_factors.argtypes = [p, p, p, p, p, p, p, ll, i, i, i, i, i, i, i, i, i,
-                                          i, p]
+                                          i, i, p]
         lib.pgd_sweep_factors.restype = i
         lib.pgd_factor_smem.argtypes = [i, i, i, i, i, i]
         lib.pgd_factor_smem.restype = ll
-        lib.pgd_sweep_gemm.argtypes = [p, p, p, p, p, p, p, ll, i, i, i, i, p]
+        lib.pgd_sweep_gemm.argtypes = [p, p, p, p, p, ll, i, i, i, i, p, p]
         lib.pgd_sweep_gemm.restype = i
-        lib.pgd_partial_sum.argtypes = [p, p, i, ll, i, p]
+        lib.pgd_gemm_table_maps.argtypes = [p, p, p, i, i, p]
+        lib.pgd_gemm_table_maps.restype = i
+        lib.pgd_gemm_maps_bytes.argtypes = []
+        lib.pgd_gemm_maps_bytes.restype = i
+        lib.pgd_partial_sum.argtypes = [p, p, i, ll, i, p, p]
         lib.pgd_partial_sum.restype = i
+        lib.pgd_sm_count.argtypes = []
+        lib.pgd_sm_count.restype = i
         lib.pgd_sweep_gemm_smem.argtypes = []
         lib.pgd_sweep_gemm_smem.restype = i
         lib.pgd_error_string.argtypes = [i]
@@ -186,6 +196,26 @@ def _library():
             raise RuntimeError(f"kernel head width {lib.pgd_k_head()} != K_HEAD {K_HEAD}")
         _LIB = lib
     return _LIB
+
+
+_SM_COUNTS = {}
+
+
+def sm_count(device) -> int:
+    """The streaming multiprocessors of a CUDA ``device``, as the kernel
+    library reads them (``pgd_sm_count``): the count the factor kernel's
+    grid (:func:`factor_grid`), the persistent GEMM and the partial sum
+    fill."""
+    dev = torch.device(device)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SM_COUNTS:
+        lib = _library()
+        with torch.cuda.device(idx):
+            n = lib.pgd_sm_count()
+        if n <= 0:
+            _raise_on(-n, lib, "SM count")
+        _SM_COUNTS[idx] = n
+    return _SM_COUNTS[idx]
 
 
 # ---------------------------------------------------------- sweep operands
@@ -396,6 +426,57 @@ def factor_plan(NP: int, ndofp: int, n0: int = 0) -> FactorPlan:
     return FactorPlan("global", 32, rows, factor_smem(NP, ndofp, 32, rows, n0, False))
 
 
+@dataclass(frozen=True)
+class FactorGrid:
+    """One factor-kernel launch: ``tiles`` row tiles of ``rows`` sample rows
+    (blockIdx.x) × ``ranges`` k-ranges of ``range_slices`` slices each
+    (blockIdx.y)."""
+    rows: int
+    range_slices: int
+    ranges: int
+    tiles: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.ranges
+
+
+@functools.lru_cache(maxsize=512)
+def factor_grid(plan: FactorPlan, B: int, slices: int, n0: int, n_sm: int) -> FactorGrid:
+    """The grid of one factor-kernel launch over ``B`` rows that walks
+    ``slices`` k-slices of ``plan.ks`` (n0 > 0: the fused narrow product of
+    that width) on a card of ``n_sm`` SMs (:func:`sm_count`), chosen from
+    these alone.  A call's row chunks each take the grid of their own rows.
+
+    A launch of at least ``n_sm`` tiles of ``plan.rows`` keeps the plan's
+    rows.  A smaller one would leave SMs idle, so its tiles shorten (down to
+    one pass of the block's threads: 1024 / (ks / 4) rows, or 512 for the
+    narrow product) towards two blocks an SM, and, if that is not enough,
+    the slices split into k-ranges across blockIdx.y until there are about
+    2·n_sm blocks.  F and its split keep one range on a full card.  The
+    narrow product does too up to :data:`SPLIT_K_MIN` modes; past it, or
+    when it splits, its ranges are a power of two of slices no longer than
+    a :data:`K_CHUNK`, so none crosses a chunk boundary: each writes its
+    own f32 partial and :func:`partial_sum` adds them."""
+    B, slices = int(B), max(1, int(slices))
+    ks = plan.ks
+    tiles = -(-B // plan.rows)
+    if tiles >= n_sm or B == 0:
+        rows = plan.rows
+        width = K_CHUNK // ks if n0 > 0 and slices * ks > SPLIT_K_MIN else slices
+    else:
+        one_pass = NARROW_THREADS if n0 > 0 else FACTOR_THREADS // (ks // 4)
+        want = -(-B // (2 * n_sm))  # rows a tile for two blocks an SM
+        rows = min(plan.rows, max(one_pass, -(-want // one_pass) * one_pass))
+        tiles = -(-B // rows)
+        width = -(-slices // max(1, -(-2 * n_sm // tiles)))
+        if n0 > 0:
+            width = min(width, K_CHUNK // ks)
+            width = 1 << (width.bit_length() - 1)  # a power of two: divides the chunk
+    ranges = -(-slices // width)
+    return FactorGrid(rows, slices if ranges == 1 else width, ranges, tiles)
+
+
 def slice_tables(tabs: torch.Tensor, ks: int) -> torch.Tensor:
     """The factor kernel's table layout: (NP, ndofp, K) cut into k-slices,
     (ceil(K/ks), NP·ndofp, ks), zero past K, so one slice of every table
@@ -488,18 +569,21 @@ def _stream(dev):
 def _launch_factors(samples, grid, tabs, n_modes, plan, sliced, out, out_lo=None,
                     m0_slices=None):
     """One factor-kernel launch over checked operands: F, its split or
-    (``m0_slices``) the fused narrow product into ``out`` — above
-    :data:`SPLIT_K_MIN` modes summed in k-chunks whose f32 partials
-    :func:`partial_sum` adds."""
+    (``m0_slices``) the fused narrow product into ``out``, on the grid
+    :func:`factor_grid` gives these samples — the narrow product, on more
+    than one k-range, summed in one f32 partial a range that
+    :func:`partial_sum` adds.  Returns the launch's grid (a dict, with the
+    partial sum's blocks where it ran)."""
     dev = samples.device
     B, NP = samples.shape
     _, ndofp, K = tabs.shape
-    part, chunk_slices = None, 1
-    if m0_slices is not None and k_chunks(K) > 1:
-        chunk_slices = K_CHUNK // plan.ks
-        n_active = -(-int(n_modes) // plan.ks)
-        n_ch = max(1, -(-n_active // chunk_slices))
-        part = torch.empty((n_ch, B, out.shape[1]), dtype=torch.float32, device=dev)
+    ld = int(out.shape[1])
+    narrow = m0_slices is not None
+    slices = -(-int(n_modes) // plan.ks) if narrow else -(-ld // plan.ks)
+    g = factor_grid(plan, B, slices, ld if narrow else 0, sm_count(dev))
+    part = None
+    if narrow and g.ranges > 1:
+        part = torch.empty((g.ranges, B, ld), dtype=torch.float32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         rc = lib.pgd_sweep_factors(
@@ -507,32 +591,39 @@ def _launch_factors(samples, grid, tabs, n_modes, plan, sliced, out, out_lo=None
             None if m0_slices is None else m0_slices.data_ptr(), out.data_ptr(),
             None if out_lo is None else out_lo.data_ptr(),
             None if part is None else part.data_ptr(), B, NP, ndofp, K, int(n_modes),
-            int(out.shape[1]), plan.ks, plan.rows, int(plan.route == "staged"),
-            int(out.dtype == torch.bfloat16), chunk_slices, _stream(dev),
+            ld, plan.ks, g.rows, int(plan.route == "staged"),
+            int(out.dtype == torch.bfloat16), g.range_slices, g.ranges, _stream(dev),
         )
     _raise_on(rc, lib, "sweep factor kernel")
     key = ("factors_global" if plan.route == "global"
-           else "sensor_fused" if m0_slices is not None else "factors_stage")
+           else "sensor_fused" if narrow else "factors_stage")
     STAGE_LAUNCHES[key] += 1
+    launched = {"rows": g.rows, "tiles": g.tiles, "ranges": g.ranges,
+                "range_slices": g.range_slices, "blocks": g.blocks}
     if part is not None:
-        partial_sum(part, out)
+        launched["partial_sum_blocks"] = partial_sum(part, out)
+    return launched
 
 
 def partial_sum(part, out):
     """The f64 sum of k-chunk partials on the card: ``out`` (…) =
     Σ_c ``part``[c] in chunk order, rounded once to f32 (and to bf16 for a
-    bfloat16 ``out``); ``part`` (n_chunks, …) float32."""
+    bfloat16 ``out``); ``part`` (n_chunks, …) float32.  Returns the blocks
+    launched."""
     dev = out.device
     _check(part, "part", dev, part.dim())
     _check(out, "out", dev, out.dim(), out.dtype)
     if part.shape[1:] != out.shape:
         raise ValueError(f"partials {tuple(part.shape)} do not fit out {tuple(out.shape)}")
     lib = _library()
+    blocks = ctypes.c_int(0)
     with torch.cuda.device(dev):
         rc = lib.pgd_partial_sum(part.data_ptr(), out.data_ptr(), int(part.shape[0]),
-                                 out.numel(), int(out.dtype == torch.bfloat16), _stream(dev))
+                                 out.numel(), int(out.dtype == torch.bfloat16),
+                                 ctypes.byref(blocks), _stream(dev))
     _raise_on(rc, lib, "partial sum")
     STAGE_LAUNCHES["partial_sum"] += 1
+    return blocks.value
 
 
 def factors_stage(samples, grid, tabs, n_modes, out, out_lo=None, plan=None, sliced=None):
@@ -542,7 +633,8 @@ def factors_stage(samples, grid, tabs, n_modes, out, out_lo=None, plan=None, sli
     ``out_lo`` (B, ldf), ldf ≥ K and a multiple of 4, the padding zero.
     ``samples``, ``grid`` and ``tabs`` as :func:`fused_sweep` takes them;
     ``plan`` and ``sliced`` (:func:`factor_plan`, :func:`slice_tables`)
-    are made from ``tabs`` when not given.  B ≥ 1."""
+    are made from ``tabs`` when not given.  Returns the launch's grid
+    (:func:`factor_grid`).  B ≥ 1."""
     dev = samples.device
     B = samples.shape[0]
     NP, ndofp, K = tabs.shape
@@ -555,17 +647,40 @@ def factors_stage(samples, grid, tabs, n_modes, out, out_lo=None, plan=None, sli
         raise ValueError("out and out_lo must share a shape whose rows are a multiple of 4")
     plan = plan or factor_plan(NP, ndofp)
     sliced = slice_tables(tabs, plan.ks) if sliced is None else sliced
-    _launch_factors(samples, grid, tabs, n_modes, plan, sliced, out, out_lo)
+    return _launch_factors(samples, grid, tabs, n_modes, plan, sliced, out, out_lo)
 
 
-def gemm_stage(f_hi, f_lo, t_hi, t_lo, head, out):
+def table_maps(t_hi, t_lo, head):
+    """The GEMM's tensor maps of a split M0 table (:func:`split_table`),
+    encoded once: a host buffer that :func:`gemm_stage` takes as ``maps``
+    for as long as the three tensors live."""
+    dev = t_hi.device
+    for name, t in (("t_hi", t_hi), ("t_lo", t_lo), ("head", head)):
+        _check(t, name, dev, 2)
+    n0, Kp = t_hi.shape
+    if t_lo.shape != t_hi.shape or head.shape != (K_HEAD, _round4(n0)) or Kp % K_ALIGN:
+        raise ValueError(f"table {tuple(t_hi.shape)} / head {tuple(head.shape)} do not match")
+    lib = _library()
+    buf = ctypes.create_string_buffer(lib.pgd_gemm_maps_bytes())
+    with torch.cuda.device(dev):
+        rc = lib.pgd_gemm_table_maps(t_hi.data_ptr(), t_lo.data_ptr(), head.data_ptr(), Kp, n0,
+                                     buf)
+    _raise_on(rc, lib, "GEMM table map")
+    return buf
+
+
+def gemm_stage(f_hi, f_lo, t_hi, t_lo, head, out, maps=None, part=None):
     """Stage 2 on the card: ``out`` (rows, n0) = F · M0, from the split
     factors ``f_hi``/``f_lo`` (rows, Kp) of :func:`split_factors` and the
     table ``t_hi``/``t_lo`` (n0, Kp), ``head`` (K_HEAD, round4(n0)) of
-    :func:`split_table`: three tf32 passes over k ≥ :data:`K_HEAD`, then
-    the head in f32 FMAs; ``out`` float32 or bfloat16 (the store rounds).  Above :data:`SPLIT_K_MIN`
-    the GEMM writes one f32 partial per :data:`K_CHUNK` of k into a
-    scratch buffer and :func:`partial_sum` adds them.  rows ≥ 1."""
+    :func:`split_table` (``maps``: their :func:`table_maps`, encoded here
+    when not given): three tf32 passes over k ≥ :data:`K_HEAD`, then the
+    head in f32 FMAs; ``out`` float32 or bfloat16 (the store rounds).
+    Above :data:`SPLIT_K_MIN` the GEMM writes one f32 partial per
+    :data:`K_CHUNK` of k into a scratch buffer and :func:`partial_sum`
+    adds them; a caller's ``part`` (n_chunks, rows, n0) float32 takes the
+    partials instead, and ``out`` is then left as it was.  Returns the
+    launch's work items and blocks (:func:`_launch_gemm`).  rows ≥ 1."""
     dev = out.device
     for name, t in (("f_hi", f_hi), ("f_lo", f_lo), ("t_hi", t_hi), ("t_lo", t_lo),
                     ("head", head)):
@@ -584,19 +699,40 @@ def gemm_stage(f_hi, f_lo, t_hi, t_lo, head, out):
     if Kp % K_ALIGN:
         raise ValueError(f"Kp={Kp} must be a multiple of {K_ALIGN}")
     n_ch = k_chunks(Kp)
-    part = (torch.empty((n_ch, rows, n0), dtype=torch.float32, device=dev) if n_ch > 1
-            else None)
+    if part is not None:
+        _check(part, "part", dev, 3)
+        if n_ch == 1 or part.shape != (n_ch, rows, n0):
+            raise ValueError(f"partials {tuple(part.shape)} do not fit {n_ch} chunks of "
+                             f"({rows}, {n0})")
+    return _launch_gemm(f_hi, f_lo, table_maps(t_hi, t_lo, head) if maps is None else maps,
+                        out, part)
+
+
+def _launch_gemm(f_hi, f_lo, maps, out, part=None):
+    """One GEMM launch over checked operands (:func:`gemm_stage`), then,
+    above :data:`SPLIT_K_MIN` with no caller's ``part``, the partial sum.
+    Returns what was launched: the work items and persistent blocks, and
+    the partial sum's blocks where it ran."""
+    dev = out.device
+    rows, Kp = f_hi.shape
+    n0 = out.shape[1]
+    keep = part is not None
+    if not keep and k_chunks(Kp) > 1:
+        part = torch.empty((k_chunks(Kp), rows, n0), dtype=torch.float32, device=dev)
     lib = _library()
+    grid = (ctypes.c_longlong * 2)()
     with torch.cuda.device(dev):
         rc = lib.pgd_sweep_gemm(
-            f_hi.data_ptr(), f_lo.data_ptr(), t_hi.data_ptr(), t_lo.data_ptr(),
-            head.data_ptr(), out.data_ptr(), None if part is None else part.data_ptr(), rows, Kp, n0, K_CHUNK,
-            int(out.dtype == torch.bfloat16), _stream(dev),
+            f_hi.data_ptr(), f_lo.data_ptr(), maps, out.data_ptr(),
+            None if part is None else part.data_ptr(), rows, Kp, n0, K_CHUNK,
+            int(out.dtype == torch.bfloat16), grid, _stream(dev),
         )
     _raise_on(rc, lib, "sweep GEMM")
     STAGE_LAUNCHES["gemm"] += 1
-    if part is not None:
-        partial_sum(part, out)
+    launched = {"items": grid[0], "blocks": grid[1]}
+    if part is not None and not keep:
+        launched["partial_sum_blocks"] = partial_sum(part, out)
+    return launched
 
 
 def _check_tables(grid, tabs, n_modes):
@@ -628,7 +764,8 @@ def _check_operands(samples, grid, tabs, n_modes):
 def _gemm_product(sweep, samples, bf16):
     """Fields on the card: over :func:`row_chunks` of the batch, the split
     factors of each chunk into one scratch pair, then the GEMM into the
-    chunk's rows of the (B, n0) output."""
+    chunk's rows of the (B, n0) output.  Records each launch's grid in
+    ``sweep.last_plan``."""
     dev = samples.device
     B, K = samples.shape[0], sweep.tabs.shape[2]
     t_hi, t_lo, head = sweep.table
@@ -637,11 +774,16 @@ def _gemm_product(sweep, samples, bf16):
     chunks = row_chunks(B, K, t_hi.shape[0])
     f_hi = torch.empty((chunks[0][1], padded_k(K)), dtype=torch.float32, device=dev)
     f_lo = torch.empty_like(f_hi)
+    maps = sweep.gemm_maps()
+    plan = sweep.last_plan = {"factor": [], "gemm": []}
     for r0, r1 in chunks:
         n = r1 - r0
-        _launch_factors(samples[r0:r1], sweep.grid, sweep.tabs, sweep.n_modes, sweep.plan,
-                        sweep.sliced, f_hi[:n], f_lo[:n])
-        gemm_stage(f_hi[:n], f_lo[:n], t_hi, t_lo, head, out[r0:r1])
+        # one chunk takes the whole tensors: a view costs host time a call
+        s_c, hi, lo, o = ((samples, f_hi, f_lo, out) if n == B else
+                          (samples[r0:r1], f_hi[:n], f_lo[:n], out[r0:r1]))
+        plan["factor"].append(_launch_factors(s_c, sweep.grid, sweep.tabs, sweep.n_modes,
+                                              sweep.plan, sweep.sliced, hi, lo))
+        plan["gemm"].append(_launch_gemm(hi, lo, maps, o))
     return out
 
 
@@ -678,7 +820,9 @@ class FusedSweep:
     (n0 ≤ :data:`SENSORS_MAX`) or the GEMM's split M0 table of a wider one;
     ``m0`` itself serves the plain version on the CPU.  ``launches``
     counts this sweep's wiring calls that launched, as :data:`LAUNCHES`
-    does across sweeps."""
+    does across sweeps; ``last_plan`` holds what the last call that
+    launched ran: each factor launch's grid and each GEMM launch's work
+    items and blocks."""
 
     def __init__(self, grid, tabs, m0, n_modes, out_dtype=None):
         _check_dtype(m0, out_dtype)
@@ -686,7 +830,8 @@ class FusedSweep:
         self.n_modes = int(n_modes)
         self.out_dtype = out_dtype
         self.launches = 0
-        self.plan = self.sliced = self.m0_slices = self.table = None
+        self.last_plan = None
+        self.plan = self.sliced = self.m0_slices = self.table = self._maps = None
         if tabs.device.type != "cuda":
             return
         _check_tables(grid, tabs, n_modes)
@@ -704,6 +849,13 @@ class FusedSweep:
             self.m0_slices = slice_m0(m0, self.n_modes, self.plan.ks)
         elif m0 is not None:
             self.table = split_table(m0, self.n_modes)
+
+    def gemm_maps(self):
+        """The GEMM's tensor maps of this sweep's table, encoded at the first
+        field call (:func:`table_maps`)."""
+        if self._maps is None:
+            self._maps = table_maps(*self.table)
+        return self._maps
 
     def __call__(self, samples):
         s = torch.as_tensor(samples).to(self.tabs.device, torch.float32).contiguous()
@@ -735,8 +887,9 @@ class FusedSweep:
             self.launches += 1
             return out
         if B:
-            _launch_factors(s, self.grid, self.tabs, self.n_modes, self.plan, self.sliced,
-                            out, m0_slices=self.m0_slices)
+            self.last_plan = {"factor": [_launch_factors(
+                s, self.grid, self.tabs, self.n_modes, self.plan, self.sliced, out,
+                m0_slices=self.m0_slices)]}
             LAUNCHES[wiring] += 1
             self.launches += 1
         return out

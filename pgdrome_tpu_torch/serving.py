@@ -59,25 +59,21 @@ use_full_f32_matmul()
 _NP_TO_TORCH = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64}
 
 
-def _to_host(y, copy_stream):
-    """Copy a finished device block into pinned host memory on
-    ``copy_stream``, so the copy overlaps the next chunk's compute."""
-    host = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
-    with torch.cuda.stream(copy_stream):
-        host.copy_(y, non_blocking=True)
-    copy_stream.synchronize()
-    return host
-
-
 def _stream_pipeline(fn, samples, chunk, depth, consumer, device):
     """Chunked dispatch behind fields_stream / sensors_stream: ``depth``
     chunks in flight, drained BEFORE the next dispatch (the output is
     allocated at dispatch, so dispatch-then-drain would hold depth+1 live
     blocks — which OOMed the reference at bench scale).  The tail chunk is
     padded with the first sample, so every dispatch has one shape, and
-    trimmed on output.  ``consumer=None`` collects the blocks in pinned
-    host memory and returns their concatenation as a CPU tensor; an empty
-    batch gives an empty result."""
+    trimmed on output.  ``consumer=None`` collects the result in one host
+    tensor (pinned, on the card), allocated once while the first chunk
+    computes: each block is copied into its rows on a copy stream that
+    waits for the block's event, and the compute stream waits for the copy
+    before it reuses the block's memory, so the copy overlaps the next
+    chunk's kernels and the host waits once, at the end.  The result is
+    that pinned tensor: the host pool reuses its memory once the caller
+    drops it, and a call made while earlier results live pins a fresh block
+    (PERF.md 6.1 has both rates).  An empty batch gives an empty result."""
     if chunk < 1 or depth < 1:
         raise ValueError("chunk and depth must be positive")
     samples = torch.as_tensor(samples).to(device)
@@ -89,12 +85,23 @@ def _stream_pipeline(fn, samples, chunk, depth, consumer, device):
             return torch.empty((0,) + tuple(y0.shape[1:]), dtype=y0.dtype)
         return []
     on_cuda = device.type == "cuda"
-    if collect:
-        blocks = []
-        copy_stream = torch.cuda.Stream(device) if on_cuda else None
+    copy_stream = torch.cuda.Stream(device) if collect and on_cuda else None
+    host = None  # the collected result
+    filled = 0
 
-        def consumer(y):
-            blocks.append(_to_host(y, copy_stream) if on_cuda else y.clone())
+    def collect_block(y, done):
+        nonlocal filled
+        rows = host[filled : filled + y.shape[0]]
+        if on_cuda:
+            copy_stream.wait_event(done)
+            with torch.cuda.stream(copy_stream):
+                rows.copy_(y, non_blocking=True)
+            # the block's memory goes back to the compute stream's pool:
+            # whatever reuses it runs after the copy
+            torch.cuda.current_stream(device).wait_stream(copy_stream)
+        else:
+            rows.copy_(y)
+        filled += y.shape[0]
 
     pad = (-B) % chunk if B > chunk else 0
     if pad:
@@ -104,9 +111,13 @@ def _stream_pipeline(fn, samples, chunk, depth, consumer, device):
 
     def drain():
         y, valid, done = pending.pop(0)
+        y = y[:valid] if valid < y.shape[0] else y
+        if collect:
+            collect_block(y, done)
+            return
         if done is not None:
             done.synchronize()
-        results.append(consumer(y[:valid] if valid < y.shape[0] else y))
+        results.append(consumer(y))
 
     for start in range(0, samples.shape[0], chunk):
         if len(pending) >= depth:
@@ -116,12 +127,16 @@ def _stream_pipeline(fn, samples, chunk, depth, consumer, device):
         if on_cuda:
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(device))
+        if collect and host is None:  # while the first chunk computes
+            host = torch.empty((B,) + tuple(y.shape[1:]), dtype=y.dtype, pin_memory=on_cuda)
         pending.append((y, min(chunk, B - start), done))
         del y
     while pending:
         drain()
     if collect:
-        return torch.cat(blocks, dim=0)
+        if on_cuda:
+            copy_stream.synchronize()
+        return host
     return results
 
 
@@ -220,7 +235,8 @@ class Vademecum:
         flight.  Each finished (chunk_i, n0) device block is handed to
         ``consumer`` (reduce it or copy what you need — the block is
         dropped right after the call); ``consumer=None`` collects the blocks
-        in host memory and returns their concatenation (a CPU tensor).
+        in one host tensor and returns it (a CPU tensor, pinned on the
+        card).
         ``out_dtype=torch.bfloat16`` narrows the stored fields; compute
         stays float32.  Returns the list of consumer results otherwise."""
         return _stream_pipeline(self._sweep(out_dtype), samples, chunk, depth,

@@ -163,10 +163,12 @@ def test_edge_shapes(cuda, K, n0, B):
     out, ref = _run(cuda, spaces, modes, K - 1, samples)
     assert out.shape == (B, n0)
     narrow = n0 <= fs.SENSORS_MAX
+    # the narrow product of so few rows splits k into ranges whose f32
+    # partials the partial sum adds (ops/fused_sweep.py::factor_grid)
     assert fs.STAGE_LAUNCHES == {"factors_stage": 0 if narrow else 1,
                                  "sensor_fused": 1 if narrow else 0,
                                  "factors_global": 0, "gemm": 0 if narrow else 1,
-                                 "partial_sum": 0}
+                                 "partial_sum": 1 if narrow else 0}
     bound = _gamma_bound(spaces, modes, K - 1, samples, K + 20)
     assert bool(((out.double() - ref.double()).abs() <= 2 * bound).all())
 
@@ -183,25 +185,34 @@ def test_nan_rows_past_n_modes(cuda, n0):
     assert bool(((out.double() - ref.double()).abs() <= 2 * bound).all())
 
 
-def test_split_store_matches_plain(cuda):
+@pytest.mark.parametrize("K,NP,n_modes,B,n_cells", [
+    (45, 4, 41, 333, 16),
+    # few rows, many modes: the launch shortens its tiles and splits k
+    # across blockIdx.y (ops/fused_sweep.py::factor_grid)
+    (384, 10, 384, 1, 128), (384, 10, 381, 64, 128), (384, 10, 384, 1024, 128),
+    (384, 10, 384, 1360, 128), (2717, 10, 2717, 1, 128), (2717, 10, 2714, 64, 128),
+    (2717, 10, 2717, 1024, 128), (2717, 10, 2717, 1360, 128),
+])
+def test_split_store_matches_plain(cuda, K, NP, n_modes, B, n_cells):
     # stage 1's hi/lo store is the plain split_factors of its own f32
     # factors (the head whole, the rest split_tf32), bit for bit; the
     # padding columns past K are zero
-    spaces, modes = _case(1, 16, 45, 20, 4, seed=11)
-    kern = fs.make_fused_sweep(spaces, [None] + modes[1:], 41, device=cuda)
-    s = torch.as_tensor(np.random.default_rng(10).uniform(0.0, 2.0, size=(333, 4)),
+    spaces, modes = _case(1, n_cells, K, 20, NP, seed=11 + K + B)
+    kern = fs.make_fused_sweep(spaces, [None] + modes[1:], n_modes, device=cuda)
+    s = torch.as_tensor(np.random.default_rng(10 + B).uniform(0.0, 2.0, size=(B, NP)),
                         dtype=torch.float32, device=cuda)
-    f = torch.full((333, 45), float("nan"), device=cuda)
-    hi = torch.full((333, fs.padded_k(45)), float("nan"), device=cuda)
+    f = torch.full((B, K), float("nan"), device=cuda)
+    hi = torch.full((B, fs.padded_k(K)), float("nan"), device=cuda)
     lo = torch.full_like(hi, float("nan"))
-    fs.factors_stage(s, kern.grid, kern.tabs, 41, f)
-    fs.factors_stage(s, kern.grid, kern.tabs, 41, hi, lo)
+    fs.factors_stage(s, kern.grid, kern.tabs, n_modes, f)
+    fs.factors_stage(s, kern.grid, kern.tabs, n_modes, hi, lo)
     torch.cuda.synchronize()
-    assert bool((f[:, 41:] == 0).all())
-    assert bool((hi[:, 45:] == 0).all()) and bool((lo[:, 45:] == 0).all())
+    assert bool((f[:, n_modes:] == 0).all())
+    assert bool((hi[:, K:] == 0).all()) and bool((lo[:, K:] == 0).all())
     ph, pl = fs.split_factors(f)
-    assert torch.equal(hi[:, :45].view(torch.int32), ph.view(torch.int32))
-    assert torch.equal(lo[:, :45].view(torch.int32), pl.view(torch.int32))
+    assert torch.equal(hi[:, :K].view(torch.int32), ph.view(torch.int32))
+    assert torch.equal(lo[:, :K].view(torch.int32), pl.view(torch.int32))
+    assert torch.equal(f, fs.fused_sweep_plain(s, kern.grid, kern.tabs, None, n_modes))
 
 
 def test_row_chunks_bitwise(cuda, monkeypatch):
@@ -302,15 +313,10 @@ def test_split_k(cuda, K):
     hi = torch.empty((200, fs.padded_k(K)), device=cuda)
     lo = torch.empty_like(hi)
     fs.factors_stage(s, sweep.grid, sweep.tabs, K - 2, hi, lo)
-    t_hi, t_lo, head = sweep.table
-    lib = fs._library()
     part = torch.empty((n_ch, 200, 300), device=cuda)
     direct = torch.empty((200, 300), device=cuda)
-    rc = lib.pgd_sweep_gemm(hi.data_ptr(), lo.data_ptr(), t_hi.data_ptr(), t_lo.data_ptr(),
-                            head.data_ptr(), direct.data_ptr(), None if n_ch == 1 else part.data_ptr(), 200,
-                            fs.padded_k(K), 300, fs.K_CHUNK, 0,
-                            fs._stream(torch.device(cuda)))
-    assert rc == 0
+    # the table's maps encoded for this call, not the sweep's cached ones
+    fs.gemm_stage(hi, lo, *sweep.table, direct, part=None if n_ch == 1 else part)
     torch.cuda.synchronize()
     if n_ch == 1:
         assert torch.equal(out, direct)
@@ -322,6 +328,49 @@ def test_split_k(cuda, K):
     c = (K if n_ch == 1 else fs.K_CHUNK + n_ch) + 12
     bound = _gamma_bound(spaces, modes, K - 2, samples, c)
     assert bool(((out.double().cpu() - ref.double().cpu()).abs() <= 2 * bound).all())
+
+
+@pytest.mark.parametrize("n0", [2048, 2049, 2426, 4913, 5184])
+@pytest.mark.parametrize("K", [8, 30, 32, 640, 2717])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_gemm_epilogue(cuda, n0, K, out_dtype):
+    # the persistent GEMM's shared-memory epilogue at the served widths:
+    # 16-byte stores where rows are 16-byte multiples (f32, n0 % 4 == 0),
+    # 8-byte ones where n0 is even, else 4-byte ones (and for bf16); 300
+    # rows (not a multiple of 128) and one
+    # row, both within 2γ_c|F||M0| of the plain version storing the same
+    # dtype (c = the sum's roundings + 4·NP; a bf16 ulp more for bf16),
+    # and the one row equal to row 0 of the batch (the same arithmetic)
+    NP = 2
+    spaces, modes = _case(1, 16, K, n0, NP, seed=K + n0)
+    samples = np.random.default_rng(K * n0).uniform(0.0, 2.0, size=(300, NP)).astype(np.float32)
+    sweep, s, ref = _plain_on_card(spaces, modes, K, samples, cuda, out_dtype)
+    fs.reset_launch_counts()
+    out = sweep(s)
+    one = sweep(s[:1])
+    torch.cuda.synchronize()
+    assert fs.STAGE_LAUNCHES["gemm"] == 2 and out.dtype == out_dtype
+    assert torch.equal(one, out[:1])
+    bound = _gamma_bound(spaces, modes, K, samples, fs.sum_roundings(K) + 4 * NP)
+    _hold_narrow(out.cpu(), ref.cpu(), bound, out_dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("K,n0,B", [(2717, 300, 20_000), (32, 2426, 40_000), (640, 2048, 9_000)])
+def test_gemm_persistent_walk(cuda, K, n0, B):
+    # thousands of work items a launch: each persistent block walks many
+    # (m-tile, n-tile, k-chunk) items through one stage ring; the result is
+    # within 2γ_c of the plain version and, row by row, bit for bit what a
+    # launch of those rows alone gives
+    NP = 3
+    spaces, modes = _case(1, 16, K, n0, NP, seed=B)
+    samples = np.random.default_rng(B).uniform(0.0, 2.0, size=(B, NP)).astype(np.float32)
+    sweep, s, ref = _plain_on_card(spaces, modes, K, samples, cuda)
+    out = sweep(s)
+    tail = sweep(s[-333:])
+    torch.cuda.synchronize()
+    assert torch.equal(tail, out[-333:])
+    bound = _gamma_bound(spaces, modes, K, samples, fs.sum_roundings(K) + 4 * NP)
+    _hold_narrow(out.cpu(), ref.cpu(), bound, False)
 
 
 def _plain_on_card(spaces, modes, n_modes, samples, cuda, out_dtype=None, factors=False):
@@ -339,13 +388,19 @@ def _plain_on_card(spaces, modes, n_modes, samples, cuda, out_dtype=None, factor
     (1, 8, 16, 130, 129, 300),    # NP = 16
     (2, 8, 16, 33, 33, 257),      # NP = 16 with P2 dims (a narrow slice)
     (1, 8, 2, 5, 0, 10),          # no mode at all
+    # few rows, many modes (the d=10 and dual widths): shortened tiles and
+    # k-ranges across blockIdx.y
+    (1, 128, 10, 384, 384, 1), (1, 128, 10, 384, 380, 64), (1, 128, 10, 384, 384, 1024),
+    (1, 128, 10, 384, 384, 1360), (1, 128, 10, 2717, 2717, 1), (1, 128, 10, 2717, 2713, 64),
+    (1, 128, 10, 2717, 2717, 1024), (1, 128, 10, 2717, 2717, 1360),
 ])
 def test_factors_bitwise(cuda, deg_p, n_cells, NP, K, n_modes, B):
     # every slice width the plan can take, the F store and its split,
-    # equal bit for bit to the plain version on the card
+    # equal bit for bit to the plain version on the card, on the grid the
+    # batch gets (row tiles x k-ranges)
     spaces, modes = _case(deg_p, n_cells, K, 3, NP, seed=NP * K)
     samples = np.random.default_rng(B).uniform(0.0, 2.0, size=(B, NP)).astype(np.float32)
-    samples[0], samples[1] = 0.0, 2.0
+    samples[0], samples[min(1, B - 1)] = 0.0, 2.0
     sweep, s, ref = _plain_on_card(spaces, modes, n_modes, samples, cuda, factors=True)
     NPt, ndofp, _ = sweep.tabs.shape
     for ks in fs.SLICE_WIDTHS:
@@ -382,24 +437,42 @@ def _hold_narrow(out, ref, bound, bf16):
     (5, 640, 637, 3001, 32, 16),
     (16, 203, 200, 2049, 8, 8),   # NP = 16 tables take the narrow slices;
     (16, 203, 200, 2049, 32, 4),  # K not a multiple of 4
+    # the d=10 widths at few rows: k-ranges of a power of two of slices,
+    # each its own f32 partial, added in f64 by the partial sum
+    (10, 2717, 2717, 1024, 8, 8), (10, 2717, 2710, 64, 8, 8), (10, 384, 384, 1, 8, 8),
+    (10, 384, 384, 1360, 32, 8),
+    # a batch that fills the card (B None: one tile of the plan's rows an
+    # SM, and 33 rows) past SPLIT_K_MIN: one k-range a K_CHUNK
+    (10, 1100, 1100, None, 8, 8),
 ])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_sensor_fused(cuda, NP, K, n_modes, B, n0, ks, out_dtype):
     # the fused narrow product at the slice width its plan takes, held
     # within 2γ_c·|F||M0| of the plain version storing the same dtype (plus
-    # one bf16 ulp for the two bf16 roundings); F reaches no HBM buffer
+    # one bf16 ulp for the two bf16 roundings), c = the sum's roundings
+    # (fs.sum_roundings) + 4·NP; F reaches no HBM buffer.  Each case splits
+    # k into ranges whose partials the partial sum adds: a batch of few
+    # rows to fill the card, a full card's past SPLIT_K_MIN at one a K_CHUNK
+    full = B is None
+    if full:
+        B = fs.sm_count(cuda) * fs.factor_plan(NP, 129, n0).rows + 33
     spaces, modes = _case(1, 128, K, n0, NP, seed=NP + n0)
     samples = np.random.default_rng(n0).uniform(0.0, 2.0, size=(B, NP)).astype(np.float32)
-    samples[0], samples[1] = 0.0, 2.0
+    samples[0], samples[min(1, B - 1)] = 0.0, 2.0
     sweep, s, ref = _plain_on_card(spaces, modes, n_modes, samples, cuda, out_dtype)
     assert (sweep.plan.route, sweep.plan.ks) == ("staged", ks)
     fs.reset_launch_counts()
     out = sweep(s)
     torch.cuda.synchronize()
+    g = sweep.last_plan["factor"][0]
+    assert g["ranges"] > 1 and "partial_sum_blocks" in g
+    assert (g["tiles"] >= fs.sm_count(cuda)) == full
+    if full:
+        assert (g["rows"], g["range_slices"]) == (sweep.plan.rows, fs.K_CHUNK // ks)
     assert fs.STAGE_LAUNCHES == {"factors_stage": 0, "sensor_fused": 1, "factors_global": 0,
-                                 "gemm": 0, "partial_sum": 0}
+                                 "gemm": 0, "partial_sum": 1}
     assert fs.LAUNCHES["sensors"] == 1 and out.dtype == out_dtype and out.shape == (B, n0)
-    bound = _gamma_bound(spaces, modes, n_modes, samples, K + 4 * NP)
+    bound = _gamma_bound(spaces, modes, n_modes, samples, fs.sum_roundings(K) + 4 * NP)
     _hold_narrow(out.cpu(), ref.cpu(), bound, out_dtype == torch.bfloat16)
 
 
