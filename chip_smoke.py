@@ -59,7 +59,14 @@ holds both against per-grid-point f64 FEM under 1e-6 and serves it through
 the field, vector-sensor and strain wirings; phase ``heat3d`` trains
 ``examples/heat3d_vademecum.py``'s 3D vademecum (P2 tets, 4913 dofs × 25²)
 in f64 on the card, verifies it under 1e-6 and serves its fields and
-3D-point sensors.  It prints the measurements: one line per phase, a
+3D-point sensors.  Phase ``reference`` runs the reference-parity layer:
+``examples/reference_style_truss.py``'s truss through ``PGDProblem`` on the
+host and ``SeparatedPGD`` in f64 on the card under the amplitude rule,
+served through the field and sensor wirings and evaluated again through
+``Vademecum.to_pgd``; the d=5 vademecum through ``to_pgd`` and
+``PGDErrorComputation`` against FEM; ``bench.py``'s host baseline loop for
+3 modes at bench's widths against ``SeparatedPGD``; and ``utils/native``.
+It prints the measurements: one line per phase, a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises (non-zero exit, no result line); a watchdog turns a
@@ -522,6 +529,30 @@ HEAT3D_B = 65_536
 # the example's two points, then six more inside the cube
 HEAT3D_PTS = [[0.5, 0.5, 0.5], [0.25, 0.5, 0.75], [0.1, 0.1, 0.1], [0.9, 0.2, 0.3],
               [0.3, 0.8, 0.6], [0.75, 0.75, 0.25], [0.5, 0.1, 0.9], [0.15, 0.65, 0.4]]
+# the reference phase: examples/reference_style_truss.py's truss (elastic_truss
+# at its defaults, P2 on 113 x 2 x 100 elements: 227 x 5 x 201 dofs) through the
+# port's PGDProblem with the example's callbacks and the port's SeparatedPGD in
+# f64 on the card, served through the field and sensor wirings; the d=5
+# vademecum through to_pgd; bench.py:685-760's host baseline for 3 modes at
+# bench's widths (TRAIN_BUILD) against SeparatedPGD in f64 on the card
+TRUSS_SOLVE = dict(n_max=10, tol=1e-10, tol_fp=1e-5, max_fp_it=50)  # the example's knobs
+TRUSS_B = 65_536
+TRUSS_PTS = [0.05 + 0.9 * i / 7 for i in range(8)]
+TRUSS_EVAL = 64              # served samples evaluated again through to_pgd
+BASELINE_MODES = 3
+BASELINE_SOLVE = dict(n_max=3, tol=1e-6, tol_fp=1e-6, max_fp_it=30)  # bench.py's knobs
+AMP_RTOL = 1e-8              # the amplitude rule (BASELINE.json; test_laplace_fastpath)
+AMP_FLOOR = 1e-8             # amplitudes below this fraction of the first are only
+                             # held below it on both paths
+# the JAX package's own pair (PGDProblem against SeparatedPGD, both f64 on a
+# CPU) on the same two builds: its largest relative gap over the amplitudes
+# above AMP_FLOOR; a pair of the port that misses AMP_RTOL is held to twice
+# it.  Measured by `JAX_PLATFORMS=cpu PYTHONPATH=. python
+# tests/test_torch_reference_workflows.py` (PERF.md 6.1)
+JAX_GAP_TRUSS = 3.3028501905089334e-14     # the truss (1 mode each)
+JAX_GAP_BASELINE = 4.562856753990954e-10   # the baseline build, 3 modes
+EVAL_REL = 1e-12             # to_pgd evaluations against the f64 plain sweep
+PGD_ERR_EQ = 1e-10           # |mean error of return_PGD - of to_pgd| (the truss)
 NL_SERVE = 256               # grid points served as the script serves them
 # served f32 fields vs the f64 reconstruction's verified max: the d=5 state
 # served at K = 640 sat 1.3e-7 (19 %) above its f64 reconstruction at the
@@ -760,6 +791,143 @@ def elasticity_truth(Vx, bL, bR, bc_dofs):
         return u
 
     return truth
+
+
+def truss_reference(assembly, bc, solver, problems):
+    """examples/reference_style_truss.py's problem, built by the package
+    whose modules are passed (``fem.assembly``, ``fem.bc``, ``solver``,
+    ``models.problems``): a PGDProblem with the example's callbacks, and the
+    same problem as the ``SeparatedProblem`` of ``elastic_truss()`` at its
+    defaults.  Returns (problem, separated problem, spaces)."""
+    import numpy as np
+
+    sep, vs = problems.elastic_truss()
+    gram = assembly.gram
+    param = {"A": 1.0, "p_0": 1.0, "E_0": 1.0, "K_x": assembly.stiffness_matrix(vs[0]),
+             "M_p": assembly.mass_matrix(vs[1]),
+             "M_E_w": assembly.mass_matrix(vs[2], weight=lambda E: E)}
+    load = [[assembly.load_vector(vs[0], lambda x: np.ones_like(x))],
+            [assembly.load_vector(vs[1], lambda p: p)],
+            [assembly.load_vector(vs[2], lambda E: np.ones_like(E))]]
+
+    def bc_fct(Vs, dom, p):
+        return [[bc.DirichletBC(Vs[0], 0.0, lambda x: x < 1e-5),
+                 bc.DirichletBC(Vs[0], 0.0, lambda x: x > 1 - 1e-5)], 0, 0]
+
+    def lhs(fct_F, var_F, Fs, meshes, dom, p, typ, dim):
+        if typ == "r":
+            return gram(Fs[1], p["M_p"], Fs[1]) * gram(Fs[2], p["M_E_w"], Fs[2]) * p["K_x"]
+        if typ == "s":
+            return gram(Fs[0], p["K_x"], Fs[0]) * gram(Fs[2], p["M_E_w"], Fs[2]) * p["M_p"]
+        return gram(Fs[0], p["K_x"], Fs[0]) * gram(Fs[1], p["M_p"], Fs[1]) * p["M_E_w"]
+
+    def rhs(fct_F, var_F, Fs, meshes, dom, p, G, PGD_func, typ, nE, dim):
+        j, k, d = {"r": (1, 2, 0), "s": (0, 2, 1), "t": (0, 1, 2)}[typ]
+        ops = {0: p["K_x"], 1: p["M_p"], 2: p["M_E_w"]}
+        out = (Fs[j].array @ G[j][0]) * (Fs[k].array @ G[k][0]) * G[d][0]
+        for o in range(nE):
+            c = gram(Fs[j], ops[j], PGD_func[j][o]) * gram(Fs[k], ops[k], PGD_func[k][o])
+            out = out - c * (ops[d] @ PGD_func[d][o].array)
+        return out
+
+    prob = solver.PGDProblem(
+        name="truss", name_coord=["X", "P", "E"], modes_info=["U_x", "Node", "Scalar"],
+        Vs=vs, bc_fct=bc_fct, load=load, param=param, rhs_fct=rhs, lhs_fct=lhs,
+        probs=["r", "s", "t"], seq_fp=[0, 1, 2], PGD_nmax=TRUSS_SOLVE["n_max"])
+    prob.stop_fp = "norm"
+    prob.norm_modes = "stiff"
+    prob.tol_fp_it = TRUSS_SOLVE["tol_fp"]
+    prob.max_fp_it = TRUSS_SOLVE["max_fp_it"]
+    return prob, sep, vs
+
+
+def truss_fom(x):
+    """The truss's analytic solution u = p/(2E)·(x − x²) at the points x."""
+    return lambda data: data[0] / (2 * data[1]) * (x - x ** 2)
+
+
+def bench_baseline(prob, n_modes, tol):
+    """bench.py:685-760's reference-architecture baseline loop on a
+    PGDProblem: get_Fsinit, _norm and FP_solve by hand, the 'stiff'
+    normalisation, a relative-amplitude stop at ``tol``.  Returns the
+    absolute amplitudes (normU) and the host seconds of each mode."""
+    import numpy as np
+
+    prob.PGD_func = [list() for _ in range(prob.num_pgd_var)]
+    norm_conv, seconds = [], []
+    bcs = prob.bc
+    while len(seconds) < n_modes:
+        t0 = time.perf_counter()
+        Fs_init = prob.get_Fsinit(prob.V, bcs, None)
+        norm_Fs = np.ones(prob.num_pgd_var)
+        for i in range(prob.num_pgd_var):
+            norm_Fs[i] = prob._norm(Fs_init[i].array, i, None)
+        Fs, norm_Fs = prob.FP_solve(Fs_init, norm_Fs, np.ones(prob.num_pgd_var),
+                                    len(seconds), "linear", None, {})
+        Fs_n = [f.copy() for f in Fs]
+        for d in range(prob.num_pgd_var):
+            Fs_n[d].array /= norm_Fs[d]
+        a = prob.lhs_fct(Fs_n[-1], Fs_n[-1], Fs_n, prob.meshes, 0, prob.param,
+                         prob.prob[-1], prob.num_pgd_var)
+        norm_fac = np.sqrt(abs(float(Fs_n[-1].array @ (a @ Fs_n[-1].array)))) ** (
+            1.0 / prob.num_pgd_var)
+        alpha = float(np.prod(norm_Fs)) * norm_fac ** prob.num_pgd_var
+        for d in range(prob.num_pgd_var):
+            Fs_n[d].array *= alpha ** (1.0 / prob.num_pgd_var) / norm_fac
+            prob.PGD_func[d].append(Fs_n[d])
+        norm_conv.append(float(np.prod(norm_Fs)))
+        seconds.append(time.perf_counter() - t0)
+        if norm_conv[-1] / norm_conv[0] < tol:
+            break
+    return norm_conv, seconds
+
+
+def abs_basis_factors(torch, samples, grid, tabs_abs, n_modes):
+    """Σ_l |φ_l| |T_l| per dim, multiplied over the dims: the |F| of the
+    γ_c bounds.  It equals the plain factors of |T| where every basis value
+    is ≥ 0 (P1 inside its cell); P2 bases change sign inside a cell, so
+    their absolute values are taken here (the locate and basis of
+    ``ops/fused_sweep.py::fused_sweep_plain``, in ``tabs_abs``'s dtype)."""
+    dt = tabs_abs.dtype
+    s = samples.to(dt)
+    g = grid.to(s.device)
+    fac = torch.ones((s.shape[0], tabs_abs.shape[2]), dtype=dt, device=s.device)
+    for j in range(s.shape[1]):
+        t = (s[:, j] - g[0, j].to(dt)) * g[1, j].to(dt)
+        c = torch.clamp(torch.floor(t), 0.0, float(g[2, j]) - 1.0)
+        xi = t - c
+        deg = int(g[3, j])
+        base = (deg * c).long()
+        basis = ((1.0 - xi, xi) if deg == 1 else
+                 ((1.0 - xi) * (1.0 - 2.0 * xi), 4.0 * xi * (1.0 - xi), xi * (2.0 * xi - 1.0)))
+        vals = sum(tabs_abs[j][base + l] * b.abs()[:, None] for l, b in enumerate(basis))
+        fac *= vals
+    fac[:, n_modes:] = 0.0
+    return fac
+
+
+def amplitude_gap(a, b, floor=AMP_FLOOR):
+    """The amplitude rule's measures for two traces of absolute mode
+    amplitudes (normU of each mode): the largest relative gap over the
+    modes both hold above ``floor`` of their first, and the largest
+    amplitude, relative to its first, left at or below ``floor`` on either
+    path beyond them (0 if none)."""
+    import numpy as np
+
+    a, b = np.asarray(a, dtype=float), np.asarray(b, dtype=float)
+    ra, rb = a / a[0], b / b[0]
+    big_a, big_b = int(np.sum(ra > floor)), int(np.sum(rb > floor))
+    n = min(big_a, big_b)
+    gap = float(np.max(np.abs(a[:n] - b[:n]) / np.abs(b[:n]), initial=0.0))
+    rest = float(max(np.max(ra[n:], initial=0.0), np.max(rb[n:], initial=0.0)))
+    return {"gap": gap, "rest": rest, "above": (big_a, big_b)}
+
+
+def device_amplitudes(res):
+    """The absolute amplitudes (normU) of a SeparatedPGD result's modes."""
+    import numpy as np
+
+    return [float(a) * float(res.normU0) for a in np.asarray(res.amplitudes)[:res.n_modes]]
 
 
 def moment_split(torch, fs, vd, samples):
@@ -1096,8 +1264,8 @@ def main() -> int:
 
     def hold(kernel_out, samples, table, c, rows=65_536, out_dtype=None, sw=None):
         """Max |kernel − plain| (the plain version storing ``out_dtype``) and
-        |kernel − plain f64| against the γ_c bound on |F|·|table| (with
-        φ ≥ 0 for P1, |F| is the plain factor of |T|), on the tables of the
+        |kernel − plain f64| against the γ_c bound on |F|·|table| (|F| from
+        the bases' absolute values, :func:`abs_basis_factors`), on the tables of the
         sweep ``sw`` (default: the d=5 field sweep).  The f64 plain version
         and |F| are evaluated at the coordinates the f32 locate found
         (:func:`located`); the largest shift, in cells, is returned as
@@ -1114,7 +1282,7 @@ def main() -> int:
             worst["locate_cells"] = max(worst["locate_cells"], float(
                 ((s64 - s.double()).abs() * grid.to(s.device)[1].double()).max()))
             k_out = kernel_out[r0 : r0 + rows].double()
-            fabs = fs.fused_sweep_plain(s64, grid, tabs_abs64, None, n_modes)
+            fabs = abs_basis_factors(torch, s64, grid, tabs_abs64, n_modes)
             if t64 is None:
                 ref64 = fs.fused_sweep_plain(s64, grid, tabs.double(), None, n_modes)
                 plain32 = fs.fused_sweep_plain(s, grid, tabs, None, n_modes)
@@ -1239,7 +1407,7 @@ def main() -> int:
         kernels.append({
             "name": name, "kernel": kernel, "route": "cuda",
             "source": "pgdrome_tpu_torch/csrc/fused_sweep.cu",
-            "replaces": "pgdrome_tpu/ops/pallas_kernels.py:44",
+            "replaces": "pgdrome_tpu/ops/pallas_kernels.py:43",
             "wiring": wiring, "shape": list(kernel_out_shape),
             "launches": launches_n, "max_abs_err": worst["vs_plain"],
             "max_abs_err_vs_f64": worst["vs_f64"], "err_over_bound": worst["ratio"],
@@ -3104,6 +3272,199 @@ def main() -> int:
                     r_h3, sens_h3.m0, c_h3, launches=n_s3)
         del f_h3, r_h3, vd_h3
         say(f"heat3d steps (s): {json.dumps({k: round(v, 3) for k, v in steps.items()})}")
+
+    # ----------------------------------------------------------- reference
+    # the reference-parity layer (PGDProblem, PGD, PGDErrorComputation,
+    # to_pgd, utils/native): host f64, run beside the device solver in f64
+    # and the served kernels
+    with Phase("reference"):
+        from pgdrome_tpu_torch import solver as ref_solver
+        from pgdrome_tpu_torch.fem import assembly as ref_assembly
+        from pgdrome_tpu_torch.fem import bc as ref_bc
+        from pgdrome_tpu_torch.fem.function import Function
+        from pgdrome_tpu_torch.model import PGDErrorComputation
+        from pgdrome_tpu_torch.models import problems as ref_problems
+        from pgdrome_tpu_torch.utils import native
+
+        steps = {}
+
+        def step(key, t0):
+            steps[key] = time.perf_counter() - t0
+
+        def amp_limit(jax_gap):
+            """The amplitude rule's bound: 1e-8, or twice the JAX pair's
+            gap where that pair misses 1e-8 on the same build."""
+            return AMP_RTOL if jax_gap is None or jax_gap <= AMP_RTOL else 2 * jax_gap
+
+        def rows_rel(a, b):
+            """Max over rows of max |a − b| / max |b|."""
+            a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+            return float((np.abs(a - b).max(axis=1) / np.abs(b).max(axis=1)).max())
+
+        # the truss: the example's PGDProblem on the host, SeparatedPGD in
+        # f64 on the card, the amplitude rule between them
+        t0 = time.perf_counter()
+        prob_r, sep_r, Vs_r = truss_reference(ref_assembly, ref_bc, ref_solver, ref_problems)
+        prob_r.solve_PGD()
+        step("truss_host_s", t0)
+        t0 = time.perf_counter()
+        res_r = SeparatedPGD(sep_r, dtype=np.float64, device=dev, **TRUSS_SOLVE).solve()
+        torch.cuda.synchronize()
+        step("truss_device_s", t0)
+        check(tuple(sep_r.sizes) == (227, 5, 201) and res_r.modes[0].is_cuda
+              and res_r.modes[0].dtype == torch.float64, "the truss: 227 x 5 x 201, f64 on the card")
+        g_r = amplitude_gap(prob_r._normConv, device_amplitudes(res_r))
+        say(f"reference truss: PGDProblem {prob_r.PGD_modes} mode(s), amplitudes "
+            f"{[float(f'{a:.12e}') for a in prob_r._normConv]} ({steps['truss_host_s']:.3f} s on "
+            f"the host); SeparatedPGD f64 on the card {res_r.n_modes} mode(s), "
+            f"{[float(f'{a:.12e}') for a in device_amplitudes(res_r)]} "
+            f"({steps['truss_device_s']:.3f} s); gap {g_r['gap']:.3e} (bound "
+            f"{amp_limit(JAX_GAP_TRUSS):g}), rest {g_r['rest']:.3e}")
+        check(prob_r.PGD_modes == 1 and res_r.n_modes == 1,
+              "the truss is rank 1: both paths stop after its first mode")
+        check(g_r["gap"] <= amp_limit(JAX_GAP_TRUSS) and g_r["rest"] <= AMP_FLOOR,
+              "the truss: the amplitude rule, PGDProblem against SeparatedPGD")
+
+        # served through the field and sensor wirings
+        vd_r = Vademecum(Vs_r, res_r, method="fused", device=dev)
+        grids_r = [V.tabulate_dof_coordinates()[:, 0] for V in Vs_r[1:]]
+        lo_r = torch.tensor([g[0] for g in grids_r], dtype=torch.float32, device=dev)
+        hi_r = torch.tensor([g[-1] for g in grids_r], dtype=torch.float32, device=dev)
+        s_r = lo_r + (hi_r - lo_r) * torch.rand((TRUSS_B, 2), generator=gen, device=dev)
+        s_r[0], s_r[1] = lo_r, hi_r
+        sens_r = vd_r.sensors(TRUSS_PTS)
+        launches_r = {}
+        f_r = counted_call(launches_r, "truss fields", vd_r.fields, s_r)
+        r_r = counted_call(launches_r, "truss sensors", sens_r, s_r)
+        n_fr = launches_r["truss fields"][0]["fields_f32"]
+        n_sr = launches_r["truss sensors"][0]["sensors"]
+        check(n_fr == 1 and n_sr == 1 and launches_r["truss fields"][1]["gemm"] >= 1
+              and launches_r["truss sensors"][1]["sensor_fused"] == 1,
+              "the truss fields and sensors each ran their wiring's kernels once")
+        check(tuple(f_r.shape) == (TRUSS_B, 227) and tuple(r_r.shape) == (TRUSS_B, 8)
+              and bool(torch.isfinite(f_r).all()), "truss fields and 8 point sensors")
+        sw_r = vd_r._sweep()
+        # P2 parameter dims: ≤ 8 roundings a dim (3 in each basis value, a
+        # product, two sums and the product over the dims)
+        c_r = fs.sum_roundings(int(sw_r.tabs.shape[2])) + 8 * int(sw_r.tabs.shape[0])
+        batch_entry("fused_sweep_fields_f32_truss",
+                    "parallel/vademecum.py::make_sweep_fn (the reference-style truss, rank "
+                    f"{res_r.n_modes}, n0 = 227, NP = 2, P2 parameter dims)", sw_r, s_r, f_r,
+                    sw_r.m0, c_r, launches=n_fr)
+        batch_entry("fused_sweep_sensors_truss",
+                    "serving.py::Vademecum.sensors (8 points of the truss)", sens_r, s_r, r_r,
+                    sens_r.m0, c_r, launches=n_sr)
+
+        # to_pgd at 64 served samples against the f64 plain sweep of the same
+        # (served f32) modes
+        pgd_r = vd_r.to_pgd(name_coord=["X", "P", "E"])
+        vd64_r = Vademecum(Vs_r, vd_r.result, dtype=torch.float64, method="torch", device=dev)
+        s64_r = s_r[:TRUSS_EVAL].double()
+        pts_r = np.asarray(TRUSS_PTS)
+        ref_f = vd64_r.fields(s64_r).cpu().numpy()
+        ref_s = vd64_r.sensors(TRUSS_PTS)(s64_r).cpu().numpy()
+        t0 = time.perf_counter()
+        ev_f = np.stack([pgd_r.evaluate(0, [1, 2], list(p), 0).array
+                         for p in s64_r.cpu().numpy()])
+        ev_s = np.stack([pgd_r.evaluate_sensor_response(0, [1, 2], list(p), 0, pts_r)
+                         for p in s64_r.cpu().numpy()])
+        step("truss_to_pgd_eval_s", t0)
+        e_tf, e_ts = rows_rel(ev_f, ref_f), rows_rel(ev_s, ref_s)
+        say(f"reference truss to_pgd: PGD.evaluate / evaluate_sensor_response at {TRUSS_EVAL} "
+            f"served samples vs the f64 plain sweep of the same modes: max rel {e_tf:.3e} / "
+            f"{e_ts:.3e} (bound {EVAL_REL:g})")
+        check(e_tf <= EVAL_REL and e_ts <= EVAL_REL, "the truss's to_pgd evaluations")
+
+        # PGDErrorComputation against the analytic FOM on both PGDs
+        x_r = Vs_r[0].mesh().coordinates()[:, 0]
+        lim_r = [None] + [[g[0], g[-1]] for g in grids_r]
+        pgd_dev = Vademecum(Vs_r, res_r, dtype=torch.float64, method="torch",
+                            device=dev).to_pgd(name_coord=["X", "P", "E"])
+        e_host = PGDErrorComputation(fixed_dim=[0], n_samples=10, FOM_model=truss_fom(x_r),
+                                     PGD_model=prob_r.return_PGD()).evaluate_error()
+        e_dev = PGDErrorComputation(fixed_dim=[0], n_samples=10, FOM_model=truss_fom(x_r),
+                                    PGD_model=pgd_dev, lim_samples=lim_r).evaluate_error()
+        say(f"reference truss PGDErrorComputation (10 LHS samples, seed 3452) vs the analytic "
+            f"FOM: mean rel-L2 {e_host[1]:.12e} (return_PGD) / {e_dev[1]:.12e} (to_pgd of the "
+            f"card's solve), |diff| {abs(e_host[1] - e_dev[1]):.3e} (bound {PGD_ERR_EQ:g})")
+        check(abs(e_host[1] - e_dev[1]) <= PGD_ERR_EQ, "the two PGDs' mean errors")
+        del f_r, r_r, vd_r, vd64_r, sens_r
+
+        # the d=5 vademecum through the reference API
+        t0 = time.perf_counter()
+        pgd5 = vd.to_pgd()
+        vd5_64 = Vademecum(vd.spaces, vd.result, dtype=torch.float64, method="torch", device=dev)
+        ref5 = vd5_64.fields(torch.as_tensor(corners, device=dev)).cpu().numpy()
+        ev5 = np.stack([pgd5.evaluate(0, list(range(1, 6)), list(c), 0).array
+                        for c in corners])
+        e5 = rows_rel(ev5, ref5)
+        step("d5_to_pgd_s", t0)
+        say(f"reference d=5: to_pgd evaluate at the {len(corners)} inset corners vs the f64 "
+            f"plain sweep of the same modes: max rel {e5:.3e} (bound {EVAL_REL:g})")
+        check(e5 <= EVAL_REL, "the d=5 to_pgd evaluations")
+        V0 = vd.spaces[0]
+        t0 = time.perf_counter()
+        err5 = PGDErrorComputation(
+            fixed_dim=[0], n_samples=32, lim_samples=[None] + [[grid_p[1], grid_p[-2]]] * 5,
+            FOM_model=lambda p: Function(V0, fem(p)).compute_vertex_values(), PGD_model=pgd5)
+        errs5, mean5, max5 = err5.evaluate_error()
+        step("d5_pgd_error_s", t0)
+        lhs5 = np.asarray(err5.data_test)
+        s5 = torch.as_tensor(lhs5, dtype=torch.float32, device=dev)
+        launches5 = {}
+        served5 = counted_call(launches5, "d5 LHS fields", vd.fields, s5)
+        check(launches5["d5 LHS fields"][0]["fields_f32"] == 1
+              and launches5["d5 LHS fields"][1]["gemm"] >= 1,
+              "the d=5 LHS samples ran the field wiring's kernels")
+        w5 = hold(served5, s5, fused.m0, fs.sum_roundings(K) + 4 * NUM_PARAMS)
+        u5 = np.stack([fem(p) for p in lhs5])
+        e_served5 = rel_rows(served5, u5)
+        say(f"reference d=5 PGDErrorComputation (32 LHS samples in the inset box, seed 3452): "
+            f"FEM max rel-L2 {max5:.6e} (mean {mean5:.6e}, vertex values); the same points "
+            f"served by the field kernels: FEM max rel-L2 {e_served5:.6e} (all dofs), kernel "
+            f"vs plain {w5['vs_plain']:.3e} ({w5['ratio']:.3f} of its f64 bound)")
+        check(max5 < FEM_BOUND and e_served5 < FEM_BOUND,
+              "the d=5 vademecum under 1e-6 at the LHS points, through to_pgd and served")
+        del vd5_64, served5
+
+        # bench.py's reference-architecture baseline, 3 modes at bench's widths
+        sep_b, Vs_b = ref_problems.parametric_elliptic(**TRAIN_BUILD)
+        prob_b = ref_problems.pgd_problem_from_separated(sep_b, Vs_b)
+        prob_b.tol_fp_it = BASELINE_SOLVE["tol_fp"]
+        prob_b.max_fp_it = BASELINE_SOLVE["max_fp_it"]
+        amps_b, secs_b = bench_baseline(prob_b, BASELINE_MODES, BASELINE_SOLVE["tol"])
+        t0 = time.perf_counter()
+        res_b = SeparatedPGD(sep_b, dtype=np.float64, device=dev, **BASELINE_SOLVE).solve()
+        torch.cuda.synchronize()
+        step("baseline_device_s", t0)
+        g_b = amplitude_gap(amps_b, device_amplitudes(res_b))
+        say(f"reference baseline (bench.py:685-760, {list(sep_b.sizes)}, T = {sep_b.num_terms}): "
+            f"host seconds per mode {[round(t, 3) for t in secs_b]} on {card}; amplitudes "
+            f"{[float(f'{a:.12e}') for a in amps_b]}; SeparatedPGD f64 on the card "
+            f"{[float(f'{a:.12e}') for a in device_amplitudes(res_b)]} in "
+            f"{steps['baseline_device_s']:.3f} s; gap {g_b['gap']:.3e} (bound "
+            f"{amp_limit(JAX_GAP_BASELINE):g}), rest {g_b['rest']:.3e}")
+        check(len(amps_b) == BASELINE_MODES and res_b.n_modes == BASELINE_MODES
+              and g_b["gap"] <= amp_limit(JAX_GAP_BASELINE) and g_b["rest"] <= AMP_FLOOR,
+              "the baseline build: the amplitude rule, PGDProblem against SeparatedPGD")
+        steps["baseline_host_s"] = sum(secs_b)
+        del prob_b, res_b, sep_b
+
+        # utils/native on the card's machine
+        from scipy.linalg import solve_banded
+
+        rng_n = np.random.default_rng(SEED)
+        n_n = 2049
+        dl_n, du_n = rng_n.random(n_n), rng_n.random(n_n)
+        d_n, b_n = 4.0 + rng_n.random(n_n), rng_n.standard_normal(n_n)
+        x_n = native.thomas_solve(dl_n, d_n, du_n, b_n)
+        ab = np.stack([np.concatenate([[0.0], du_n[:-1]]), d_n, np.concatenate([dl_n[1:], [0.0]])])
+        x_ref = solve_banded((1, 1), ab, b_n)
+        e_n = float(np.abs(x_n - x_ref).max() / np.abs(x_ref).max())
+        say(f"reference native: available {native.available()} ({native._lib_path().name}), "
+            f"thomas_solve on {n_n} rows vs scipy solve_banded: max rel {e_n:.3e}")
+        check(native.available() and e_n <= 1e-12, "utils/native builds, loads and solves")
+        say(f"reference steps (s): {json.dumps({k: round(v, 3) for k, v in steps.items()})}")
 
     peak = max(peak_before, torch.cuda.max_memory_allocated())
     say(f"peak device memory: {peak / 2**30:.3f} GiB")

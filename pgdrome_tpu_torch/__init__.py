@@ -35,7 +35,12 @@ with its families: the plane-strain elasticity-ν flagship
 (:func:`.models.problems.elasticity_vademecum`, its gradient and strain
 vademecums), 3D parametric diffusion
 (:func:`.models.problems.parametric_elliptic_3d` with its dense verifier)
-and 2D transient heat.
+and 2D transient heat; and the reference-parity layer, host numpy in
+f64: :class:`.solver.PGDProblem` with its per-coordinate callbacks, the
+:class:`.model.PGD` container, :class:`.model.PGDErrorComputation`,
+pxdmf/HDF5 persistence (:mod:`.io`, which needs ``h5py`` when called),
+:class:`.utils.pgd_config.PGDConfig` and the native host helpers
+(:mod:`.utils.native`).
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a CUDA device they raise.
@@ -50,7 +55,12 @@ from pgdrome_tpu_torch.fem.assembly import (
     mass_matrix,
     stiffness_matrix,
     load_vector,
+    gram,
 )
+from pgdrome_tpu_torch.ops.fd import FD_matrices
+from pgdrome_tpu_torch.solver import PGDProblem
+from pgdrome_tpu_torch.model import PGD, PGDMesh, PGDAttribute, PGDErrorComputation
+from pgdrome_tpu_torch.utils.pgd_config import PGDConfig
 from pgdrome_tpu_torch.separated import (
     SeparatedProblem,
     SeparatedPGD,
@@ -81,7 +91,7 @@ from pgdrome_tpu_torch.recipes import (
     transient_goal_oriented,
     two_stage_elliptic,
 )
-from pgdrome_tpu_torch.serving import Vademecum
+from pgdrome_tpu_torch.serving import TransientVademecum, Vademecum
 from pgdrome_tpu_torch.convert import (
     result_from_numpy,
     load_state_npz,
@@ -103,6 +113,14 @@ __all__ = [
     "mass_matrix",
     "stiffness_matrix",
     "load_vector",
+    "gram",
+    "FD_matrices",
+    "PGDProblem",
+    "PGD",
+    "PGDMesh",
+    "PGDAttribute",
+    "PGDErrorComputation",
+    "PGDConfig",
     "SeparatedProblem",
     "SeparatedPGD",
     "PGDResult",
@@ -128,6 +146,7 @@ __all__ = [
     "transient_goal_oriented",
     "nonlinear_vademecum",
     "Vademecum",
+    "TransientVademecum",
     "result_from_numpy",
     "load_state_npz",
     "frontier_vademecum",

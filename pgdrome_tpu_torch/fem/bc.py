@@ -16,7 +16,7 @@ import inspect
 import numpy as np
 
 from pgdrome_tpu_torch.fem.space import FunctionSpace
-from pgdrome_tpu_torch.fem.function import Function, Expression
+from pgdrome_tpu_torch.fem.function import Function, Expression, _VectorView
 
 
 def _on_boundary_mask(V: FunctionSpace) -> np.ndarray:
@@ -144,9 +144,13 @@ class DirichletBC:
             self.values = np.full(len(self.dofs), float(value))
 
     def apply(self, target):
-        """Set the constrained entries of a Function or an array (in place)."""
+        """Set the constrained entries of a Function, its ``vector()`` view
+        or an array (in place)."""
         if isinstance(target, Function):
             target.array[self.dofs] = self.values
+            return target
+        if isinstance(target, _VectorView):
+            target[self.dofs] = self.values
             return target
         target = np.asarray(target)
         target[self.dofs] = self.values

@@ -4,19 +4,59 @@
 A ``Function`` is a function space plus a host f64 dof array (interleaved
 components on a vector space); an ``Expression`` wraps a coordinate
 callable with named parameters, or a tuple of them for a vector value; a
-``Constant`` is a scalar or a vector.  The JAX package's dolfin-like shims
-(``vector()``, ``ufl_*``) belong to its reference-parity layer and are not
-carried over.
+``Constant`` is a scalar or a vector.  The dolfin-like shims the
+reference-parity layer (:mod:`pgdrome_tpu_torch.solver`,
+:mod:`pgdrome_tpu_torch.model`) and its users' callbacks rely on are kept:
+``f.vector()`` (a mutable view of the dof array: ``f.vector()[:]``,
+``get_local``/``set_local``, ``axpy``), ``ufl_element()``, string
+expressions over ``x[0]``/``x[1]``, and parameter updates by
+``expr.assign(p=...)`` or ``expr.p = ...``.
 """
 
 from __future__ import annotations
 
 import inspect
+import math
 
 import numpy as np
 
 from pgdrome_tpu_torch.fem.space import FunctionSpace
 from pgdrome_tpu_torch.fem.interpolate import eval_dofs_at_points, check_in_range
+
+
+class _VectorView:
+    """Mutable view of a Function's dof array (dolfin Vector parity)."""
+
+    def __init__(self, fn: "Function"):
+        self._fn = fn
+
+    def __getitem__(self, idx):
+        return self._fn.array[idx]
+
+    def __setitem__(self, idx, val):
+        self._fn.array[idx] = val
+
+    def __len__(self):
+        return self._fn.array.shape[0]
+
+    def get_local(self):
+        return self._fn.array
+
+    def set_local(self, values):
+        self._fn.array[:] = np.asarray(values)
+
+    def axpy(self, a, other: "_VectorView"):
+        self._fn.array += a * other._fn.array
+
+    def max(self):
+        return float(np.max(self._fn.array))
+
+    def min(self):
+        return float(np.min(self._fn.array))
+
+    def __array__(self, dtype=None, copy=None):
+        arr = self._fn.array
+        return arr.astype(dtype) if dtype is not None else arr
 
 
 class Function:
@@ -37,14 +77,20 @@ class Function:
     def function_space(self) -> FunctionSpace:
         return self._V
 
-    def copy(self) -> "Function":
+    def vector(self) -> _VectorView:
+        return _VectorView(self)
+
+    def copy(self, deepcopy: bool = True) -> "Function":
         return Function(self._V, self.array.copy(), name=self.name)
+
+    def ufl_element(self):
+        return self._V.ufl_element()
 
     def __call__(self, x):
         """Point evaluation: a scalar or a batch of scalars on an interval,
         a (gdim,) point or a batch of them otherwise; vector functions give
         (..., value_size)."""
-        pts = np.asarray(x.coords if hasattr(x, "coords") else x, dtype=np.float64)
+        pts = _points_as_array(x)
         check_in_range(self._V, pts)
         out = np.asarray(eval_dofs_at_points(self._V, self.array, pts))
         return float(out) if out.ndim == 0 else out
@@ -85,6 +131,12 @@ class Function:
         return f"Function({self._V!r}, name={self.name})"
 
 
+def _points_as_array(x):
+    """A :class:`~pgdrome_tpu_torch.fem.mesh.Point`, a scalar or an array
+    of points as a float64 array."""
+    return np.asarray(x.coords if hasattr(x, "coords") else x, dtype=np.float64)
+
+
 class Expression:
     """Coordinate expression: a callable ``f(x)`` or ``f(x, **params)``, a
     tuple/list of them (a vector value, stacked on the last axis), or a
@@ -93,7 +145,7 @@ class Expression:
     expressions receive coordinates of any shape ``(...,)``; 2D/3D points
     arrive as ``(..., gdim)``."""
 
-    def __init__(self, expr, degree: int = 1, **params):
+    def __init__(self, expr, degree: int = 1, element=None, **params):
         self.degree = degree
         self.params = dict(params)
         self._components = None
@@ -102,6 +154,8 @@ class Expression:
             self._fn = None
         elif callable(expr):
             self._fn = expr
+        elif isinstance(expr, str):
+            self._fn = _compile_expr(expr)
         else:
             val = float(expr)
             self._fn = lambda x: val * np.ones_like(_first_coord(x))
@@ -117,6 +171,17 @@ class Expression:
         x = np.asarray(x, dtype=np.float64)
         out = self._fn(x, **p) if _wants_params(self._fn) else self._fn(x)
         return np.asarray(out, dtype=np.float64)
+
+    def assign(self, **params):
+        self.params.update(params)
+
+    def __setattr__(self, key, value):
+        # ``expr.p = 2.0`` updates a parameter (the dolfin idiom)
+        if key not in ("degree", "params", "_components", "_fn") and key in self.__dict__.get(
+                "params", {}):
+            self.params[key] = value
+        else:
+            object.__setattr__(self, key, value)
 
 
 def _wants_params(fn):
@@ -138,6 +203,26 @@ def _first_coord(x):
     return x
 
 
+def _compile_expr(src: str):
+    """A callable of ``x`` (and keyword parameters) evaluating the
+    expression string ``src`` over ``x[0]``/``x[1]``/``x[2]``."""
+
+    def fn(x, **params):
+        x = np.asarray(x, dtype=np.float64)
+        if x.ndim >= 2 and x.shape[-1] in (2, 3) and "x[1]" in src:
+            xv = [x[..., i] for i in range(x.shape[-1])]
+        else:
+            xv = [x]
+        ns = {"x": xv, "np": np, "pi": math.pi, "sin": np.sin, "cos": np.cos,
+              "exp": np.exp, "sqrt": np.sqrt, "pow": np.power, "abs": np.abs,
+              "where": np.where}
+        ns.update(params)
+        out = eval(src, {"__builtins__": {}}, ns)
+        return np.broadcast_to(np.asarray(out, dtype=np.float64), xv[0].shape).copy()
+
+    return fn
+
+
 class Constant(Expression):
     """Constant scalar or vector (dolfin.Constant parity)."""
 
@@ -150,6 +235,9 @@ class Constant(Expression):
             vals = [float(value)]
             super().__init__(vals[0])
         self.values_list = vals
+
+    def assign(self, value):
+        Constant.__init__(self, float(value))
 
     def values(self):
         return np.asarray(self.values_list)

@@ -77,6 +77,13 @@ class Mesh:
     def geometry_dim(self) -> int:
         return self._coords_np.shape[1]
 
+    # dolfin's mesh.topology().dim() and mesh.geometry().dim()
+    def topology(self):
+        return _DimShim(self._tdim)
+
+    def geometry(self):
+        return _DimShim(self._coords_np.shape[1])
+
     def hmin(self) -> float:
         raise NotImplementedError
 
@@ -85,6 +92,16 @@ class Mesh:
             f"{self.__class__.__name__}(vertices={self.num_vertices()}, "
             f"cells={self.num_cells()}, tdim={self._tdim})"
         )
+
+
+class _DimShim:
+    """What ``topology()`` and ``geometry()`` return: their ``dim()``."""
+
+    def __init__(self, d):
+        self._d = d
+
+    def dim(self):
+        return self._d
 
 
 class IntervalMesh(Mesh):

@@ -365,10 +365,35 @@ class FunctionSpace:
     def scalar_space(self) -> "FunctionSpace":
         return self
 
+    def ufl_element(self):
+        return _ElementShim(self)
+
+    def ufl_function_space(self):
+        return self
+
     def __repr__(self):
         kind = "Vector" if self.value_size > 1 else ""
         return (f"{kind}FunctionSpace({self.family}{self.degree}, ndofs={self.dim()}, "
                 f"tdim={self._mesh.topology_dim()})")
+
+
+class _ElementShim:
+    """The ``ufl_element()`` of a space: its degree and family (dolfin
+    parity)."""
+
+    def __init__(self, V):
+        self._V = V
+
+    def degree(self):
+        return self._V.degree
+
+    def family(self):
+        return self._V.family
+
+    def __str__(self):
+        if self._V.value_size > 1:
+            return f"<vector element {self._V.family}{self._V.degree}>"
+        return f"<element {self._V.family}{self._V.degree}>"
 
 
 class VectorFunctionSpace(FunctionSpace):

@@ -10,10 +10,15 @@ transient heat, 2D plane-strain elasticity (the ν-separated flagship) and
 ``transient_dense_verifier``, ``plane_strain_C``,
 ``elasticity_vademecum``, ``parametric_elliptic_3d``,
 ``elliptic3d_dense_verifier``, ``nonlinear_elliptic``,
-``nonlinear_elliptic_fom``, ``nonlinear_dense_verifier``).
+``nonlinear_elliptic_fom``, ``nonlinear_dense_verifier``, ``poisson_xy``,
+``elastic_truss``, ``pgd_problem_from_separated``).
 
 Builders return a :class:`~pgdrome_tpu_torch.separated.SeparatedProblem`
-of host arrays plus the per-dim function spaces.
+of host arrays plus the per-dim function spaces;
+:func:`pgd_problem_from_separated` runs any separated problem through the
+reference-parity :class:`~pgdrome_tpu_torch.solver.PGDProblem` (generic
+callbacks over the term stacks): the cross-check of the device solver's
+amplitudes, and the single-core host baseline of bench.py.
 """
 
 from __future__ import annotations
@@ -336,6 +341,136 @@ def corner_seeded_init(target_corners, p_lo, p_hi, q: int = 6,
         return tuple(out)
 
     return init
+
+
+def poisson_xy(n_x: int = 60, n_y: int = 40, lx: float = 1.0, ly: float = 1.0,
+               k: float = 1.0, dtype=None):
+    """2D Poisson separated as x⊗y (two 1D P1 meshes): −kΔu = q with
+    q = 1_{x<lx/2}, homogeneous Dirichlet at x ∈ {0, lx}
+    (BASELINE.json config 1; the physics of reference test_laplace)."""
+    Vx = FunctionSpace(IntervalMesh(n_x, 0.0, lx), "P", 1)
+    Vy = FunctionSpace(IntervalMesh(n_y, 0.0, ly), "P", 1)
+    Kx, Mx = stiffness_matrix(Vx), mass_matrix(Vx)
+    Ky, My = stiffness_matrix(Vy), mass_matrix(Vy)
+
+    ops = [np.stack([k * Kx, k * Mx]), np.stack([My, Ky])]
+    qx = load_vector(Vx, lambda x: np.where(x < lx / 2, 1.0, 0.0))
+    qy = load_vector(Vy, lambda y: np.ones_like(y))
+    rhs = [qx[None, :], qy[None, :]]
+
+    bc_x = DirichletBC(Vx, 0.0, lambda x, onb: onb)
+    bc_dofs = [bc_x.dofs, np.array([], dtype=np.int64)]
+    mass = [Mx, My]
+
+    dt = dtype or np.float64
+    prob = SeparatedProblem(
+        ops=[np.asarray(o, dtype=dt) for o in ops],
+        rhs=[np.asarray(r, dtype=dt) for r in rhs],
+        mass=[np.asarray(m, dtype=dt) for m in mass],
+        bc_dofs=bc_dofs,
+    )
+    return prob, [Vx, Vy]
+
+
+def elastic_truss(n_x=113, n_p=2, n_E=100, ranges=((0, 1), (-1, 3), (0.2, 2)),
+                  degree=2, dtype=None):
+    """1D truss u(x, p, E): −(E u')' = p on x ∈ (0, 1), u = 0 at both ends,
+    with the load p and the modulus E as coordinates (BASELINE.json config
+    4 in 1D; the physics of reference test_elastic and of
+    ``examples/reference_style_truss.py``).  Its exact discrete solution is
+    rank 1 (K_x ⊗ M_p ⊗ M_E,w against a rank-1 load)."""
+    Vx = FunctionSpace(IntervalMesh(n_x, *ranges[0]), "P", degree)
+    Vp = FunctionSpace(IntervalMesh(n_p, *ranges[1]), "P", degree)
+    VE = FunctionSpace(IntervalMesh(n_E, *ranges[2]), "P", degree)
+
+    Kx = stiffness_matrix(Vx)
+    Mp = mass_matrix(Vp)
+    ME_w = mass_matrix(VE, weight=lambda E: E)
+
+    ops = [Kx[None], Mp[None], ME_w[None]]
+    bx = load_vector(Vx, lambda x: np.ones_like(x))
+    bp = load_vector(Vp, lambda p: p)
+    bE = load_vector(VE, lambda E: np.ones_like(E))
+    rhs = [bx[None, :], bp[None, :], bE[None, :]]
+
+    bc_x = DirichletBC(Vx, 0.0, lambda x, onb: onb)
+    bc_dofs = [bc_x.dofs, np.array([], dtype=np.int64), np.array([], dtype=np.int64)]
+    mass = [mass_matrix(Vx), Mp, mass_matrix(VE)]
+
+    dt = dtype or np.float64
+    prob = SeparatedProblem(
+        ops=[np.asarray(o, dtype=dt) for o in ops],
+        rhs=[np.asarray(r, dtype=dt) for r in rhs],
+        mass=[np.asarray(m, dtype=dt) for m in mass],
+        bc_dofs=bc_dofs,
+    )
+    return prob, [Vx, Vp, VE]
+
+
+def pgd_problem_from_separated(sep: SeparatedProblem, Vs, name="separated"):
+    """Run any separated problem through the reference-parity
+    :class:`~pgdrome_tpu_torch.solver.PGDProblem` (generic callbacks over
+    the term stacks, taken to host f64).  The cross-check of the device
+    solver's amplitudes, and the single-core host baseline of bench.py."""
+    from pgdrome_tpu_torch.solver import PGDProblem
+
+    ops = [host_f64(o) for o in sep.ops]
+    rhs = [host_f64(r) for r in sep.rhs]
+    nd = sep.num_dims
+    T = sep.num_terms
+
+    def lhs_fct(fct_F, var_F, Fs, meshes, dom, param, typ, dim):
+        if dim >= nd:  # 'stiff' norming evaluation on the last dim
+            dim = nd - 1
+        coef = np.ones(T)
+        for j in range(nd):
+            if j != dim:
+                coef = coef * np.einsum("tij,i,j->t", ops[j], Fs[j].array, Fs[j].array)
+        return np.einsum("t,tij->ij", coef, ops[dim])
+
+    def rhs_fct(fct_F, var_F, Fs, meshes, dom, param, load, PGD_func, typ, n_enr, dim):
+        rcoef = np.ones(sep.num_rhs)
+        for j in range(nd):
+            if j != dim:
+                rcoef = rcoef * (rhs[j] @ Fs[j].array)
+        b = rcoef @ rhs[dim]
+        for o in range(n_enr):
+            coef = np.ones(T)
+            for j in range(nd):
+                if j != dim:
+                    coef = coef * np.einsum(
+                        "tij,i,j->t", ops[j], Fs[j].array, PGD_func[j][o].array
+                    )
+            b = b - np.einsum("t,tij,j->i", coef, ops[dim], PGD_func[dim][o].array)
+        return b
+
+    def bc_fct(Vlist, dom, param):
+        out = []
+        for d in range(nd):
+            if sep.bc_dofs[d] is not None and len(sep.bc_dofs[d]):
+                bc = DirichletBC.__new__(DirichletBC)
+                bc._V = Vlist[d]
+                bc.component = None
+                bc.dofs = np.asarray(sep.bc_dofs[d], dtype=np.int64)
+                bc.values = np.zeros(len(bc.dofs))
+                out.append(bc)
+            else:
+                out.append(0)
+        return out
+
+    return PGDProblem(
+        name=name,
+        name_coord=[f"D{i}" for i in range(nd)],
+        modes_info=["U", "Node", "Scalar"],
+        Vs=Vs,
+        bc_fct=bc_fct,
+        load=[None] * nd,
+        param={},
+        rhs_fct=rhs_fct,
+        lhs_fct=lhs_fct,
+        probs=list(range(nd)),
+        seq_fp=list(range(nd)),
+    )
 
 
 def transient_heat_2d(nx: int = 12, ny: int = 12, n_t: int = 50, lx: float = 1.0,

@@ -32,7 +32,9 @@ decomposition, so the container holds the trained modes on the device
 * :meth:`Vademecum.fix_parameters` and :meth:`Vademecum.derivative` — new
   vademecums serving a fixed-parameter slice or the d/dx field;
 * :meth:`Vademecum.save` / :meth:`Vademecum.load` — a single-file ``.npz``
-  snapshot (``load`` also reads the JAX package's HDF5 snapshots).
+  snapshot (``load`` also reads the JAX package's HDF5 snapshots);
+* :meth:`Vademecum.to_pgd` — the reference-style
+  :class:`~pgdrome_tpu_torch.model.PGD` container of the same modes.
 
 :class:`TransientVademecum` serves space-time results: its field dims are
 kron-flattened into one dim-0 table, so the same paths (and kernels) serve
@@ -863,6 +865,16 @@ class Vademecum:
 
         return self._dim0_mode_map(to_strain)
 
+    def to_pgd(self, name="vademecum", name_coord=None):
+        """The reference-style :class:`~pgdrome_tpu_torch.model.PGD`
+        container of this decomposition (the model layer: evaluate,
+        reducers, derivatives, pxdmf/HDF5 export), on host f64 copies of
+        the served modes.  They are full dofs already, so no transform is
+        applied again."""
+        from pgdrome_tpu_torch.model import pgd_from_result
+
+        return pgd_from_result(self.result, self.spaces, name=name, name_coord=name_coord)
+
     # -------------------------------------------------------- persistence
 
     def save(self, filepath):
@@ -1056,6 +1068,19 @@ class TransientVademecum(Vademecum):
         fmods[1] = fmods[1] * w[:, None]
         return self._with_modes(self.field_spaces + [self.spaces[1 + j] for j in keep],
                                 fmods + [host_f64(self._modes[1 + j]) for j in keep])
+
+    def to_pgd(self, name="vademecum", name_coord=None):
+        """The reference-style :class:`~pgdrome_tpu_torch.model.PGD`
+        container of the unflattened decomposition: every original dim kept
+        separate, field dims first."""
+        from pgdrome_tpu_torch.model import pgd_from_result
+
+        res = PGDResult(
+            modes=list(self._field_modes) + list(self._modes[1:]), n_modes=self.n_modes,
+            amplitudes=np.asarray(self.result.amplitudes), alpha=np.asarray(self.result.alpha),
+            fp_its=np.asarray(self.result.fp_its), normU0=self.result.normU0,
+        )
+        return pgd_from_result(res, self._all_spaces, name=name, name_coord=name_coord)
 
     def save(self, filepath):
         """Single-file ``.npz`` snapshot of the original per-dim modes

@@ -1042,3 +1042,83 @@ def test_heat3d_sensors_on_card(cuda):
         plain = fs.make_fused_sweep(Vs, modes, K, device="cpu")(torch.as_tensor(samples))
         bound = _gamma_bound(Vs, modes, K, samples, K + 4 * 2)
         assert bool(((got.cpu().double() - plain.double()).abs() <= 2 * bound).all())
+
+
+def _abs_basis_bound(spaces, modes, n_modes, samples, c):
+    """γ_c · |F|·|M0| in f64 with |F| = Π_j Σ_l |φ_l| |T_jl| (P2 bases
+    change sign inside a cell, so the factor of |T| is no bound there)."""
+    grid = fs.sweep_grid(spaces).astype(np.float64)
+    s = np.asarray(samples, dtype=np.float64)
+    fac = np.ones((s.shape[0], modes[1].shape[0]))
+    for j, m in enumerate(modes[1:]):
+        t = (s[:, j] - grid[0, j]) * grid[1, j]
+        cell = np.clip(np.floor(t), 0.0, grid[2, j] - 1.0)
+        xi, deg = t - cell, int(grid[3, j])
+        basis = ((1 - xi, xi) if deg == 1 else
+                 ((1 - xi) * (1 - 2 * xi), 4 * xi * (1 - xi), xi * (2 * xi - 1)))
+        base = (deg * cell).astype(np.int64)
+        fac *= sum(np.abs(m[:, base + l].T) * np.abs(b)[:, None] for l, b in enumerate(basis))
+    fac[:, n_modes:] = 0.0
+    u = 2.0 ** -24
+    return c * u / (1 - c * u) * (fac @ np.abs(modes[0]).astype(np.float64))
+
+
+def test_truss_served_and_to_pgd_on_card(cuda):
+    # the reference-style truss (P2 in every dim) solved in f64, served in
+    # f32 on the card: fields through the GEMM and 8 sensors through the
+    # narrow product, each within 2γ_c of the plain version (c = K + 8 a P2
+    # dim); to_pgd evaluates the served modes as the f64 plain sweep does
+    from pgdrome_tpu_torch.models.problems import elastic_truss
+    from pgdrome_tpu_torch.separated import SeparatedPGD
+    from pgdrome_tpu_torch.serving import Vademecum
+
+    sep, Vs = elastic_truss()
+    res = SeparatedPGD(sep, n_max=10, tol=1e-10, tol_fp=1e-5, dtype=np.float64,
+                       device="cpu").solve()
+    assert res.n_modes == 1
+    vd = Vademecum(Vs, res, method="fused", device=cuda)
+    rng = np.random.default_rng(23)
+    samples = np.stack([rng.uniform(-1.0, 3.0, 700), rng.uniform(0.2, 2.0, 700)],
+                       axis=1).astype(np.float32)
+    samples[0], samples[1] = (-1.0, 0.2), (3.0, 2.0)
+    pts = [0.05 + 0.9 * i / 7 for i in range(8)]
+    sens = vd.sensors(pts)
+    fs.reset_launch_counts()
+    out = vd.fields(torch.as_tensor(samples, device=cuda))
+    resp = sens(torch.as_tensor(samples, device=cuda))
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES["fields_f32"] == 1 and fs.LAUNCHES["sensors"] == 1
+    assert fs.STAGE_LAUNCHES["gemm"] >= 1 and fs.STAGE_LAUNCHES["sensor_fused"] == 1
+    K = vd.n_modes
+    for got, table in ((out, vd._modes[0]), (resp, sens.m0)):
+        modes = [table.cpu().numpy()] + [m.cpu().numpy() for m in vd._modes[1:]]
+        plain = fs.make_fused_sweep(Vs, modes, K, device="cpu")(torch.as_tensor(samples))
+        bound = _abs_basis_bound(Vs, modes, K, samples, K + 8 * 2)
+        assert bool(((got.cpu().double() - plain.double()).numpy() <= 2 * bound).all())
+        assert bool(((plain.double() - got.cpu().double()).numpy() <= 2 * bound).all())
+    pgd = vd.to_pgd()
+    vd64 = Vademecum(Vs, vd.result, method="torch", dtype=torch.float64, device="cpu")
+    s64 = samples[:16].astype(np.float64)
+    ref = vd64.fields(s64).numpy()
+    ref_s = vd64.sensors(pts)(s64).numpy()
+    for b, p in enumerate(s64):
+        u = pgd.evaluate(0, [1, 2], list(p), 0).array
+        r = pgd.evaluate_sensor_response(0, [1, 2], list(p), 0, np.asarray(pts))
+        assert np.abs(u - ref[b]).max() <= 1e-12 * np.abs(ref[b]).max()
+        assert np.abs(r - ref_s[b]).max() <= 1e-12 * np.abs(ref_s[b]).max()
+
+
+def test_native_available_on_card_machine(cuda):
+    # the native host helpers build from csrc/pgdrome_native.cpp on the
+    # card's machine and solve a tridiagonal system as scipy does
+    from scipy.linalg import solve_banded
+
+    from pgdrome_tpu_torch.utils import native
+
+    assert native.available()
+    rng = np.random.default_rng(24)
+    n = 2049
+    dl, du, d, b = rng.random(n), rng.random(n), 4.0 + rng.random(n), rng.standard_normal(n)
+    ab = np.stack([np.concatenate([[0.0], du[:-1]]), d, np.concatenate([dl[1:], [0.0]])])
+    ref = solve_banded((1, 1), ab, b)
+    assert np.abs(native.thomas_solve(dl, d, du, b) - ref).max() <= 1e-12 * np.abs(ref).max()

@@ -120,3 +120,15 @@ def test_fem_modules_covered():
                    "pgdrome_tpu_torch.models.problems"):
         assert module in MODULES
         assert module.replace(".", "/") + ".py" in SOURCES
+
+
+def test_reference_modules_covered():
+    # the reference-parity layer's modules are among those imported and
+    # scanned; io imports h5py only inside function bodies
+    for module in ("pgdrome_tpu_torch.solver", "pgdrome_tpu_torch.model",
+                   "pgdrome_tpu_torch.io", "pgdrome_tpu_torch.utils.native",
+                   "pgdrome_tpu_torch.utils.pgd_config"):
+        assert module in MODULES
+        assert module.replace(".", "/") + ".py" in SOURCES
+    lazy = [f for n, f in _imports(ast.parse((PKG / "io.py").read_text())) if n == "h5py"]
+    assert lazy and all(lazy)
