@@ -77,6 +77,7 @@ outside a checkout of the repository, it exits non-zero at once.
 from __future__ import annotations
 
 import faulthandler
+import inspect
 import json
 import re
 import subprocess
@@ -708,6 +709,15 @@ def nvidia_smi_line():
     return proc.stdout.strip().splitlines()[0]
 
 
+def max_sm_clock_hz():
+    """The card's highest SM clock (``clocks.max.sm``), in Hz."""
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return float(proc.stdout.strip().splitlines()[0]) * 1e6
+
+
 def clocks():
     """SM clock, power draw and temperature now (a timing's conditions)."""
     proc = subprocess.run(
@@ -1039,6 +1049,9 @@ def main() -> int:
             f"cuda {torch.version.cuda}, devices {torch.cuda.device_count()}")
         kind = next((k for k in ("PCIe", "NVL") if k in name), "SXM")
         peak_flops, peak_tf32, peak_bw = PEAKS[kind]
+        sm_clock_hz = max_sm_clock_hz()
+        say(f"highest SM clock {sm_clock_hz / 1e6:g} MHz (the shared-memory rate of the "
+            f"narrow product's bound_smem_ms)")
         say(f"peaks for the roofline ({kind} data sheet): "
             f"{peak_flops / 1e12:g} TFLOP/s f32, {peak_tf32 / 1e12:g} TFLOP/s tf32 "
             f"tensor, {peak_bw / 1e12:g} TB/s")
@@ -1055,10 +1068,15 @@ def main() -> int:
             if "Compiling entry function" in line:
                 mangled = line.split("'")[1]
                 factors = re.search(r"sweep_factors_kernelILi(\d+)ELi(\d)ELb(\d)E", mangled)
+                narrow = re.search(r"sweep_narrow_kernelILi(\d+)ELi(\d)ELb(\d)E", mangled)
                 if factors:
                     ks, mode, staged = factors.groups()
                     kernel_name = (f"sweep_factors_kernel<ks={ks}, "
-                                   f"{('F', 'split', 'narrow')[int(mode)]}, "
+                                   f"{('F', 'split')[int(mode)]}, "
+                                   f"{'staged' if staged == '1' else 'global'}>")
+                elif narrow:
+                    ks, nt, staged = narrow.groups()
+                    kernel_name = (f"sweep_narrow_kernel<ks={ks}, nt={nt}, "
                                    f"{'staged' if staged == '1' else 'global'}>")
                 elif "partial_sum_kernel" in mangled:
                     kernel_name = "partial_sum_kernel<" + (
@@ -1212,7 +1230,12 @@ def main() -> int:
               "every field call ran the tensor-core GEMM on every row chunk")
         check(stage_launches["factors_stage"] == stage_launches["gemm"] + launches["factors"],
               "one factor-kernel launch per GEMM launch, plus the factor wiring's")
-        check(stage_launches["sensor_fused"] == launches["sensors"] == 5,
+        # two one-shot calls, then three streams of B_BIG / chunk sensor calls
+        chunk = inspect.signature(vd.sensors_stream).parameters["chunk"].default
+        sensor_calls = 2 + 3 * -(-B_BIG // chunk)
+        say(f"sensor calls expected (two one-shot, three streams of {chunk}-sample "
+            f"chunks): {sensor_calls}")
+        check(stage_launches["sensor_fused"] == launches["sensors"] == sensor_calls,
               "each sensor call ran the fused narrow product once")
         check(stage_launches["factors_global"] == 0, "the d=5 tables take the staged route")
         check(kept["seen"][-1] == B_stream - (n_chunks - 1) * B_FIELDS, "stream tail trimmed")
@@ -1373,10 +1396,26 @@ def main() -> int:
                 "factor_stage_bound_ms": stage1_bound(B, sweep), "row_chunks": len(chunks)}
 
     def kernel_of(sweep, mode):
-        """The factor kernel's instance; its tile and grid for the call are
+        """The stage-1 kernel's instance (the factor kernel writing F or its
+        split, or the narrow product); its tile and grid for the call are
         the entry's ``plan`` (:func:`plan_of`)."""
         p = sweep.plan
+        if mode == "narrow":
+            return (f"sweep_narrow_kernel<ks={p.ks}, nt={fs.narrow_nt(int(sweep.m0.shape[1]))}, "
+                    f"{p.route}>")
         return f"sweep_factors_kernel<ks={p.ks}, {mode}, {p.route}>"
+
+    def smem_bound(sweep, B):
+        """The shared-memory bytes the narrow product's gathers read on
+        ``B`` samples (each active slice's columns: deg + 1 table values of
+        4 bytes a dim, a sample) and the time they take at 128 bytes a clock
+        an SM at the card's highest SM clock (a data-sheet rate, not a
+        measurement): informational, beside the HBM bound."""
+        deg = [int(d) for d in sweep.grid[3].tolist()]
+        cols = -(-sweep.n_modes // sweep.plan.ks) * sweep.plan.ks
+        nbytes = B * cols * sum(d + 1 for d in deg) * 4
+        rate = fs.sm_count(dev) * 128 * sm_clock_hz
+        return {"smem_bytes": nbytes, "bound_smem_ms": nbytes / rate * 1e3}
 
     def plan_of(sweep, B):
         """What one call of the wiring ``sweep`` on ``B`` samples launched,
@@ -1404,6 +1443,8 @@ def main() -> int:
               bound, c, sw=None, **extra):
         if sw is not None:
             extra = {"plan": plan_of(sw, int(kernel_out_shape[0])), **extra}
+            if sw.m0_slices is not None:
+                extra = {**smem_bound(sw, int(kernel_out_shape[0])), **extra}
         kernels.append({
             "name": name, "kernel": kernel, "route": "cuda",
             "source": "pgdrome_tpu_torch/csrc/fused_sweep.cu",
@@ -1445,14 +1486,17 @@ def main() -> int:
         del bf
         fac_fields = fs.fused_sweep(s_fields, grid, tabs, None, vd.n_modes)
         # the GEMM's operand: the split store is split_factors of the plain
-        # factors, bit for bit (the head columns whole, the rest split_tf32)
+        # factors, bit for bit (the head columns whole, the rest split_tf32),
+        # its columns in the sweep's binding of the modes (fs.head_order)
         rows_split = 65_536
         hi = torch.empty((rows_split, fs.padded_k(K)), device=dev)
         lo = torch.empty_like(hi)
         fs.factors_stage(s_fields[:rows_split], grid, tabs, vd.n_modes, hi, lo,
                          plan=fused.plan, sliced=fused.sliced)
-        p_hi, p_lo = fs.split_factors(fs.fused_sweep_plain(s_fields[:rows_split], grid, tabs,
-                                                           None, vd.n_modes))
+        fac_split = fs.fused_sweep_plain(s_fields[:rows_split], grid, tabs, None, vd.n_modes)
+        p_hi, p_lo = fs.split_factors(fac_split if fused.order is None
+                                      else fac_split[:, fused.order])
+        del fac_split
         check(torch.equal(hi[:, :K].view(torch.int32), p_hi.view(torch.int32))
               and torch.equal(lo[:, :K].view(torch.int32), p_lo.view(torch.int32))
               and not bool(hi[:, K:].any()) and not bool(lo[:, K:].any()),
@@ -1497,10 +1541,18 @@ def main() -> int:
         factor_sweep = fs.FusedSweep(grid, tabs, None, vd.n_modes)
         fac_big = factor_sweep(s_big)
         lib_sens = cuda_ms(lambda: torch.matmul(fac_big, table), 3)
+        # the unfused two-step route: the factor wiring writes F to HBM, then
+        # one torch.matmul (the yardstick the fused kernel must beat)
+        two_step = cuda_ms(lambda: torch.matmul(factor_sweep(s_big), table), 3)
+        say(f"sensors: fused {ms_sens:.4f} ms, two-step route (factor wiring + torch.matmul) "
+            f"{two_step:.4f} ms, library (torch.matmul on F) {lib_sens:.4f} ms")
+        check(torch.equal(factor_sweep(s_big[:65_536]), fac_big[:65_536]),
+              "the two-step route's factors are the factor wiring's")
         entry("fused_sweep_sensors", kernel_of(sensor_sweep, "narrow"),
               "parallel/vademecum.py::make_sensor_sweep_fn",
               resp.shape, launches["sensors"], w_sens, ms_sens, plain_sens, lib_sens,
-              roofline(B_BIG, N_PTS, 4, True), c_fields, stages=stages_sens, sw=sensor_sweep)
+              roofline(B_BIG, N_PTS, 4, True), c_fields, stages=stages_sens, sw=sensor_sweep,
+              two_step_ms=two_step)
         del resp, resp_stream
 
     # ------------------------------------------------------------ moments
@@ -2548,7 +2600,7 @@ def main() -> int:
                       "parallel/vademecum.py::make_sweep_fn (committed rank-2717 d=10 "
                       "vademecum)", vd10, corners10, float(fem10.max()), fem_bound=FEM_BOUND)
         # the fused narrow product at K = 2717 (8 sensor points at the 1024
-        # corners): its shared accumulator is flushed every 512 k
+        # corners): k-ranges of at most 512 k, their f32 partials added in f64
         s10 = torch.as_tensor(corners10, dtype=torch.float32, device=dev)
         pts10 = np.linspace(0.05, 0.95, N_PTS)
         sens10 = vd10.sensors(pts10)
@@ -3155,6 +3207,36 @@ def main() -> int:
             plain_slack=ELAS_SERVE_SLACK)
         say(f"elasticity served / f64 reconstruction vs FEM: "
             f"{e_served_e / err2_e.max():.3f}")
+        # C4 (ROADMAP): the GEMM's 8-mode FMA head when the leading modes
+        # are not the first 8 — the flagship with its modes permuted so that
+        # the 8 largest (max |M0 row| x the product of max |T_j row|) come
+        # last, served through the kernels (which bind them first again,
+        # fs.head_order), against the plain f32 version on the same
+        # permuted tables
+        s_pe = torch.as_tensor(pts_e, dtype=torch.float32, device=dev)
+        sw0 = vd_e._sweep()
+        e_plain0 = rel_rows(fs.fused_sweep_plain(s_pe, sw0.grid, sw0.tabs, sw0.m0,
+                                                 sw0.n_modes), u_e)
+        mag = sw0.m0.abs().amax(1).double() * sw0.tabs.abs().amax(1).double().prod(0)
+        big = torch.argsort(mag, descending=True)[: fs.K_HEAD].tolist()
+        perm = torch.tensor([k for k in range(vd_e.n_modes) if k not in big] + big,
+                            device=dev)
+        vd_pe = vd_e._derived(vd_e.spaces, [m[perm] for m in vd_e._modes])
+        sw_pe = vd_pe._sweep()
+        e_c4 = rel_rows(vd_pe.fields(s_pe), u_e)
+        e_c4_plain = rel_rows(fs.fused_sweep_plain(s_pe, sw_pe.grid, sw_pe.tabs, sw_pe.m0,
+                                                   sw_pe.n_modes), u_e)
+        say(f"C4: the flagship's 8 largest modes {sorted(big)} of {vd_e.n_modes}; trained "
+            f"order: kernel {e_served_e:.6e}, plain f32 {e_plain0:.6e}, ratio "
+            f"{e_served_e / e_plain0:.4f}; the 8 largest last: kernel {e_c4:.6e}, plain f32 "
+            f"{e_c4_plain:.6e}, ratio {e_c4 / e_c4_plain:.4f} (the flagship gate "
+            f"{ELAS_SERVE_SLACK:g}), bound with modes {sw_pe.order[:fs.K_HEAD].tolist()} "
+            f"first")
+        check(sorted(perm[sw_pe.order[:fs.K_HEAD]].tolist()) == sorted(big)
+              and e_c4 <= ELAS_SERVE_SLACK * e_c4_plain,
+              "C4: the flagship with its 8 largest modes last, bound with them first, serves "
+              "within the flagship gate of the plain f32 version")
+        del vd_pe, sw_pe
         lo_e = torch.tensor([g[0] for g in grids_e], dtype=torch.float32, device=dev)
         hi_e = torch.tensor([g[-1] for g in grids_e], dtype=torch.float32, device=dev)
         s_e = lo_e + (hi_e - lo_e) * torch.rand((ELAS_BATCH, 3), generator=gen, device=dev)

@@ -19,8 +19,9 @@
 //                      is skipped); F split into tf32 hi/lo halves in two
 //                      (B, ldf) buffers for the GEMM (fields), the first
 //                      kHead columns held whole in hi (lo zero); or the narrow
-//                      product out (B, n0 <= 32) = F . M0 fused in (sensors:
-//                      F never reaches HBM, as in the TPU kernel).
+//                      product out (B, n0 <= 32) = F . M0 fused in
+//                      (sweep_narrow_kernel; sensors: F never reaches HBM,
+//                      as in the TPU kernel).
 //   pgd_sweep_gemm     stage 2: out (rows, n0) = F (rows, Kp) . M0 from the
 //                      split F and a split, transposed, masked M0 table
 //                      (n0, Kp) for k >= kHead, plus the head k < kHead
@@ -70,23 +71,51 @@
 // F's columns are disjoint, so F and its split are bit for bit the same
 // on any grid.
 //
-// The narrow product (sensors; 512-thread blocks, ~75 registers) keeps a
-// (S, n0) f32 accumulator in shared memory.  Per slice the block writes F
-// of 512 rows into a shared tile, then each thread takes one row: a
-// partial sum over the slice's KS columns (FMA, k ascending) against the
-// slice of the masked M0 table (staged beside the tables), added to the
-// row's accumulator; the rows are stored, f32 or bf16
-// (__float2bfloat16_rn), after the last slice that holds a mode.  Blocked
-// so: KS-deep partial sums, K/KS of them per output, far inside the
-// K + 4*NP roundings the checks allow.  F never reaches HBM.  Its k
-// splits into ranges (blockIdx.y) when the batch is small, as above, and
-// on any batch whose modes pass K = 1024; a range is a power of two of
+// The narrow product (sensors: n0 <= 32; sweep_narrow_kernel) keeps F and
+// its sums in registers.  Its limit is the gathers: at the d=5 widths each
+// (sample, mode) reads 2 table rows x NP dims x 4 bytes = 40 bytes of
+// shared memory, 107 GB for 4,194,304 samples x 640 modes, about 3.2 ms at
+// 128 bytes a clock an SM (a data-sheet rate; the arithmetic is under 1 ms
+// at the f32 peak).  So it spends shared memory on the gathers alone:
+//  - a block of 16 warps walks its tile's k-slices through the same
+//    two-stage ring, the slice of the split M0 table staged beside the
+//    tables; each warp keeps the accumulators of its m16 x n8 output tiles
+//    in registers (4 a tile a thread, 8 tiles a warp: up to 2048 rows at
+//    n0 <= 8, 1024 at 16, 512 at 32);
+//  - each lane computes exactly the F values of its tensor-core A
+//    fragments (two rows, four columns of each 16-k group; the k order
+//    inside a group is permuted to match, and the wrapper lays M0's rows
+//    out the same way), so F goes from the gathers to mma.sync m16n8k8
+//    TF32 without leaving registers;
+//  - each (row, dim)'s cell is located once a tile (its table-row offset
+//    and xi, 8 bytes in shared memory), not once a slice;
+//  - the last warp done with a stage refills it (a count in shared
+//    memory), so no block barrier stops the warps between slices;
+//  - at ks = 32 the lanes of odd rows gather the slice's second group
+//    first, so a quarter-warp's two rows read both halves of their
+//    128-byte table rows (no bank conflict); ks = 16 only where 32 does
+//    not fit.
+// Measured on an H100 (PERF.md 6.1, d=5 sensors, seeded tables, ms): the
+// first version (shared F tile and accumulator, two barriers a 512-row
+// chunk) 15.68; registers, a barrier a slice, a locate a slice 6.78;
+// cells located once a tile 5.39-5.57; the tf32 split in integer
+// operations instead of cvt.rna 5.03-5.20; no barrier 4.81-4.83
+// (torch.matmul on a ready F: 4.86).  ks = 16 ran 6.4-7.9 at any tile
+// height; a split that truncates hi and hands lo to the tensor cores
+// unrounded saved 0.2 more, for 4x the error a product, and was not taken.
+// The arithmetic contract is the GEMM's (below): 3xTF32 (both halves
+// rounded to nearest) into a fresh accumulator a 16-k group, added to the
+// total in round-to-nearest f32, and the first kHead modes in f32 FMAs
+// from an f32 head table.  The head comes first here (the total starts as
+// its FMA sum, k = kHead-1 down to 0), since the lanes hold F's head
+// columns only while slice 0 is read.  Σ_l φ_l T_l is an FMA chain (one
+// rounding fewer a term than the plain version).  F never reaches HBM.
+// Its k splits into ranges (blockIdx.y) when the batch is small, as above,
+// and on any batch whose modes pass K = 1024; a range is a power of two of
 // slices, at most one 512-k chunk and never across a chunk boundary.  On
-// more than one range each block stores its accumulator as an f32
-// partial, and partial_sum_kernel adds the ranges in f64, rounding once:
-// KS + range + 1 roundings an output, under the count the checks take
-// (ops/fused_sweep.py::sum_roundings).  One range stores the output
-// itself.
+// more than one range each block stores its total as an f32 partial, and
+// partial_sum_kernel adds the ranges in f64, rounding once.  One range
+// stores the output itself.
 
 // Stage 2 is a GEMM of 2*K*n0 FLOPs per sample (2.62 MFLOP at K=640,
 // n0=2049), bound by tensor-core FLOPs at the field width.  Its 128 x 128
@@ -130,13 +159,15 @@
 // round-to-nearest FMAs (in the blocks of the first k-chunk only).  The
 // producer loads the tile's head operands, F (128 x kHead) and an f32 M0
 // head table (kHead x 128), by TMA into shared memory before the first
-// stage, so the epilogue reads them there.  PGD modes come largest first,
-// so the terms that set an output's rounding are summed as an f32 FMA sum
-// sums them, largest last, and the split's 2^-22 per product and the
-// truncating accumulator touch only the tail.  Without the head the served
-// elasticity flagship (rank 32, no cancellation in its sum) sat 1.21x
-// above the plain f32 version's error against FEM on an H100 (PERF.md 6.1,
-// ROADMAP C3).  A 16-mode head read through the L1 in the epilogue added
+// stage, so the epilogue reads them there.  The wrapper binds the modes
+// with the kHead largest first (ops/fused_sweep.py::head_order; PGD modes
+// mostly come so already), so the terms that set an output's rounding are
+// summed as an f32 FMA sum sums them, largest last, and the split's 2^-22
+// per product and the truncating accumulator touch only the tail.
+// Without the head the served elasticity flagship (rank 32, no
+// cancellation in its sum) sat 1.21x above the plain f32 version's error
+// against FEM on an H100 (PERF.md 6.1, ROADMAP C3); with its 8 largest
+// modes bound last, 1.49x (ROADMAP C4).  A 16-mode head read through the L1 in the epilogue added
 // 18 % to the d=5 field GEMM (PERF.md 6.1).
 // The rounding of hi/lo is the integer form of cvt.rna.tf32.f32 (ties
 // away from zero), bit for bit the plain split_tf32 in ops/fused_sweep.py,
@@ -260,48 +291,62 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
 
 // ------------------------------------------------------------- stage 1
 
-enum Mode { kFactors = 0, kSplit = 1, kNarrow = 2 };
+enum Mode { kFactors = 0, kSplit = 1 };
 
-// Threads of a factor-kernel block: 32 warps for the F stores (32
-// registers a thread), 16 for the narrow product (~75 registers).
-__host__ __device__ constexpr int factor_threads(int mode) {
-  return mode == kNarrow ? 512 : 1024;
-}
+// Threads of a factor-kernel block writing F or its split: 32 warps (32
+// registers a thread).
+constexpr int kFactorThreads = 1024;
 
 __host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
 
-// Row stride of the narrow accumulator, in floats: n0 rounded up to 4, an
-// odd number of float4s, so the 8 rows of a quarter-warp hit 8 bank groups.
-__host__ __device__ constexpr int acc_stride(int n0) {
-  return (round4(n0) / 4) % 2 ? round4(n0) : round4(n0) + 4;
+// The narrow product's block: 16 warps, each holding the accumulators of
+// up to kNarrowTiles m16 x n8 output tiles (4 registers a thread each).
+// A tile of rows is one m16 tile a warp (kNarrowPass = 256 rows) or a
+// multiple of it, up to narrow_rows_max(n0).
+constexpr int kNarrowThreads = 512;
+constexpr int kNarrowWarps = kNarrowThreads / 32;
+constexpr int kNarrowPass = 16 * kNarrowWarps;
+constexpr int kNarrowTiles = 8;
+// Bytes after the narrow product's stages and cells: the two stage
+// barriers and the two stages' counts of warps done reading them.
+constexpr int kNarrowTail = 32;
+
+// n8 column tiles of a narrow output n0 <= kMaxN0 wide (8, 16 or 32
+// columns; a 24-wide output takes 32).
+__host__ __device__ constexpr int narrow_nt(int n0) { return n0 <= 8 ? 1 : n0 <= 16 ? 2 : 4; }
+__host__ __device__ constexpr int narrow_rows_max(int n0) {
+  return kNarrowPass * (kNarrowTiles / narrow_nt(n0));
 }
 
-// Dynamic shared memory of a factor launch, in bytes; the layout in order:
-// two table stages (each NP*ndofp*ks floats, plus ks*round4(n0) of M0 in
-// narrow mode) when staged, the tile's samples, and in narrow mode the
-// F tile of one row per thread (row stride ks + 4) and the accumulator.
-// n0 = 0: no narrow product.  ops/fused_sweep.py::factor_smem is the same
+// Dynamic shared memory of a factor launch, in bytes.  F or its split
+// (n0 = 0): two table stages (each NP*ndofp*ks floats) when staged, then
+// the tile's samples.  The narrow product (n0 > 0): two stages of the
+// tables and the slice's split M0 (2*ks*8*narrow_nt(n0) floats) when
+// staged, the tile's located cells (rows*NP of (table row, xi), 8 bytes),
+// then kNarrowTail bytes.  ops/fused_sweep.py::factor_smem is the same
 // formula.
 __host__ __device__ constexpr long long factor_smem(int NP, int ndofp, int ks, int rows, int n0,
                                                     bool staged) {
-  return (staged ? 2LL * ((long long)NP * ndofp * ks + (long long)ks * round4(n0)) * 4 : 0) +
-         round4(rows * NP) * 4LL +
-         (n0 > 0 ? ((long long)factor_threads(kNarrow) * (ks + 4) +
-                    (long long)rows * acc_stride(n0)) * 4
-                 : 0);
+  return (staged ? 2LL * ((long long)NP * ndofp * ks +
+                          (n0 > 0 ? 2LL * ks * 8 * narrow_nt(n0) : 0)) * 4
+                 : 0) +
+         (n0 > 0 ? 8LL * rows * NP + kNarrowTail : round4(rows * NP) * 4LL);
 }
 
 // Cell locate + Lagrange basis on a uniform grid, in f32, in the plain
 // version's order of operations, each rounded on its own.  A NaN sample
 // yields cell 0 and NaN weights (so a NaN output), never an out-of-range
 // dof.
-__device__ __forceinline__ void locate(float x, float x0, float inv_h, float ncell, int deg,
-                                       int* base, float* w0, float* w1, float* w2) {
+__device__ __forceinline__ void cell_of(float x, float x0, float inv_h, float ncell, int deg,
+                                        int* base, float* xi) {
   const float t = __fmul_rn(__fsub_rn(x, x0), inv_h);
   const float c = fminf(fmaxf(floorf(t), 0.0f), ncell - 1.0f);
-  const float xi = __fsub_rn(t, c);
-  const float omx = __fsub_rn(1.0f, xi);
+  *xi = __fsub_rn(t, c);
   *base = deg * (int)c;
+}
+
+__device__ __forceinline__ void basis_of(float xi, int deg, float* w0, float* w1, float* w2) {
+  const float omx = __fsub_rn(1.0f, xi);
   if (deg == 1) {
     *w0 = omx;
     *w1 = xi;
@@ -312,6 +357,13 @@ __device__ __forceinline__ void locate(float x, float x0, float inv_h, float nce
     *w1 = __fmul_rn(__fmul_rn(4.0f, xi), omx);
     *w2 = __fmul_rn(xi, __fsub_rn(two_xi, 1.0f));
   }
+}
+
+__device__ __forceinline__ void locate(float x, float x0, float inv_h, float ncell, int deg,
+                                       int* base, float* w0, float* w1, float* w2) {
+  float xi;
+  cell_of(x, x0, inv_h, ncell, deg, base, &xi);
+  basis_of(xi, deg, w0, w1, w2);
 }
 
 __device__ __forceinline__ float4 scale4(float a, float4 t) {
@@ -325,6 +377,11 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
 __device__ __forceinline__ float4 mul4(float4 a, float4 b) {
   return make_float4(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y), __fmul_rn(a.z, b.z),
                      __fmul_rn(a.w, b.w));
+}
+// a t + b, one rounding a column
+__device__ __forceinline__ float4 fma4(float a, float4 t, float4 b) {
+  return make_float4(__fmaf_rn(a, t.x, b.x), __fmaf_rn(a, t.y, b.y), __fmaf_rn(a, t.z, b.z),
+                     __fmaf_rn(a, t.w, b.w));
 }
 
 template <bool kStaged>
@@ -421,26 +478,18 @@ __device__ __forceinline__ void store_factors(float* out, float* out_lo, long lo
 
 // One block per (tile of `S` sample rows, range of `range_slices` k-slices):
 // blockIdx.x the tile, blockIdx.y the range (slices y*range_slices ..,
-// clipped to the slices the mode walks).  S is a multiple of the rows one
-// pass of the block's threads covers (of the block's threads in narrow
-// mode).  tslices (n_slices, NP*ndofp, KS): the tables by k-slice, zero
-// past K; mslices (n_slices, KS, round4(n0)): the masked M0 by k-slice
-// (narrow mode).  out: F (B, ld = K), F's hi half (B, ld = ldf, out_lo the
-// lo half), or the narrow product (B, ld = n0), f32 or (out_bf16) bf16.
-// In narrow mode with chunk_out set, the block's accumulator over its
-// range is its f32 partial, chunk_out[blockIdx.y] of (n_ranges, B, n0),
-// and out is not written.
+// clipped to the ceil(ld / KS) slices of F).  S is a multiple of the rows
+// one pass of the block's threads covers.  tslices (n_slices, NP*ndofp,
+// KS): the tables by k-slice, zero past K.  out: F (B, ld = K) or F's hi
+// half (B, ld = ldf, out_lo the lo half).
 template <int KS, int kMode, bool kStaged>
-__global__ void __launch_bounds__(factor_threads(kMode))
+__global__ void __launch_bounds__(kFactorThreads)
 sweep_factors_kernel(const float* __restrict__ samples, const float* __restrict__ grid,
-                     const float* __restrict__ tslices, const float* __restrict__ mslices,
-                     float* __restrict__ out, float* __restrict__ out_lo,
-                     float* __restrict__ chunk_out, long long B, int NP, int ndofp, int n_modes,
-                     int ld, int S, int vec, int out_bf16, int range_slices) {
-  constexpr int kThreads = factor_threads(kMode);
+                     const float* __restrict__ tslices, float* __restrict__ out,
+                     float* __restrict__ out_lo, long long B, int NP, int ndofp, int n_modes,
+                     int ld, int S, int vec, int range_slices) {
   constexpr int L = KS / 4;             // lanes per sample row
-  constexpr int kRowsPerPass = kThreads / L;
-  constexpr int kTileLd = KS + 4;       // F tile row stride (narrow mode)
+  constexpr int kRowsPerPass = kFactorThreads / L;
   extern __shared__ __align__(128) float smem[];
   __shared__ float s_grid[4 * kMaxNP];
   __shared__ __align__(8) uint64_t s_bar[2];
@@ -448,15 +497,10 @@ sweep_factors_kernel(const float* __restrict__ samples, const float* __restrict_
   const int tid = threadIdx.x, g = tid % L, lr = tid / L;
   const long long tile0 = (long long)blockIdx.x * S;
   const int rows = (int)(B - tile0 < S ? B - tile0 : S);
-  const int n0 = kMode == kNarrow ? ld : 0;
-  const int n0p = round4(n0), ldacc = acc_stride(n0);
   const int tab_floats = NP * ndofp * KS;
-  const int stage_floats = tab_floats + (kMode == kNarrow ? KS * n0p : 0);
-  float* s_samp = smem + (kStaged ? 2 * stage_floats : 0);
-  float* s_f = s_samp + round4(S * NP);
-  float* s_acc = s_f + kThreads * kTileLd;
+  float* s_samp = smem + (kStaged ? 2 * tab_floats : 0);
   const int n_active = (n_modes + KS - 1) / KS;  // slices holding a mode
-  const int n_slices = kMode == kNarrow ? n_active : (ld + KS - 1) / KS;
+  const int n_slices = (ld + KS - 1) / KS;
   // this block's slices q0 .. q_end - 1; those that hold a mode end at a_end
   const int q0 = blockIdx.y * range_slices;
   const int q_end = min(q0 + range_slices, n_slices);
@@ -468,22 +512,18 @@ sweep_factors_kernel(const float* __restrict__ samples, const float* __restrict_
     mbar_init(bar0 + 8, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  for (int i = tid; i < 4 * NP; i += kThreads) s_grid[i] = grid[i];
+  for (int i = tid; i < 4 * NP; i += kFactorThreads) s_grid[i] = grid[i];
   const float* src = samples + tile0 * NP;
-  for (int i = tid; i < S * NP; i += kThreads) s_samp[i] = i < rows * NP ? src[i] : 0.0f;
-  if constexpr (kMode == kNarrow)
-    for (int i = tid; i < S * ldacc; i += kThreads) s_acc[i] = 0.0f;
+  for (int i = tid; i < S * NP; i += kFactorThreads) s_samp[i] = i < rows * NP ? src[i] : 0.0f;
   __syncthreads();
 
   // the block's i-th slice q0 + i goes to stage i % 2, its (i / 2)-th fill
   auto fill = [&](int q) {
     const int i = q - q0;
     const uint32_t bar = bar0 + 8 * (i & 1);
-    const uint32_t dst = smem_u32(smem + (i & 1) * stage_floats);
-    mbar_expect_tx(bar, stage_floats * 4);
-    bulk_load(dst, tslices + (size_t)q * tab_floats, tab_floats * 4, bar);
-    if (kMode == kNarrow)
-      bulk_load(dst + tab_floats * 4, mslices + (size_t)q * KS * n0p, KS * n0p * 4, bar);
+    mbar_expect_tx(bar, tab_floats * 4);
+    bulk_load(smem_u32(smem + (i & 1) * tab_floats), tslices + (size_t)q * tab_floats,
+              tab_floats * 4, bar);
   };
   if (kStaged && tid == 0)
     for (int q = q0; q < q0 + 2 && q < a_end; ++q) fill(q);
@@ -498,72 +538,18 @@ sweep_factors_kernel(const float* __restrict__ samples, const float* __restrict_
       continue;
     }
     const float* tab;
-    const float* m0s;
     if constexpr (kStaged) {
       const int i = q - q0;
       mbar_wait(bar0 + 8 * (i & 1), (i >> 1) & 1);
-      tab = smem + (i & 1) * stage_floats;
-      m0s = tab + tab_floats;
+      tab = smem + (i & 1) * tab_floats;
     } else {
       tab = tslices + (size_t)q * tab_floats;
-      m0s = mslices + (size_t)q * KS * n0p;
     }
-    if constexpr (kMode != kNarrow) {
-      for (int p = 0; p < rows; p += kRowsPerPass) {
-        const int r = p + lr;
-        const float4 f = factor4<KS, kStaged>(s_samp + r * NP, s_grid, tab, NP, ndofp, g, k,
-                                              n_modes);
-        if (r < rows) store_factors<kMode>(out, out_lo, tile0 + r, ld, k, f, vec);
-      }
-    } else {
-      for (int c0 = 0; c0 < rows; c0 += kThreads) {
-        for (int p = 0; p < kThreads; p += kRowsPerPass) {
-          const int r = p + lr;
-          const float4 f = factor4<KS, kStaged>(s_samp + (c0 + r) * NP, s_grid, tab, NP, ndofp,
-                                                g, k, n_modes);
-          *reinterpret_cast<float4*>(s_f + r * kTileLd + 4 * g) = f;
-        }
-        __syncthreads();
-        if (c0 + tid < rows) {
-          // this row's partial sums over the slice, k ascending
-          float part[kMaxN0];
-#pragma unroll
-          for (int c = 0; c < kMaxN0; ++c) part[c] = 0.0f;
-          const float* fr = s_f + tid * kTileLd;
-#pragma unroll
-          for (int k4 = 0; k4 < KS; k4 += 4) {
-            const float4 fv = *reinterpret_cast<const float4*>(fr + k4);
-            const float fk[4] = {fv.x, fv.y, fv.z, fv.w};
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const float* mr = m0s + (k4 + e) * n0p;
-#pragma unroll
-              for (int c = 0; c < kMaxN0; c += 4) {
-                if (c < n0p) {
-                  const float4 m = load4<kStaged>(mr + c);
-                  part[c] = __fmaf_rn(fk[e], m.x, part[c]);
-                  part[c + 1] = __fmaf_rn(fk[e], m.y, part[c + 1]);
-                  part[c + 2] = __fmaf_rn(fk[e], m.z, part[c + 2]);
-                  part[c + 3] = __fmaf_rn(fk[e], m.w, part[c + 3]);
-                }
-              }
-            }
-          }
-          float* acc = s_acc + (c0 + tid) * ldacc;
-#pragma unroll
-          for (int c = 0; c < kMaxN0; c += 4) {
-            if (c < n0p) {
-              float4 a = *reinterpret_cast<float4*>(acc + c);
-              a.x = __fadd_rn(a.x, part[c]);
-              a.y = __fadd_rn(a.y, part[c + 1]);
-              a.z = __fadd_rn(a.z, part[c + 2]);
-              a.w = __fadd_rn(a.w, part[c + 3]);
-              *reinterpret_cast<float4*>(acc + c) = a;
-            }
-          }
-        }
-        __syncthreads();
-      }
+    for (int p = 0; p < rows; p += kRowsPerPass) {
+      const int r = p + lr;
+      const float4 f = factor4<KS, kStaged>(s_samp + r * NP, s_grid, tab, NP, ndofp, g, k,
+                                            n_modes);
+      if (r < rows) store_factors<kMode>(out, out_lo, tile0 + r, ld, k, f, vec);
     }
     if constexpr (kStaged) {
       __syncthreads();  // every thread is done with this stage
@@ -573,19 +559,320 @@ sweep_factors_kernel(const float* __restrict__ samples, const float* __restrict_
       }
     }
   }
+}
 
-  if constexpr (kMode == kNarrow) {
-    // each row's accumulator was written by thread (row % kThreads) alone
-    for (int r = tid; r < rows; r += kThreads) {
-      const float* acc = s_acc + r * ldacc;
+// ---------------------------------------------------- the narrow product
+
+// Finite x rounded to tf32, nearest, ties away from zero (the integer
+// form of cvt.rna, two integer operations; a value that would round past
+// the largest f32 becomes infinity): the bits the tensor cores read.
+__device__ __forceinline__ uint32_t tf32_rn(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// D (16 x 8, f32) += A (16 x 8, tf32, row) . B (8 x 8, tf32, col) on the
+// tensor cores, one warp.  Fragments (g = lane / 4, t = lane % 4): a0..a3
+// hold A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]; b0, b1 hold B[t][g],
+// B[t+4][g]; d0..d3 hold D[g][2t], D[g][2t+1], D[g+8][2t], D[g+8][2t+1].
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], float b0,
+                                         float b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(__float_as_uint(b0)),
+        "r"(__float_as_uint(b1)));
+}
+
+// Columns 16i + 4t .. 16i + 4t + 3 of the factors of two sample rows (f0
+// of the row whose located cells are loc0, f1 of loc1's), for each of the
+// slice's KS/16 groups i, from the k-slice `tab` (NP*ndofp rows of KS
+// floats).  loc: a row's (offset of its cell's first table row in a slice,
+// as an int; xi) a dim, located once a tile; bit j of p2 marks a P2 dim.  The basis is the plain version's (basis_of);
+// Σ_l φ_l T_l is an FMA chain (l ascending), the product over dims in j
+// order; the two rows' chains are independent, interleaved for the
+// latency.  With two groups, lanes of odd rows (swap = 1) gather group 1
+// first, so the two rows of a quarter-warp read the two 64-byte halves of
+// their 128-byte table rows at once (no bank conflict); f[i] is group i.
+template <int KS, bool kStaged>
+__device__ __forceinline__ void narrow_factors(const float2* loc0, const float2* loc1,
+                                               uint32_t p2, const float* tab, int NP, int t,
+                                               int swap,
+                                               float4 (&f0)[KS / 16], float4 (&f1)[KS / 16]) {
+  constexpr int G = KS / 16;
+  float4 a0[G], a1[G];
+#pragma unroll
+  for (int i = 0; i < G; ++i) a0[i] = a1[i] = make_float4(1.0f, 1.0f, 1.0f, 1.0f);
+  for (int j = 0; j < NP; ++j) {
+    const int deg = 1 + ((p2 >> j) & 1);
+    const float2 l0 = loc0[j], l1 = loc1[j];
+    float u0, u1, u2, v0, v1, v2;
+    basis_of(l0.y, deg, &u0, &u1, &u2);
+    basis_of(l1.y, deg, &v0, &v1, &v2);
+    const float* T0 = tab + __float_as_int(l0.x) + 4 * t;
+    const float* T1 = tab + __float_as_int(l1.x) + 4 * t;
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      const float* P = T0 + 16 * (i ^ swap);
+      const float* Q = T1 + 16 * (i ^ swap);
+      float4 x = fma4(u1, load4<kStaged>(P + KS), scale4(u0, load4<kStaged>(P)));
+      float4 y = fma4(v1, load4<kStaged>(Q + KS), scale4(v0, load4<kStaged>(Q)));
+      if (deg == 2) {
+        x = fma4(u2, load4<kStaged>(P + 2 * KS), x);
+        y = fma4(v2, load4<kStaged>(Q + 2 * KS), y);
+      }
+      a0[i] = mul4(a0[i], x);
+      a1[i] = mul4(a1[i], y);
+    }
+  }
+  if constexpr (G == 2) {
+    f0[0] = swap ? a0[1] : a0[0];
+    f0[1] = swap ? a0[0] : a0[1];
+    f1[0] = swap ? a1[1] : a1[0];
+    f1[1] = swap ? a1[0] : a1[1];
+  } else {
+    f0[0] = a0[0];
+    f1[0] = a1[0];
+  }
+}
+
+// The head: tot += F[r, k] M0[k, c] for k = kHead-1 down to 0, in
+// round-to-nearest FMAs, for this lane's outputs of one m16 x n8 tile
+// (rows g, g + 8; the lane's column pair): h0, h1 are F[g, 0..kHead) and
+// F[g + 8, 0..kHead).  `head` points at the lane's column pair in row 0 of
+// the f32 head table (kHead, n8) in global memory, zero past n_modes and
+// n0.
+__device__ __forceinline__ void narrow_head(float (&tot)[4], const float (&h0)[kHead],
+                                            const float (&h1)[kHead], const float* head,
+                                            int n8) {
+#pragma unroll
+  for (int k = kHead - 1; k >= 0; --k) {
+    const float2 m = __ldg(reinterpret_cast<const float2*>(head + k * n8));
+    tot[0] = __fmaf_rn(h0[k], m.x, tot[0]);
+    tot[1] = __fmaf_rn(h0[k], m.y, tot[1]);
+    tot[2] = __fmaf_rn(h1[k], m.x, tot[2]);
+    tot[3] = __fmaf_rn(h1[k], m.y, tot[3]);
+  }
+}
+
+// The fused narrow product out (B, n0 <= kMaxN0) = F . M0; F never leaves
+// the SM.  One block per (tile of S sample rows, range of range_slices
+// k-slices), as the factor kernel's grid.  Warp w owns the m16 tiles
+// mt * kNarrowWarps + w (mt < S / kNarrowPass) of the tile's rows and keeps
+// their (16 x 8n) accumulators in registers over its slices.  In a slice,
+// each lane computes, for its two rows g and g + 8 of an m16 tile and each
+// k16 group of the slice, the four columns 16i + 4t .. +3 of F
+// (narrow_factors): exactly its A fragments of the group's two k8 steps,
+// with the k order permuted inside the group (step s, fragment column p
+// holds k = 4 (p % 4) + 2s + p / 4); the wrapper lays M0's slice out in the
+// same order (ops/fused_sweep.py::narrow_table), so the B fragments are one
+// float4 of hi and one of lo a lane.  A group's product is 3xTF32 into a
+// fresh accumulator (the cross terms, then hi.hi: six mma.sync m16n8k8),
+// added to the tile's total in a round-to-nearest FADD.  The first kHead
+// modes skip the tensor cores (their rows of the split M0 are zero) and
+// start the total, in FMAs from the f32 head table (narrow_head).
+// mslices: per slice the split M0 hi then lo, each (KS/16, n8, 16), then
+// the head (kHead, n8); chunk_out as the factor kernel's.
+template <int KS, int NT, bool kStaged>
+__global__ void __launch_bounds__(kNarrowThreads, 1)
+sweep_narrow_kernel(const float* __restrict__ samples, const float* __restrict__ grid,
+                    const float* __restrict__ tslices, const float* __restrict__ mslices,
+                    const float* __restrict__ head, void* __restrict__ out,
+                    float* __restrict__ chunk_out, long long B, int NP, int ndofp, int n_modes,
+                    int n0, int S, int out_bf16, int range_slices) {
+  constexpr int G = KS / 16;                  // k16 groups a slice
+  constexpr int MT = kNarrowTiles / NT;       // m16 tiles a warp, at most
+  constexpr int N8 = 8 * NT;                  // the table's padded width
+  constexpr int kMFloats = 2 * KS * N8;       // a slice of the split M0
+  extern __shared__ __align__(128) float smem[];
+
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5, g = lane >> 2, t = lane & 3;
+  const long long tile0 = (long long)blockIdx.x * S;
+  const int rows = (int)(B - tile0 < S ? B - tile0 : S);
+  const int mt_n = S / kNarrowPass;
+  const int tab_floats = NP * ndofp * KS;
+  const int stage_floats = tab_floats + kMFloats;
+  float2* s_loc = reinterpret_cast<float2*>(smem + (kStaged ? 2 * stage_floats : 0));
+  const uint32_t bar0 = smem_u32(s_loc + S * NP);
+  int* s_done = reinterpret_cast<int*>(s_loc + S * NP + 2);  // warps done with stage 0, 1
+  const int n_active = (n_modes + KS - 1) / KS;  // slices holding a mode
+  const int q0 = blockIdx.y * range_slices;
+  const int q_end = min(q0 + range_slices, n_active);
+  const int swap = G == 2 ? (g & 1) : 0;
+
+  if (kStaged && tid == 0) {
+    mbar_init(bar0, 1);
+    mbar_init(bar0 + 8, 1);
+    s_done[0] = s_done[1] = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // the P2 dims, and each (row, dim)'s cell located once for all slices
+  // (rows past the batch locate 0)
+  uint32_t p2 = 0;
+  for (int j = 0; j < NP; ++j) p2 |= (__ldg(grid + 3 * NP + j) == 2.0f ? 1u : 0u) << j;
+  const float* src = samples + tile0 * NP;
+  for (int i = tid; i < S * NP; i += kNarrowThreads) {
+    const int j = i % NP;
+    int base;
+    float xi;
+    cell_of(i < rows * NP ? src[i] : 0.0f, __ldg(grid + j), __ldg(grid + NP + j),
+            __ldg(grid + 2 * NP + j), 1 + ((p2 >> j) & 1), &base, &xi);
+    s_loc[i] = make_float2(__int_as_float((j * ndofp + base) * KS), xi);
+  }
+  __syncthreads();
+
+  auto fill = [&](int q) {
+    const int i = q - q0;
+    const uint32_t bar = bar0 + 8 * (i & 1);
+    const uint32_t dst = smem_u32(smem + (i & 1) * stage_floats);
+    mbar_expect_tx(bar, stage_floats * 4);
+    bulk_load(dst, tslices + (size_t)q * tab_floats, tab_floats * 4, bar);
+    bulk_load(dst + tab_floats * 4, mslices + (size_t)q * kMFloats, kMFloats * 4, bar);
+  };
+  if (kStaged && tid == 0)
+    for (int q = q0; q < q0 + 2 && q < q_end; ++q) fill(q);
+
+  float tot[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tot[mt][nt][e] = 0.0f;
+
+  for (int q = q0; q < q_end; ++q) {
+    const float* tab;
+    const float* ms;
+    if constexpr (kStaged) {
+      const int i = q - q0;
+      mbar_wait(bar0 + 8 * (i & 1), (i >> 1) & 1);
+      tab = smem + (i & 1) * stage_floats;
+      ms = tab + tab_floats;
+    } else {
+      tab = tslices + (size_t)q * tab_floats;
+      ms = mslices + (size_t)q * kMFloats;
+    }
+    const int kq = q * KS;
+    // this lane's B fragments of group i, n-tile nt: M0 rows 16i + 4t .. +3
+    // (split hi, lo) at column 8nt + g
+    auto b_frag = [&](int i, int nt, float4* bh, float4* bl) {
+      const float* p = ms + ((i * N8 + 8 * nt + g) * 16 + 4 * t);
+      *bh = load4<kStaged>(p);
+      *bl = load4<kStaged>(p + KS * N8);
+    };
+    float4 bh1[G], bl1[G];  // NT = 1: the slice's fragments, loaded once
+    if constexpr (NT == 1) {
+#pragma unroll
+      for (int i = 0; i < G; ++i) b_frag(i, 0, &bh1[i], &bl1[i]);
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      if (mt >= mt_n) break;  // uniform across the block
+      const int r0 = (mt * kNarrowWarps + w) * 16 + g;
+      float4 f0[G], f1[G];
+      narrow_factors<KS, kStaged>(s_loc + r0 * NP, s_loc + (r0 + 8) * NP, p2, tab, NP, t,
+                                  swap, f0, f1);
+      if (kq + KS > n_modes) {  // columns at or past n_modes are zero
+#pragma unroll
+        for (int i = 0; i < G; ++i) {
+          const int k = kq + 16 * i + 4 * t;
+          if (k + 0 >= n_modes) f0[i].x = f1[i].x = 0.0f;
+          if (k + 1 >= n_modes) f0[i].y = f1[i].y = 0.0f;
+          if (k + 2 >= n_modes) f0[i].z = f1[i].z = 0.0f;
+          if (k + 3 >= n_modes) f0[i].w = f1[i].w = 0.0f;
+        }
+      }
+      if (q == 0) {  // the head starts the total (range 0 only)
+        // F[row, 0..7]: columns 0-3 from the row's lane t = 0, 4-7 from t = 1
+        const int src = lane & ~3;
+        const float h0[kHead] = {
+            __shfl_sync(0xffffffffu, f0[0].x, src), __shfl_sync(0xffffffffu, f0[0].y, src),
+            __shfl_sync(0xffffffffu, f0[0].z, src), __shfl_sync(0xffffffffu, f0[0].w, src),
+            __shfl_sync(0xffffffffu, f0[0].x, src + 1), __shfl_sync(0xffffffffu, f0[0].y, src + 1),
+            __shfl_sync(0xffffffffu, f0[0].z, src + 1), __shfl_sync(0xffffffffu, f0[0].w, src + 1)};
+        const float h1[kHead] = {
+            __shfl_sync(0xffffffffu, f1[0].x, src), __shfl_sync(0xffffffffu, f1[0].y, src),
+            __shfl_sync(0xffffffffu, f1[0].z, src), __shfl_sync(0xffffffffu, f1[0].w, src),
+            __shfl_sync(0xffffffffu, f1[0].x, src + 1), __shfl_sync(0xffffffffu, f1[0].y, src + 1),
+            __shfl_sync(0xffffffffu, f1[0].z, src + 1), __shfl_sync(0xffffffffu, f1[0].w, src + 1)};
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) narrow_head(tot[mt][nt], h0, h1, head + 8 * nt + 2 * t, N8);
+      }
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        // A fragments of the group's k8 steps s = 0, 1: (f.x, f.y) then
+        // (f.z, f.w), split into tf32 hi and lo
+        const float a[2][4] = {{f0[i].x, f1[i].x, f0[i].y, f1[i].y},
+                               {f0[i].z, f1[i].z, f0[i].w, f1[i].w}};
+        uint32_t ahi[2][4], alo[2][4];
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ahi[s][e] = tf32_rn(a[s][e]);
+            alo[s][e] = tf32_rn(__fsub_rn(a[s][e], __uint_as_float(ahi[s][e])));
+          }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          float4 bh, bl;
+          if constexpr (NT == 1) {
+            bh = bh1[i];
+            bl = bl1[i];
+          } else {
+            b_frag(i, nt, &bh, &bl);
+          }
+          float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          mma_tf32(d, ahi[0], bl.x, bl.y);  // the cross terms first
+          mma_tf32(d, alo[0], bh.x, bh.y);
+          mma_tf32(d, ahi[1], bl.z, bl.w);
+          mma_tf32(d, alo[1], bh.z, bh.w);
+          mma_tf32(d, ahi[0], bh.x, bh.y);
+          mma_tf32(d, ahi[1], bh.z, bh.w);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) tot[mt][nt][e] = __fadd_rn(tot[mt][nt][e], d[e]);
+        }
+      }
+    }
+    if constexpr (kStaged) {
+      // the last warp done reading this stage refills it with slice q + 2;
+      // the others go on to slice q + 1 without waiting
+      __syncwarp();
+      if (lane == 0) {
+        const int st = (q - q0) & 1;
+        __threadfence_block();
+        if (atomicAdd(s_done + st, 1) == kNarrowWarps - 1) {
+          atomicExch(s_done + st, 0);
+          if (q + 2 < q_end) {
+            asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+            fill(q + 2);
+          }
+        }
+      }
+    }
+  }
+
+  // each output once: this lane's rows g, g + 8 and columns 8nt + 2t, +1
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    if (mt >= mt_n) break;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = (mt * kNarrowWarps + w) * 16 + g + 8 * h;
+      if (r >= rows) continue;
       const long long at = (tile0 + r) * n0;
-      if (chunk_out != nullptr) {  // this range's partial
-        for (int c = 0; c < n0; ++c) chunk_out[blockIdx.y * B * n0 + at + c] = acc[c];
-      } else if (out_bf16) {
-        __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(out) + at;
-        for (int c = 0; c < n0; ++c) o[c] = __float2bfloat16_rn(acc[c]);
-      } else {
-        for (int c = 0; c < n0; ++c) out[at + c] = acc[c];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * nt + 2 * t + e;
+          if (c >= n0) continue;
+          const float v = tot[mt][nt][2 * h + e];
+          if (chunk_out != nullptr)
+            chunk_out[blockIdx.y * B * n0 + at + c] = v;
+          else if (out_bf16)
+            static_cast<__nv_bfloat16*>(out)[at + c] = __float2bfloat16_rn(v);
+          else
+            static_cast<float*>(out)[at + c] = v;
+        }
       }
     }
   }
@@ -1108,6 +1395,7 @@ struct FactorArgs {
   const float* grid;
   const float* tslices;
   const float* mslices;
+  const float* head;
   float* out;
   float* out_lo;
   float* chunk_out;
@@ -1123,9 +1411,9 @@ int launch_factors(const FactorArgs& a, int smem, cudaStream_t stream) {
   if (rc != 0) return rc;
   const long long blocks = (a.B + a.S - 1) / a.S;
   const dim3 grid((unsigned)blocks, (unsigned)a.n_ranges);
-  kernel<<<grid, factor_threads(kMode), smem, stream>>>(
-      a.samples, a.grid, a.tslices, a.mslices, a.out, a.out_lo, a.chunk_out, a.B, a.NP, a.ndofp,
-      a.n_modes, a.ld, a.S, a.vec, a.out_bf16, a.range_slices);
+  kernel<<<grid, kFactorThreads, smem, stream>>>(a.samples, a.grid, a.tslices, a.out, a.out_lo,
+                                                 a.B, a.NP, a.ndofp, a.n_modes, a.ld, a.S,
+                                                 a.vec, a.range_slices);
   return (int)cudaGetLastError();
 }
 
@@ -1142,6 +1430,31 @@ int factors_for_mode(const FactorArgs& a, int ks, bool staged, int smem, cudaStr
   }
 }
 
+template <int KS, int NT, bool kStaged>
+int launch_narrow(const FactorArgs& a, int smem, cudaStream_t stream) {
+  auto kernel = sweep_narrow_kernel<KS, NT, kStaged>;
+  static unsigned long long done = 0;
+  const int rc = set_smem_once(kernel, kFactorSmemMax, &done);
+  if (rc != 0) return rc;
+  const long long blocks = (a.B + a.S - 1) / a.S;
+  const dim3 grid((unsigned)blocks, (unsigned)a.n_ranges);
+  kernel<<<grid, kNarrowThreads, smem, stream>>>(
+      a.samples, a.grid, a.tslices, a.mslices, a.head, a.out, a.chunk_out, a.B, a.NP, a.ndofp,
+      a.n_modes, a.ld, a.S, a.out_bf16, a.range_slices);
+  return (int)cudaGetLastError();
+}
+
+template <int NT>
+int narrow_for_nt(const FactorArgs& a, int ks, bool staged, int smem, cudaStream_t st) {
+  if (!staged) return ks == 32 ? launch_narrow<32, NT, false>(a, smem, st)
+                               : (int)cudaErrorInvalidValue;
+  switch (ks) {
+    case 32: return launch_narrow<32, NT, true>(a, smem, st);
+    case 16: return launch_narrow<16, NT, true>(a, smem, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1153,58 +1466,76 @@ extern "C" {
 //   mslices null, out_lo set:  out, out_lo (B, ld >= K, ld % 4 == 0): F's
 //                              tf32 hi and lo halves, zero past K; the
 //                              first kHead columns F itself and zero;
-//   mslices set:               out (B, ld = n0 <= 32), F . M0, f32 or
-//                              (out_bf16) bf16; mslices (n_slices, ks,
-//                              round4(n0)) the M0 rows, zero at or past
-//                              n_modes.  On more than one k-range the
-//                              product goes as range r's f32 partial to
-//                              chunk_out (n_ranges, B, n0) [r], and out
-//                              is not written (pgd_partial_sum adds
-//                              them).
+//   mslices set:               the narrow product (sweep_narrow_kernel),
+//                              out (B, ld = n0 <= 32), F . M0, f32 or
+//                              (out_bf16) bf16; ks 32 or 16 (32 off the
+//                              staged route); mslices the table of
+//                              ops/fused_sweep.py::narrow_table: per slice
+//                              the split M0 (2, ks/16, n8, 16), rows below
+//                              kHead and at or past n_modes zero, then the
+//                              f32 head (kHead, n8), n8 = 8 * narrow_nt(n0).
+//                              On more than one k-range the product goes
+//                              as range r's f32 partial to chunk_out
+//                              (n_ranges, B, n0) [r], and out is not
+//                              written (pgd_partial_sum adds them).
 // Columns k >= n_modes of F are zero.  The grid is ceil(B / rows) row tiles
 // x n_ranges k-ranges of range_slices slices each, together covering every
 // slice the mode walks (ceil(ld / ks) for F and its split, ceil(n_modes /
 // ks) for the narrow product); in narrow mode chunk_out is set exactly
 // when n_ranges > 1.
 // rows: sample rows per block, a multiple of one pass of the block's
-// threads (512 rows for the narrow product, 1024 / (ks / 4) else); staged:
-// the tables go through shared memory (else ks must be 32 and the gathers
-// read tslices in global memory).  All arrays C-contiguous on the current
-// device, tslices and mslices 16-byte aligned.
+// threads (1024 / (ks / 4) rows; kNarrowPass = 256 for the narrow product,
+// at most narrow_rows_max(n0)); staged: the tables go through shared
+// memory (else ks must be 32 and the gathers read tslices in global
+// memory).  All arrays C-contiguous on the current device, tslices and
+// mslices 16-byte aligned.
 int pgd_sweep_factors(const void* samples, const void* grid, const void* tslices,
                       const void* mslices, void* out, void* out_lo, void* chunk_out, long long B,
                       int NP, int ndofp, int K, int n_modes, int ld, int ks, int rows,
                       int staged, int out_bf16, int range_slices, int n_ranges,
                       void* stream) {
-  const int mode = mslices ? kNarrow : out_lo ? kSplit : kFactors;
+  const bool narrow = mslices != nullptr;
+  const int mode = out_lo ? kSplit : kFactors;
   if (ks != 4 && ks != 8 && ks != 16 && ks != 32) return (int)cudaErrorInvalidValue;
-  // rows one pass of the block covers: one a thread in narrow mode
-  const int pass = mode == kNarrow ? factor_threads(mode) : factor_threads(mode) / (ks / 4);
+  // rows one pass of the block covers
+  const int pass = narrow ? kNarrowPass : kFactorThreads / (ks / 4);
   // the slices the mode walks, all covered by the ranges
-  const int walked = mode == kNarrow ? (n_modes + ks - 1) / ks : (ld + ks - 1) / ks;
+  const int walked = narrow ? (n_modes + ks - 1) / ks : (ld + ks - 1) / ks;
   if (B < 0 || NP < 1 || NP > kMaxNP || ndofp < 2 || K < 1 || n_modes < 0 || n_modes > K ||
       rows < pass || rows % pass != 0 || !aligned16(tslices) || range_slices < 1 ||
       n_ranges < 1 || n_ranges > 65535 || (long long)range_slices * n_ranges < walked ||
-      (chunk_out != nullptr) != (mode == kNarrow && n_ranges > 1) ||
-      (mode == kFactors && ld != K) ||
-      (mode == kSplit && (ld < K || ld % 4 != 0 || !aligned16(out) || !aligned16(out_lo))) ||
-      (mode == kNarrow && (ld < 1 || ld > kMaxN0 || !aligned16(mslices))))
+      (chunk_out != nullptr) != (narrow && n_ranges > 1))
     return (int)cudaErrorInvalidValue;
-  const long long smem = factor_smem(NP, ndofp, ks, rows, mode == kNarrow ? ld : 0, staged);
+  if (narrow ? (ld < 1 || ld > kMaxN0 || ks < 16 || rows > narrow_rows_max(ld) ||
+                out_lo != nullptr || !aligned16(mslices))
+             : ((mode == kFactors && ld != K) ||
+                (mode == kSplit && (ld < K || ld % 4 != 0 || !aligned16(out) ||
+                                    !aligned16(out_lo)))))
+    return (int)cudaErrorInvalidValue;
+  const long long smem = factor_smem(NP, ndofp, ks, rows, narrow ? ld : 0, staged);
   if (smem > kFactorSmemMax) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaGetLastError();
   if ((B + rows - 1) / rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int nt = narrow ? narrow_nt(ld) : 0;
+  // the head table follows the slices of the split M0
+  const float* head = narrow ? static_cast<const float*>(mslices) +
+                                   (size_t)((K + ks - 1) / ks) * 2 * ks * 8 * nt
+                             : nullptr;
   const FactorArgs a = {static_cast<const float*>(samples), static_cast<const float*>(grid),
                         static_cast<const float*>(tslices), static_cast<const float*>(mslices),
-                        static_cast<float*>(out), static_cast<float*>(out_lo),
+                        head, static_cast<float*>(out), static_cast<float*>(out_lo),
                         static_cast<float*>(chunk_out), B, NP, ndofp, n_modes, ld, rows,
                         ld % 4 == 0 && aligned16(out), out_bf16, range_slices, n_ranges};
   auto st = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case kFactors: return factors_for_mode<kFactors>(a, ks, staged, (int)smem, st);
-    case kSplit: return factors_for_mode<kSplit>(a, ks, staged, (int)smem, st);
-    default: return factors_for_mode<kNarrow>(a, ks, staged, (int)smem, st);
+  if (narrow) {
+    switch (nt) {
+      case 1: return narrow_for_nt<1>(a, ks, staged, (int)smem, st);
+      case 2: return narrow_for_nt<2>(a, ks, staged, (int)smem, st);
+      default: return narrow_for_nt<4>(a, ks, staged, (int)smem, st);
+    }
   }
+  return mode == kSplit ? factors_for_mode<kSplit>(a, ks, staged, (int)smem, st)
+                        : factors_for_mode<kFactors>(a, ks, staged, (int)smem, st);
 }
 
 // Dynamic shared memory of a factor launch, in bytes (n0 = 0: no narrow

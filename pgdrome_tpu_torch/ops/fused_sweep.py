@@ -18,15 +18,20 @@ the factor kernel reads the tables by k-slices staged in shared memory
 (:func:`slice_tables`; tile, slice width and route from
 :func:`factor_plan`; a batch of few rows gets shorter tiles and k-ranges
 across the grid's second axis, :func:`factor_grid`) and computes F in the
-plain version's rounding, bit for bit.  Outputs of at most :data:`SENSORS_MAX` columns (sensors) are
-its fused narrow product: F never leaves the chip.  Wider outputs
+plain version's rounding, bit for bit.  Outputs of at most
+:data:`SENSORS_MAX` columns (sensors) go to the fused narrow product, a
+kernel of its own that computes F's tensor-core fragments in registers
+and multiplies them by the slice of a split, permuted M0 table
+(:func:`narrow_table`): F never leaves the chip.  Wider outputs
 (fields) take two kernels: the factor kernel writes F, split into tf32
 hi/lo halves, into a scratch buffer whose rows are K rounded up to a
 multiple of 8, and a TMA + wgmma GEMM multiplies it by the split,
 transposed, masked M0 table in three tf32 passes; the first
 :data:`K_HEAD` modes skip the tensor cores (F's columns kept whole, their
 table rows zero) and are added in f32 FMAs by the GEMM's epilogue from an
-f32 head table (:func:`split_factors`, :func:`split_table`).  The GEMM's
+f32 head table (:func:`split_factors`, :func:`split_table`).  Both
+products bind the modes with the K_HEAD largest first
+(:func:`head_order`).  The GEMM's
 blocks are persistent and store through shared memory; the table's tensor
 maps are encoded once per sweep (:func:`table_maps`).  The wrapper walks
 the batch in row chunks so the scratch stays under :data:`SCRATCH_BYTES`.
@@ -97,10 +102,20 @@ _MAX_NP = 16
 
 # the factor kernel's tiling (csrc/fused_sweep.cu, stage 1)
 FACTOR_THREADS = 1024  # a block writing F or its split
-NARROW_THREADS = 512  # a block of the fused narrow product
 SLICE_WIDTHS = (32, 16, 8, 4)  # k-slice widths, widest first
 TILE_ROWS_MAX = 2048  # sample rows per block
 SMEM_BYTES = 232448 - 1024  # dynamic shared memory a block may take
+# the narrow product's (sweep_narrow_kernel): 16 warps, each one m16 tile
+# of rows a pass, holding at most NARROW_TILES m16 x n8 accumulator tiles
+NARROW_THREADS = 512
+NARROW_PASS = 16 * NARROW_THREADS // 32  # rows of one pass: 256
+NARROW_TILES = 8
+NARROW_SLICE_WIDTHS = (32, 16)  # two 16-k groups a slice, or one
+NARROW_TAIL = 32  # bytes of stage barriers and counts past the located cells
+# a narrow tile's cost past its rows (its table slices, its locates), in
+# rows: 69 from the d=5 sensors at ks = 32 on an H100, 1024-row tiles
+# against 1536-row ones (4.95 against 4.77 ms, PERF.md 6.1)
+NARROW_TILE_COST = 64
 
 
 def reset_launch_counts() -> None:
@@ -313,6 +328,28 @@ def split_table(m0: torch.Tensor, n_modes: int):
     return hi.contiguous(), lo.contiguous(), head
 
 
+def head_order(tabs: torch.Tensor, m0: torch.Tensor, n_modes: int):
+    """The order in which the kernels bind a sweep's modes, or None where
+    it is the modes' own: the :data:`K_HEAD` largest of the first
+    ``n_modes`` first, then the rest, each part in its own order; modes
+    k ≥ ``n_modes`` keep their places.  A mode's size is max|M0[k, :]| ·
+    Π_j max|T_j[:, k]|, a bound on its term in any output (up to a factor
+    that P2 bases share across modes).  The head's terms are summed in
+    f32 FMAs and the rest in 3xTF32, so the largest terms must be the
+    head's whatever order the modes come in (ROADMAP C4)."""
+    K, n = tabs.shape[2], int(n_modes)
+    if n <= K_HEAD:
+        return None
+    mag = (m0[:n].abs().amax(1).double()
+           * tabs[:, :, :n].abs().amax(1).double().prod(0))
+    head = torch.zeros(K, dtype=torch.bool, device=tabs.device)
+    head[torch.sort(mag, descending=True, stable=True).indices[:K_HEAD]] = True
+    if bool(head[:K_HEAD].all()):
+        return None
+    k = torch.arange(K, device=tabs.device)
+    return torch.cat([k[head], k[~head]])
+
+
 def k_chunks(K: int) -> int:
     """How many k-chunks a product over K modes is summed in: 1 up to
     :data:`SPLIT_K_MIN`, else ceil(K / :data:`K_CHUNK`)."""
@@ -322,11 +359,21 @@ def k_chunks(K: int) -> int:
 def sum_roundings(K: int) -> int:
     """The f32 roundings an output's sum over K modes goes through, as the
     γ_c bounds count them: K in one running sum, else :data:`K_CHUNK`
-    within a chunk (a generous count: the grouped sum takes K_GROUP +
-    K_CHUNK / K_GROUP) plus one per chunk (the f64 additions and the final
-    rounding to f32)."""
+    within a chunk plus one per chunk (the f64 additions and the final
+    rounding to f32).  A generous count for both products' order: the GEMM
+    and the narrow product sum :data:`K_HEAD` head terms in FMAs, a
+    :data:`K_GROUP`-deep tensor-core group, and one rounding a group into
+    the chunk's total (:func:`narrow_roundings`)."""
     n_ch = k_chunks(K)
     return int(K) if n_ch == 1 else K_CHUNK + n_ch
+
+
+def narrow_roundings(ks: int, range_slices: int, ranges: int) -> int:
+    """The f32 roundings of one narrow-product output on a launch of
+    ``ranges`` k-ranges of ``range_slices`` slices of ``ks``: the head's
+    FMAs, one group's 16 products, one addition a group of the range, and
+    (on more than one range) the one rounding of the f64 sum."""
+    return K_HEAD + K_GROUP + range_slices * ks // K_GROUP + (1 if ranges > 1 else 0)
 
 
 def chunked_product(fac, m0):
@@ -371,19 +418,30 @@ def _round4(n: int) -> int:
     return -(-int(n) // 4) * 4
 
 
+def narrow_nt(n0: int) -> int:
+    """n8 column tiles of a narrow output ``n0`` wide (the kernel's
+    ``narrow_nt``): 1 up to 8 columns, 2 up to 16, else 4."""
+    return 1 if n0 <= 8 else 2 if n0 <= 16 else 4
+
+
+def narrow_rows_max(n0: int) -> int:
+    """The tallest tile of the narrow product at width ``n0``: one pass a
+    warp's accumulator tile, :data:`NARROW_TILES` // narrow_nt(n0) passes."""
+    return NARROW_PASS * (NARROW_TILES // narrow_nt(n0))
+
+
 def factor_smem(NP: int, ndofp: int, ks: int, rows: int, n0: int = 0,
                 staged: bool = True) -> int:
     """Dynamic shared memory of a factor-kernel launch, in bytes — the
-    kernel's ``factor_smem``: two table stages of NP·ndofp·ks floats (plus
-    ks·round4(n0) of M0 for the narrow product) when staged, the tile's
-    ``rows`` × NP samples, and for the narrow product (n0 > 0) the F tile
-    of :data:`NARROW_THREADS` rows (row stride ks + 4) and the (rows, n0)
-    accumulator, whose row stride is an odd number of float4s."""
-    n0p = _round4(n0)
-    stage = NP * ndofp * ks + ks * n0p
-    acc = n0p if (n0p // 4) % 2 else n0p + 4
-    narrow = NARROW_THREADS * (ks + 4) + rows * acc if n0 > 0 else 0
-    return 4 * ((2 * stage if staged else 0) + _round4(rows * NP) + narrow)
+    kernel's ``factor_smem``: two table stages of NP·ndofp·ks floats when
+    staged, then the tile's ``rows`` × NP samples.  For the narrow product
+    (n0 > 0) each stage also holds the slice's split M0 (2·ks·8·narrow_nt(n0)
+    floats), and the samples' place is taken by their located cells (the
+    first dof and ξ of each (row, dim), 8 bytes) and :data:`NARROW_TAIL`
+    bytes of barriers and counts."""
+    stage = NP * ndofp * ks + (2 * ks * 8 * narrow_nt(n0) if n0 > 0 else 0)
+    per_rows = 8 * rows * NP + NARROW_TAIL if n0 > 0 else 4 * _round4(rows * NP)
+    return 4 * (2 * stage if staged else 0) + per_rows
 
 
 @dataclass(frozen=True)
@@ -402,21 +460,25 @@ def factor_plan(NP: int, ndofp: int, n0: int = 0) -> FactorPlan:
     fused narrow product of that width), chosen by shape alone.
 
     The widest slice whose two stages leave room, in
-    :data:`SMEM_BYTES`, for a tile of one row per thread at least, with the
-    tallest such tile (up to :data:`TILE_ROWS_MAX`, in steps of one row per
-    thread); else, for tables too wide for two stages even at ks = 4, the
-    global route at ks = 32.  Wide slices come first: they share each
-    locate among more columns, and on an H100 they beat tall tiles
-    (PERF.md 6.1)."""
-    step = NARROW_THREADS if n0 > 0 else FACTOR_THREADS
+    :data:`SMEM_BYTES`, for a tile of one pass at least (a row per thread;
+    :data:`NARROW_PASS` rows for the narrow product), with the tallest such
+    tile (up to :data:`TILE_ROWS_MAX`, or :func:`narrow_rows_max`, in steps
+    of one pass); else, for tables too wide for two stages even at the
+    narrowest slice (ks = 4; 16 for the narrow product), the global route
+    at ks = 32.  Wide slices come first: they share each locate among more
+    columns, and on an H100 they beat tall tiles (PERF.md 6.1); the narrow
+    product's two 16-k groups a slice also read its 128-byte table rows
+    without bank conflicts."""
+    step = NARROW_PASS if n0 > 0 else FACTOR_THREADS
+    top = narrow_rows_max(n0) if n0 > 0 else TILE_ROWS_MAX
 
     def tallest(ks, staged):
-        rows = TILE_ROWS_MAX
+        rows = top
         while rows >= step and factor_smem(NP, ndofp, ks, rows, n0, staged) > SMEM_BYTES:
             rows -= step
         return rows
 
-    for ks in SLICE_WIDTHS:
+    for ks in NARROW_SLICE_WIDTHS if n0 > 0 else SLICE_WIDTHS:
         rows = tallest(ks, True)
         if rows >= step:
             return FactorPlan("staged", ks, rows, factor_smem(NP, ndofp, ks, rows, n0))
@@ -441,6 +503,25 @@ class FactorGrid:
         return self.tiles * self.ranges
 
 
+def wave_rows(top: int, B: int, n_sm: int) -> int:
+    """The narrow product's tile height for ``B`` ≥ ``n_sm``·``top`` rows.
+    One block an SM walks ceil(tiles / n_sm) tiles, each costing its rows
+    and :data:`NARROW_TILE_COST` more.  ``top`` (the plan's rows) unless a
+    shorter multiple of :data:`NARROW_PASS` cuts that walk by more than
+    5 %, then the tallest of the shortest walks: for a launch whose last
+    wave leaves many SMs idle, as a stream's 524,288-row chunk in 1536-row
+    tiles (2.6 waves: 3 × 1600 against 4 × 1088 in 1024-row tiles)."""
+
+    def walk(rows):
+        return -(-(-(-B // rows)) // n_sm) * (rows + NARROW_TILE_COST)
+
+    best = top
+    for rows in range(top - NARROW_PASS, 0, -NARROW_PASS):
+        if walk(rows) < walk(best):
+            best = rows
+    return best if walk(best) <= 0.95 * walk(top) else top
+
+
 @functools.lru_cache(maxsize=512)
 def factor_grid(plan: FactorPlan, B: int, slices: int, n0: int, n_sm: int) -> FactorGrid:
     """The grid of one factor-kernel launch over ``B`` rows that walks
@@ -449,9 +530,10 @@ def factor_grid(plan: FactorPlan, B: int, slices: int, n0: int, n_sm: int) -> Fa
     these alone.  A call's row chunks each take the grid of their own rows.
 
     A launch of at least ``n_sm`` tiles of ``plan.rows`` keeps the plan's
-    rows.  A smaller one would leave SMs idle, so its tiles shorten (down to
-    one pass of the block's threads: 1024 / (ks / 4) rows, or 512 for the
-    narrow product) towards two blocks an SM, and, if that is not enough,
+    rows (the narrow product: :func:`wave_rows`).  A smaller one would
+    leave SMs idle, so its tiles shorten (down to
+    one pass of the block's threads: 1024 / (ks / 4) rows, or
+    :data:`NARROW_PASS` for the narrow product) towards two blocks an SM, and, if that is not enough,
     the slices split into k-ranges across blockIdx.y until there are about
     2·n_sm blocks.  F and its split keep one range on a full card.  The
     narrow product does too up to :data:`SPLIT_K_MIN` modes; past it, or
@@ -462,10 +544,11 @@ def factor_grid(plan: FactorPlan, B: int, slices: int, n0: int, n_sm: int) -> Fa
     ks = plan.ks
     tiles = -(-B // plan.rows)
     if tiles >= n_sm or B == 0:
-        rows = plan.rows
+        rows = wave_rows(plan.rows, B, n_sm) if n0 > 0 and B else plan.rows
+        tiles = -(-B // rows)
         width = K_CHUNK // ks if n0 > 0 and slices * ks > SPLIT_K_MIN else slices
     else:
-        one_pass = NARROW_THREADS if n0 > 0 else FACTOR_THREADS // (ks // 4)
+        one_pass = NARROW_PASS if n0 > 0 else FACTOR_THREADS // (ks // 4)
         want = -(-B // (2 * n_sm))  # rows a tile for two blocks an SM
         rows = min(plan.rows, max(one_pass, -(-want // one_pass) * one_pass))
         tiles = -(-B // rows)
@@ -488,16 +571,29 @@ def slice_tables(tabs: torch.Tensor, ks: int) -> torch.Tensor:
     return t.view(NP * ndofp, n_sl, ks).transpose(0, 1).contiguous()
 
 
-def slice_m0(m0: torch.Tensor, n_modes: int, ks: int) -> torch.Tensor:
-    """The fused narrow product's M0 layout: (K, n0) by k-slices,
-    (ceil(K/ks), ks, round4(n0)), rows k ≥ ``n_modes`` (NaN included) and
-    the padding zero."""
+def narrow_table(m0: torch.Tensor, n_modes: int, ks: int) -> torch.Tensor:
+    """The fused narrow product's M0 table, one flat float32 buffer.  M0
+    (K, n0 ≤ :data:`SENSORS_MAX`), rows k ≥ ``n_modes`` (NaN included)
+    taken as zero, padded to n8 = 8·:func:`narrow_nt` columns: for each of
+    the ceil(K/ks) k-slices, its rows k ≥ :data:`K_HEAD` split by
+    :func:`split_tf32`, hi then lo, each (ks/16 groups, n8, 16) — group i's
+    16 rows transposed, so the kernel's lane (g, t) reads rows 16i + 4t ..
+    +3 of column g as one float4, the k order of its A fragments — the head
+    rows and the padding zero; then the head, M0's first K_HEAD rows in f32,
+    (K_HEAD, n8)."""
     K, n0 = m0.shape
+    n8 = 8 * narrow_nt(n0)
     n_sl = -(-K // ks)
-    t = torch.zeros((n_sl * ks, _round4(n0)), dtype=torch.float32, device=m0.device)
     keep = torch.arange(K, device=m0.device) < int(n_modes)
-    t[:K, :n0] = torch.where(keep[:, None], m0.to(torch.float32), 0.0)
-    return t.view(n_sl, ks, _round4(n0))
+    m = torch.zeros((n_sl * ks, n8), dtype=torch.float32, device=m0.device)
+    m[:K, :n0] = torch.where(keep[:, None], m0.to(torch.float32), 0.0)
+    head = m[:K_HEAD].clone()
+    m[:K_HEAD] = 0.0
+    hi, lo = split_tf32(m)
+    # (slice, group, 16 rows, n8) → (slice, hi/lo, group, n8, 16)
+    parts = [t.view(n_sl, ks // 16, 16, n8).transpose(2, 3) for t in (hi, lo)]
+    sliced = torch.stack(parts, dim=1).contiguous()
+    return torch.cat([sliced.reshape(-1), head.reshape(-1)])
 
 
 # ------------------------------------------------------------ plain version
@@ -817,8 +913,10 @@ class FusedSweep:
     ``sweep(samples (B, NP)) → (B, n0)`` (or the factors (B, K) when built
     with no dim-0 table).  On the card the factor kernel's plan and sliced
     tables are made once, here, with the sliced M0 of a narrow product
-    (n0 ≤ :data:`SENSORS_MAX`) or the GEMM's split M0 table of a wider one;
-    ``m0`` itself serves the plain version on the CPU.  ``launches``
+    (n0 ≤ :data:`SENSORS_MAX`) or the GEMM's split M0 table of a wider one,
+    the modes in ``order`` (:func:`head_order`; None: their own), which
+    the kernels' F columns follow; ``tabs`` and ``m0`` themselves, in
+    their own order, serve the plain version on the CPU.  ``launches``
     counts this sweep's wiring calls that launched, as :data:`LAUNCHES`
     does across sweeps; ``last_plan`` holds what the last call that
     launched ran: each factor launch's grid and each GEMM launch's work
@@ -832,6 +930,7 @@ class FusedSweep:
         self.launches = 0
         self.last_plan = None
         self.plan = self.sliced = self.m0_slices = self.table = self._maps = None
+        self.order = None
         if tabs.device.type != "cuda":
             return
         _check_tables(grid, tabs, n_modes)
@@ -844,9 +943,13 @@ class FusedSweep:
             n0 = int(m0.shape[1])
         narrow = 0 < n0 <= SENSORS_MAX
         self.plan = factor_plan(NP, ndofp, n0 if narrow else 0)
+        if m0 is not None:
+            self.order = head_order(tabs, m0, self.n_modes)
+            if self.order is not None:
+                tabs, m0 = tabs[:, :, self.order], m0[self.order]
         self.sliced = slice_tables(tabs, self.plan.ks)
         if narrow:
-            self.m0_slices = slice_m0(m0, self.n_modes, self.plan.ks)
+            self.m0_slices = narrow_table(m0, self.n_modes, self.plan.ks)
         elif m0 is not None:
             self.table = split_table(m0, self.n_modes)
 

@@ -15,8 +15,8 @@ time a call (the enqueue, no synchronise), wall time a call (synchronised),
 the device's busy time a call and its idle share.  So does the f64 sum of
 the d=10 field GEMM's six k-chunk partials (1,024 × 2049), on seeded
 partials.  The stream section runs
-``serving._stream_pipeline`` as ``sensors_stream`` (4,194,304 samples, 8
-points, the collect path) and ``fields_stream`` (a consumer, 4 chunks of
+``serving._stream_pipeline`` as ``sensors_stream`` (4,194,304 samples in
+chunks of 524,288, 8 points, the collect path) and ``fields_stream`` (a consumer, 4 chunks of
 524,288 less 4,321) run it, timed on the host clock, three calls each, and
 prints the host operations that took the most time in one profiled call.
 Needs CUDA; imports no JAX.
@@ -160,13 +160,13 @@ def main():
     stream = []
     for _ in range(3):
         t = time.perf_counter()
-        got = serving._stream_pipeline(sw_s, s_big, 8_388_608, 2, None, dev)
+        got = serving._stream_pipeline(sw_s, s_big, 524_288, 2, None, dev)
         stream.append(4_194_304 / (time.perf_counter() - t))
         assert torch.equal(got, one.cpu()) and not got.is_cuda
         del got
     res["stream"]["sensors"] = {
         "one_shot_first_s": first_one_shot, "one_shot_per_s": one_shot, "stream_per_s": stream,
-        **stream_split(lambda: serving._stream_pipeline(sw_s, s_big, 8_388_608, 2, None, dev))}
+        **stream_split(lambda: serving._stream_pipeline(sw_s, s_big, 524_288, 2, None, dev))}
     print(f"[{args.label}] stream sensors: {json.dumps(res['stream']['sensors'])}", flush=True)
     del one, s_big, sw_s
     torch.cuda.empty_cache()

@@ -312,7 +312,8 @@ def test_split_k(cuda, K):
     assert fs.STAGE_LAUNCHES["partial_sum"] == (0 if n_ch == 1 else 1)
     hi = torch.empty((200, fs.padded_k(K)), device=cuda)
     lo = torch.empty_like(hi)
-    fs.factors_stage(s, sweep.grid, sweep.tabs, K - 2, hi, lo)
+    # F in the sweep's binding of the modes (fs.head_order), as its table
+    fs.factors_stage(s, sweep.grid, sweep.tabs, K - 2, hi, lo, sliced=sweep.sliced)
     part = torch.empty((n_ch, 200, 300), device=cuda)
     direct = torch.empty((200, 300), device=cuda)
     # the table's maps encoded for this call, not the sweep's cached ones
@@ -432,18 +433,19 @@ def _hold_narrow(out, ref, bound, bf16):
 
 
 @pytest.mark.parametrize("NP,K,n_modes,B,n0,ks", [
-    (5, 640, 637, 3001, 1, 16),   # the d=5 widths, ragged B
-    (5, 640, 637, 3001, 8, 16),
-    (5, 640, 637, 3001, 32, 16),
-    (16, 203, 200, 2049, 8, 8),   # NP = 16 tables take the narrow slices;
-    (16, 203, 200, 2049, 32, 4),  # K not a multiple of 4
+    (5, 640, 637, 3001, 1, 32),   # the d=5 widths, ragged B
+    (5, 640, 637, 3001, 8, 32),
+    (5, 640, 637, 3001, 32, 32),
+    # NP = 16 tables of 129 dofs fit no two ks = 16 stages: the global
+    # route; K not a multiple of 4
+    (16, 203, 200, 2049, 8, 32), (16, 203, 200, 2049, 32, 32),
     # the d=10 widths at few rows: k-ranges of a power of two of slices,
     # each its own f32 partial, added in f64 by the partial sum
-    (10, 2717, 2717, 1024, 8, 8), (10, 2717, 2710, 64, 8, 8), (10, 384, 384, 1, 8, 8),
-    (10, 384, 384, 1360, 32, 8),
+    (10, 2717, 2717, 1024, 8, 16), (10, 2717, 2710, 64, 8, 16), (10, 384, 384, 1, 8, 16),
+    (10, 384, 384, 1360, 32, 16),
     # a batch that fills the card (B None: one tile of the plan's rows an
     # SM, and 33 rows) past SPLIT_K_MIN: one k-range a K_CHUNK
-    (10, 1100, 1100, None, 8, 8),
+    (10, 1100, 1100, None, 8, 16),
 ])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_sensor_fused(cuda, NP, K, n_modes, B, n0, ks, out_dtype):
@@ -460,7 +462,8 @@ def test_sensor_fused(cuda, NP, K, n_modes, B, n0, ks, out_dtype):
     samples = np.random.default_rng(n0).uniform(0.0, 2.0, size=(B, NP)).astype(np.float32)
     samples[0], samples[min(1, B - 1)] = 0.0, 2.0
     sweep, s, ref = _plain_on_card(spaces, modes, n_modes, samples, cuda, out_dtype)
-    assert (sweep.plan.route, sweep.plan.ks) == ("staged", ks)
+    route = "global" if NP == 16 else "staged"
+    assert (sweep.plan.route, sweep.plan.ks) == (route, ks)
     fs.reset_launch_counts()
     out = sweep(s)
     torch.cuda.synchronize()
@@ -468,11 +471,41 @@ def test_sensor_fused(cuda, NP, K, n_modes, B, n0, ks, out_dtype):
     assert g["ranges"] > 1 and "partial_sum_blocks" in g
     assert (g["tiles"] >= fs.sm_count(cuda)) == full
     if full:
-        assert (g["rows"], g["range_slices"]) == (sweep.plan.rows, fs.K_CHUNK // ks)
-    assert fs.STAGE_LAUNCHES == {"factors_stage": 0, "sensor_fused": 1, "factors_global": 0,
-                                 "gemm": 0, "partial_sum": 1}
+        rows = fs.wave_rows(sweep.plan.rows, B, fs.sm_count(cuda))
+        assert (g["rows"], g["range_slices"]) == (rows, fs.K_CHUNK // ks)
+    assert fs.STAGE_LAUNCHES == {"factors_stage": 0, "sensor_fused": int(route == "staged"),
+                                 "factors_global": int(route == "global"), "gemm": 0,
+                                 "partial_sum": 1}
     assert fs.LAUNCHES["sensors"] == 1 and out.dtype == out_dtype and out.shape == (B, n0)
     bound = _gamma_bound(spaces, modes, n_modes, samples, fs.sum_roundings(K) + 4 * NP)
+    _hold_narrow(out.cpu(), ref.cpu(), bound, out_dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_sensor_fused_p2_permuted(cuda, out_dtype):
+    # NP = 16 P2 dims (17 dofs: staged, ks = 32), 16 columns (two n8 tiles),
+    # K = 1100 past SPLIT_K_MIN on a batch of few rows (k-ranges, f32
+    # partials, the partial sum), modes scaled to decay as PGD amplitudes
+    # do and permuted so the 8 largest come last (the head holds small
+    # ones): within 2γ_c·|F||M0| of the plain version storing the same
+    # dtype, |F| from |φ|, c = the sum's roundings + 8·NP
+    NP, K, n0, B = 16, 1100, 16, 700
+    spaces, modes = _case(2, 8, K, n0, NP, seed=1616)
+    order = np.r_[8:K, 0:8]
+    modes[0] = (modes[0] * (0.99 ** np.arange(K))[:, None])[order].astype(np.float32)
+    modes[1:] = [m[order] for m in modes[1:]]
+    samples = np.random.default_rng(16).uniform(0.0, 2.0, size=(B, NP)).astype(np.float32)
+    samples[0], samples[1] = 0.0, 2.0
+    sweep, s, ref = _plain_on_card(spaces, modes, K, samples, cuda, out_dtype)
+    assert (sweep.plan.route, sweep.plan.ks) == ("staged", 32)
+    fs.reset_launch_counts()
+    out = sweep(s)
+    torch.cuda.synchronize()
+    assert sweep.last_plan["factor"][0]["ranges"] > 1
+    assert fs.STAGE_LAUNCHES == {"factors_stage": 0, "sensor_fused": 1, "factors_global": 0,
+                                 "gemm": 0, "partial_sum": 1}
+    bound = torch.as_tensor(_abs_basis_bound(spaces, modes, K, samples,
+                                             fs.sum_roundings(K) + 8 * NP))
     _hold_narrow(out.cpu(), ref.cpu(), bound, out_dtype == torch.bfloat16)
 
 

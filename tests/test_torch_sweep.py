@@ -385,15 +385,17 @@ _STATE_SHAPES = [(5, 129, 640), (5, 129, 189), (5, 129, 669), (5, 129, 2717),
 @pytest.mark.parametrize("n0", [0, 1, 8, 32])
 def test_factor_plan_state_shapes(NP, ndofp, K, n0):
     plan = fs.factor_plan(NP, ndofp, n0)
-    threads = fs.NARROW_THREADS if n0 else fs.FACTOR_THREADS
-    assert plan.route == "staged"
+    step = fs.NARROW_PASS if n0 else fs.FACTOR_THREADS
+    top = fs.narrow_rows_max(n0) if n0 else fs.TILE_ROWS_MAX
+    widths = fs.NARROW_SLICE_WIDTHS if n0 else fs.SLICE_WIDTHS
+    assert plan.route == "staged" and plan.ks in widths
     assert plan.smem == fs.factor_smem(NP, ndofp, plan.ks, plan.rows, n0) <= fs.SMEM_BYTES
-    assert plan.rows % threads == 0 and threads <= plan.rows <= fs.TILE_ROWS_MAX
+    assert plan.rows % step == 0 and step <= plan.rows <= top <= fs.TILE_ROWS_MAX
     # the widest slice that fits a tile; the tallest tile at that slice
-    wider = [ks for ks in fs.SLICE_WIDTHS if ks > plan.ks]
-    assert all(fs.factor_smem(NP, ndofp, ks, threads, n0) > fs.SMEM_BYTES for ks in wider)
-    assert (plan.rows == fs.TILE_ROWS_MAX
-            or fs.factor_smem(NP, ndofp, plan.ks, plan.rows + threads, n0) > fs.SMEM_BYTES)
+    wider = [ks for ks in widths if ks > plan.ks]
+    assert all(fs.factor_smem(NP, ndofp, ks, step, n0) > fs.SMEM_BYTES for ks in wider)
+    assert (plan.rows == top
+            or fs.factor_smem(NP, ndofp, plan.ks, plan.rows + step, n0) > fs.SMEM_BYTES)
     # the sliced tables cover K, and a launch covers every sample row
     assert -(-K // plan.ks) * plan.ks >= K
 
@@ -401,18 +403,27 @@ def test_factor_plan_state_shapes(NP, ndofp, K, n0):
 def test_factor_plan_d5():
     # the d=5 state's plans, in full: F and its split at ks = 32 with two
     # table stages of 5·129·32·4 bytes and 2048 rows of samples; the fused
-    # 8-point sensor product at ks = 16, 1536 rows
+    # 8-point sensor product at ks = 32 too, its stages each with the
+    # slice's split M0 (hi and lo, 32 × 8), 1536 rows (6 m16 tiles a warp:
+    # 2048 do not fit) of located cells (8 bytes a row and dim), then the
+    # barriers and the stages' counts
     assert fs.factor_plan(5, 129) == fs.FactorPlan("staged", 32, 2048,
                                                    2 * 5 * 129 * 32 * 4 + 2048 * 5 * 4)
-    acc = 12  # 8 outputs rounded to an odd number of float4s
-    smem = 2 * (5 * 129 * 16 + 16 * 8) * 4 + 1536 * 5 * 4 + (512 * 20 + 1536 * acc) * 4
-    assert fs.factor_plan(5, 129, 8) == fs.FactorPlan("staged", 16, 1536, smem)
+    smem = 2 * (5 * 129 * 32 + 2 * 32 * 8) * 4 + 1536 * 5 * 8 + 32
+    assert fs.factor_plan(5, 129, 8) == fs.FactorPlan("staged", 32, 1536, smem)
+    # the vector sensors (16 columns: two n8 tiles, 1024 rows) and the
+    # d=10 sensors (ks = 32 does not fit two stages of 10 dims)
+    assert fs.factor_plan(3, 17, 16) == fs.FactorPlan(
+        "staged", 32, 1024, 2 * (3 * 17 * 32 + 2 * 32 * 16) * 4 + 1024 * 3 * 8 + 32)
+    assert fs.factor_plan(10, 129, 8) == fs.FactorPlan(
+        "staged", 16, 768, 2 * (10 * 129 * 16 + 2 * 16 * 8) * 4 + 768 * 10 * 8 + 32)
 
 
 @pytest.mark.parametrize("NP,ndofp,n0,route,ks", [
     (1, 2, 0, "staged", 32),         # the smallest tables
     (16, 129, 0, "staged", 8),       # NP = 16
-    (16, 129, 32, "staged", 4),      # NP = 16, the widest narrow output
+    (16, 129, 32, "global", 32),     # NP = 16, the widest narrow output: no ks = 16 stages
+    (16, 17, 32, "staged", 32),      # NP = 16 on P2 dims of 8 cells
     (16, 320, 0, "staged", 4),       # 5120 table rows: two ks = 4 stages still fit
     (16, 330, 0, "global", 32),      # 5280 rows: too wide for two stages
     (12, 601, 8, "global", 32),      # the GPU test's global-route shape
@@ -436,58 +447,196 @@ def test_slice_layouts():
             k = q * ks + e
             col = sl[q, :, e].reshape(NP, ndofp)
             assert torch.equal(col, tabs[:, :, k] if k < K else torch.zeros(NP, ndofp))
-    m0 = rng.normal(size=(K, 5)).astype(np.float32)
-    m0[30:] = np.nan  # rows past n_modes never reach the product
-    ms = fs.slice_m0(torch.as_tensor(m0), 30, ks)
-    assert ms.shape == (5, ks, 8) and ms.is_contiguous()
-    flat = ms.reshape(40, 8)
-    assert torch.equal(flat[:30, :5], torch.as_tensor(m0[:30]))
-    assert bool((flat[30:] == 0).all()) and bool((flat[:, 5:] == 0).all())
+    # the narrow product's M0 table: per 16-k group of each slice, the
+    # split rows k ≥ K_HEAD transposed (n8, 16), hi then lo; then the head
+    # rows in f32; rows past n_modes (NaN included) and the padding zero
+    for n0, n8, ks_n in ((5, 8, 32), (12, 16, 16), (20, 32, 32)):
+        m0 = rng.normal(size=(K, n0)).astype(np.float32)
+        m0[30:] = np.nan  # rows past n_modes never reach the product
+        buf = fs.narrow_table(torch.as_tensor(m0), 30, ks_n)
+        n_sl = -(-K // ks_n)
+        assert buf.is_contiguous() and buf.shape == (n_sl * 2 * ks_n * n8 + fs.K_HEAD * n8,)
+        sl = buf[: n_sl * 2 * ks_n * n8].view(n_sl, 2, ks_n // 16, n8, 16)
+        head = buf[n_sl * 2 * ks_n * n8:].view(fs.K_HEAD, n8)
+        want = torch.zeros((n_sl * ks_n, n8))
+        want[:30, :n0] = torch.as_tensor(m0[:30])
+        assert torch.equal(head, want[: fs.K_HEAD])
+        want[: fs.K_HEAD] = 0.0
+        hi, lo = fs.split_tf32(want)
+        for q in range(n_sl):
+            for i in range(ks_n // 16):
+                rows = slice(q * ks_n + 16 * i, q * ks_n + 16 * i + 16)
+                assert torch.equal(sl[q, 0, i], hi[rows].T)
+                assert torch.equal(sl[q, 1, i], lo[rows].T)
 
 
-def _emulate_narrow(fac, m0, n_modes, ks):
-    """The fused narrow product's summation order: per k-slice a partial
-    sum, k ascending, of single-rounded FMAs (emulated in f64: the product
-    of two f32 numbers is exact there), added to an f32 accumulator."""
-    m = fs.slice_m0(m0, n_modes, ks).double()
+def _emulate_narrow(fac, m0, n_modes, ks, range_slices=None):
+    """The fused narrow product's order of summation, on the table the
+    kernel reads (:func:`fs.narrow_table`).  Over each k-range of
+    ``range_slices`` slices (one range: all of them): the total starts as
+    the head, k = K_HEAD − 1 down to 0, in f32 FMAs (emulated in f64: the
+    product of two f32 numbers is exact there); then for each 16-k group
+    the three tf32 passes hi·lo + lo·hi + hi·hi, summed exactly (f64 holds
+    the tf32 products and their short sums) and rounded to f32, are added
+    to the total in f32.  On more than one range the f32 partials are added
+    in f64 and rounded once."""
     B, K = fac.shape
-    acc = torch.zeros((B, m.shape[2]), dtype=torch.float32)
-    for q in range(-(-n_modes // ks)):
-        part = torch.zeros_like(acc)
-        for e in range(ks):
-            k = q * ks + e
-            if k < K:
-                part = (fac[:, k : k + 1].double() * m[q, e] + part.double()).float()
-        acc = acc + part
-    return acc[:, : m0.shape[1]]
+    n0 = m0.shape[1]
+    n8 = 8 * fs.narrow_nt(n0)
+    n_sl = -(-K // ks)
+    buf = fs.narrow_table(m0, n_modes, ks)
+    sl = buf[: n_sl * 2 * ks * n8].view(n_sl, 2, ks // 16, n8, 16).double()
+    head = buf[n_sl * 2 * ks * n8:].view(fs.K_HEAD, n8).double()
+    f = torch.zeros((B, n_sl * ks), dtype=torch.float32)
+    f[:, :K] = fac
+    f[:, n_modes:] = 0.0
+    fh, fl = (t.double() for t in fs.split_tf32(f))
+    n_active = -(-n_modes // ks)
+    width = max(1, n_active if range_slices is None else range_slices)
+    parts = []
+    for q0 in range(0, max(n_active, 1), width):
+        tot = torch.zeros((B, n8), dtype=torch.float32)
+        if q0 == 0:
+            for k in range(fs.K_HEAD - 1, -1, -1):
+                tot = (f[:, k, None].double() * head[k] + tot.double()).float()
+        for q in range(q0, min(q0 + width, n_active)):
+            for i in range(ks // 16):
+                c = slice(q * ks + 16 * i, q * ks + 16 * i + 16)
+                bh, bl = sl[q, 0, i], sl[q, 1, i]  # (n8, 16): column n, k = 16i + 4t + e
+                d = fh[:, c] @ bl.T + fl[:, c] @ bh.T + fh[:, c] @ bh.T
+                tot = tot + d.float()
+        parts.append(tot)
+    out = parts[0]
+    if len(parts) > 1:
+        acc = parts[0].double()
+        for p in parts[1:]:
+            acc = acc + p.double()
+        out = acc.float()
+    return out[:, :n0]
 
 
-def test_narrow_emulation_d5_widths():
-    # the d=5 state's widths (K = 640, 5 P1 dims of 129 dofs, 8 sensor
-    # points), held within γ_c·|F||M0|, c = K + 4·NP, of the JAX package's
-    # f64 sensor sweep on the same modes
-    jV = [JSpace(JMesh(2048, 0.0, 1.0), "P", 1)] + [JSpace(JMesh(128, 0.0, 1.0), "P", 1)] * 5
-    tV = [TSpace(TMesh(2048, 0.0, 1.0), "P", 1)] + [TSpace(TMesh(128, 0.0, 1.0), "P", 1)] * 5
-    rng = np.random.default_rng(640)
-    modes = [rng.normal(size=(640, V.ndofs)).astype(np.float32) for V in tV]
-    pts = np.array([0.05 + 0.9 * i / 7 for i in range(8)])
-    n_modes = 637
+# (dim-0 space, parameter dims, K, n_modes, sensor points, range slices):
+# the d=5 state's widths (K = 640, 5 P1 dims of 129 dofs, 8 points, one
+# k-range on a full card, and 20 ranges of one slice for a batch of few
+# rows); the flagship's vector sensors (K = 32, 16 columns); the truss's
+# (K = 1, two P2 dims: c = K + 8·NP; power-of-two cells, so the f32 locate
+# is exact and the f64 reference sees the same cells); the d=10 widths
+# (K = 2717, ks = 16,
+# one range a 512-k chunk, and ranges of two slices for few rows)
+_NARROW_CASES = {
+    "d5": ((2048, 1), [(128, 1)] * 5, 640, 637, 8, None),
+    "d5 ranges": ((2048, 1), [(128, 1)] * 5, 640, 637, 8, 1),
+    "vector": ((64, 1), [(16, 1)] * 3, 32, 32, 16, None),
+    "truss": ((32, 1), [(128, 2), (64, 2)], 1, 1, 8, None),
+    "d10": ((256, 1), [(128, 1)] * 10, 2717, 2717, 8, 32),
+    "d10 ranges": ((256, 1), [(128, 1)] * 10, 2717, 2717, 8, 2),
+}
+
+
+@pytest.mark.parametrize("case", list(_NARROW_CASES))
+def test_narrow_emulation_d5_widths(case):
+    # the kernel's order of summation at the served widths, held within
+    # γ_c·|F||M0| of the JAX package's f64 sensor sweep on the same modes,
+    # c = fs.sum_roundings(K) + 4·NP (8·NP on P2 dims, whose |F| takes |φ|)
+    (nx, degx), dims, K, n_modes, n_pts, ranges = _NARROW_CASES[case]
+    jV = [JSpace(JMesh(nx, 0.0, 1.0), "P", degx)] + [JSpace(JMesh(n, 0.0, 1.0), "P", d)
+                                                     for n, d in dims]
+    tV = [TSpace(TMesh(nx, 0.0, 1.0), "P", degx)] + [TSpace(TMesh(n, 0.0, 1.0), "P", d)
+                                                     for n, d in dims]
+    NP = len(dims)
+    rng = np.random.default_rng(K + n_pts)
+    modes = [rng.normal(size=(K, V.ndofs)).astype(np.float32) for V in tV]
+    pts = np.array([0.05 + 0.9 * i / (n_pts - 1) for i in range(n_pts)])
     table = tv.sensor_table(tV[0], torch.as_tensor(modes[0]), pts)
     sweep = _port(tV, [table] + modes[1:], n_modes)
-    s = torch.as_tensor(_samples(24, 5, seed=5))
+    s = torch.as_tensor(_samples(24, NP, seed=5))
     fac = fs.fused_sweep_plain(s, sweep.grid, sweep.tabs, None, n_modes)
-    ks = fs.factor_plan(5, 129, 8).ks
-    out = _emulate_narrow(fac, sweep.m0, n_modes, ks).double()
+    plan = fs.factor_plan(NP, sweep.tabs.shape[1], n_pts)
+    out = _emulate_narrow(fac, sweep.m0, n_modes, plan.ks, ranges).double()
     jm = [jnp.asarray(m.astype(np.float64)) for m in modes]
     ref = torch.as_tensor(np.array(
         jv.make_sensor_sweep_fn(jV, jm, n_modes, pts, method="xla")(jnp.asarray(s.double()))))
-    fabs = fs.fused_sweep_plain(s, sweep.grid, sweep.tabs.abs().double(), None, n_modes)
-    c = 640 + 4 * 5
+    # |F| from the bases' absolute values (P2 bases change sign in a cell)
+    grid = sweep.grid.double()
+    t = (s.double() - grid[0]) * grid[1]
+    cell = torch.minimum(torch.clamp(torch.floor(t), min=0.0), grid[2] - 1)
+    xi = t - cell
+    fabs = torch.ones((24, K), dtype=torch.float64)
+    for j, (_, deg) in enumerate(dims):
+        x = xi[:, j, None]
+        basis = ((1 - x, x) if deg == 1 else
+                 ((1 - x) * (1 - 2 * x), 4 * x * (1 - x), x * (2 * x - 1)))
+        base = (deg * cell[:, j]).long()
+        tab = torch.as_tensor(modes[j + 1]).double().abs().T
+        fabs = fabs * sum(tab[base + l] * b.abs() for l, b in enumerate(basis))
+    fabs[:, n_modes:] = 0.0
+    c = fs.sum_roundings(K) + (8 if dims[0][1] == 2 else 4) * NP
     u = 2.0 ** -24
     bound = c * u / (1 - c * u) * (fabs @ torch.as_tensor(table).double().abs())
     ratio = float(((out - ref).abs() / bound).max())
-    print(f"fused narrow emulation, ks {ks}: max |err| / gamma_c bound = {ratio:.4f}")
-    assert ratio <= 1.0
+    print(f"fused narrow emulation {case}, ks {plan.ks}: max |err| / gamma_c bound = "
+          f"{ratio:.4f}")
+    assert out.shape == (24, n_pts) and ratio <= 1.0
+
+
+# ROADMAP C4: modes whose largest do not come first.  The elasticity
+# flagship's shapes (K = 32 modes, 3 P1 dims of 17 dofs; its 2426-dof
+# fields through the GEMM, its 16-column vector sensors through the narrow
+# product), with modes made as the flagship's are: no cancellation in the
+# sum (positive tables) and amplitudes falling by 10^-0.5 a mode.
+_C4_ORDERS = {"trained": np.arange(32), "largest last": np.r_[8:32, 0:8],
+              "shuffled": np.random.default_rng(32).permutation(32)}
+
+
+@pytest.mark.parametrize("product", ["gemm", "narrow"])
+@pytest.mark.parametrize("order", list(_C4_ORDERS))
+@pytest.mark.parametrize("seed", [2, 3])
+def test_head_modes_by_size(product, order, seed):
+    # the kernels' arithmetic on the modes as a sweep binds them
+    # (fs.head_order: the 8 largest first) serves within the flagship's
+    # gate, 1.1x the plain f32 version's error against the f64 product of
+    # the same tables (max rel-L2 over the samples).  Bound in their own
+    # order, the 8 largest last take the GEMM past it (1.42-1.63x): the
+    # head's f32 FMAs then sum small terms and the largest go through
+    # 3xTF32.  The narrow product's 16 columns show it less and not at
+    # every order (0.97-1.16x with the largest not first, the modes' own
+    # order), so only the GEMM's is asserted
+    K, NP = 32, 3
+    n0 = 2426 if product == "gemm" else 16
+    tV = [TSpace(TMesh(n0 - 1, 0.0, 1.0), "P", 1)] + [TSpace(TMesh(16, 0.0, 1.0), "P", 1)] * NP
+    rng = np.random.default_rng(seed)
+    modes = [rng.uniform(0.5, 1.5, size=(K, V.ndofs)).astype(np.float32) for V in tV]
+    modes[0] = (modes[0] * 10.0 ** (-0.5 * np.arange(K))[:, None]).astype(np.float32)
+    perm = _C4_ORDERS[order]
+    sweep = _port(tV, [m[perm] for m in modes], K)
+    s = torch.as_tensor(_samples(64, NP, seed=seed))
+    bind = fs.head_order(sweep.tabs, sweep.m0, K)
+    if order == "trained":
+        assert bind is None
+    else:
+        assert sorted(perm[bind[: fs.K_HEAD].numpy()]) == list(range(fs.K_HEAD))
+        assert sorted(bind.tolist()) == list(range(K))
+    ref = fs.fused_sweep_plain(s, sweep.grid, sweep.tabs.double(), sweep.m0.double(), K)
+
+    def err(out):
+        return float(((out.double() - ref).norm(dim=1) / ref.norm(dim=1)).max())
+
+    def kernel(tabs, m0):
+        fac = fs.fused_sweep_plain(s, sweep.grid, tabs, None, K)
+        if product == "gemm":
+            return _emulate_3xtf32(fac, m0, K, fs.K_GROUP)
+        return _emulate_narrow(fac, m0, K, fs.factor_plan(NP, 17, n0).ks)
+
+    plain = err(fs.fused_sweep_plain(s, sweep.grid, sweep.tabs, sweep.m0, K))
+    tabs, m0 = ((sweep.tabs, sweep.m0) if bind is None
+                else (sweep.tabs[:, :, bind], sweep.m0[bind]))
+    bound, unbound = err(kernel(tabs, m0)), err(kernel(sweep.tabs, sweep.m0))
+    print(f"C4 {product} {order} seed {seed}: plain f32 {plain:.4e}, kernel as bound "
+          f"{bound:.4e} ({bound / plain:.4f}x), in the modes' own order {unbound:.4e} "
+          f"({unbound / plain:.4f}x)")
+    assert bound <= 1.1 * plain
+    if order == "largest last" and product == "gemm":
+        assert unbound > 1.1 * plain
 
 
 @pytest.mark.parametrize("K", [640, 1024, 1025, 2717])

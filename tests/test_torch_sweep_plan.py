@@ -11,8 +11,9 @@ roundings; the narrow partials fit ``SCRATCH_BYTES`` and the tile's shared
 memory ``SMEM_BYTES``; a launch of at least one tile of ``factor_plan``'s
 rows an SM keeps those rows in one k-range (the launch shape before the 2D
 grid), but for a narrow product past SPLIT_K_MIN modes, which takes one
-range a K_CHUNK; and a smaller one fills the card as far as its rows and
-slices allow.  No JAX: the plain version's order does not change with the
+range a K_CHUNK, and a narrow product whose last wave would leave many SMs
+idle, which takes shorter tiles (``wave_rows``); and a smaller one fills
+the card as far as its rows and slices allow.  No JAX: the plain version's order does not change with the
 grid (F's columns are disjoint, and the narrow ranges' partials are the
 kernel's own business, held on the card under γ_c).
 """
@@ -62,7 +63,7 @@ def test_factor_grid(B, K):
                 walks.append(-(-fs.padded_k(K) // plan.ks))
             for slices in walks:
                 g = fs.factor_grid(plan, B, slices, n0, H100_SMS)
-                one_pass = fs.NARROW_THREADS if n0 else fs.FACTOR_THREADS // (plan.ks // 4)
+                one_pass = fs.NARROW_PASS if n0 else fs.FACTOR_THREADS // (plan.ks // 4)
                 assert g.rows % one_pass == 0 and one_pass <= g.rows <= plan.rows
                 # every (row, slice) once: the row tiles and the k-ranges
                 # each partition their axis
@@ -77,8 +78,9 @@ def test_factor_grid(B, K):
                     width = (fs.K_CHUNK // plan.ks if n0 and slices * plan.ks > fs.SPLIT_K_MIN
                              else slices)
                     ranges = -(-slices // width)
-                    assert g == fs.FactorGrid(plan.rows, slices if ranges == 1 else width,
-                                              ranges, -(-B // plan.rows))
+                    rows = fs.wave_rows(plan.rows, B, H100_SMS) if n0 else plan.rows
+                    assert g == fs.FactorGrid(rows, slices if ranges == 1 else width,
+                                              ranges, -(-B // rows))
                 else:
                     # as many blocks as the card has SMs, where the rows and
                     # slices allow that many; at most about two an SM more
@@ -91,10 +93,38 @@ def test_factor_grid(B, K):
                         assert (a * plan.ks) // fs.K_CHUNK == (b * plan.ks - 1) // fs.K_CHUNK
                     # one f32 partial a range: the scratch the wrapper takes
                     assert 4 * g.ranges * B * n0 <= fs.SCRATCH_BYTES
-                    # an output's f32 roundings: a slice's FMA chain, the
-                    # range's adds, the one rounding of the f64 sum — under
-                    # the count the γ_c bounds take
-                    assert plan.ks + g.range_slices + 1 <= fs.sum_roundings(K)
+                    # an output's f32 roundings: the head's FMAs, a 16-k
+                    # group, one add a group of the range, the one rounding
+                    # of the f64 sum — under the count the γ_c bounds take
+                    assert (fs.narrow_roundings(plan.ks, g.range_slices, g.ranges)
+                            <= fs.sum_roundings(K))
+
+
+@pytest.mark.parametrize("top,B,rows", [
+    (1536, 524_288, 1024),    # a d=5 sensor stream's chunk: 3 waves → 4 shorter
+    (1536, 262_144, 1024),    # 171 tiles: 2 waves → 256 tiles in 2
+    (1536, 4_194_304, 1536),  # 20.7 waves: the last one costs little
+    (1536, 132 * 1536, 1536),  # whole waves
+    (768, 4_194_304, 768),    # the d=10 sensors on a full card
+    (1024, 262_144, 1024),    # the flagship's vector sensors: 256 tiles
+    (2048, 270_369, 768),     # one tile an SM and 33 rows: 2 waves of 2048 → 3 of 768
+])
+def test_wave_rows(top, B, rows):
+    # the narrow product's tile height on a full card: the plan's rows
+    # unless a shorter one cuts the rows (and the per-tile cost) an SM
+    # walks by more than 5 %, then the tallest of the shortest walks
+    def walk(r):
+        return -(-(-(-B // r)) // H100_SMS) * (r + fs.NARROW_TILE_COST)
+
+    got = fs.wave_rows(top, B, H100_SMS)
+    assert got == rows and got % fs.NARROW_PASS == 0 and 0 < got <= top
+    heights = range(fs.NARROW_PASS, top + 1, fs.NARROW_PASS)
+    least = min(walk(r) for r in heights)
+    if got == top:
+        assert least > 0.95 * walk(top)
+    else:
+        assert walk(got) == least <= 0.95 * walk(top)
+        assert all(walk(r) > least for r in heights if r > got)
 
 
 def test_factor_grid_served_shapes():
@@ -109,16 +139,16 @@ def test_factor_grid_served_shapes():
 
     d10, d10n = fs.factor_plan(10, 129), fs.factor_plan(10, 129, 8)
     assert grid(d10, 1024, -(-fs.padded_k(2717) // 16)) == fs.FactorGrid(256, 3, 57, 4)
-    assert grid(d10n, 1024, -(-2717 // 8), 8) == fs.FactorGrid(512, 2, 170, 2)
+    assert grid(d10n, 1024, -(-2717 // 16), 8) == fs.FactorGrid(256, 2, 85, 4)
     assert grid(d10, 1360, 2688 // 16) == fs.FactorGrid(256, 4, 42, 6)
     assert grid(d10, 1360, 384 // 16) == fs.FactorGrid(256, 1, 24, 6)
     assert grid(d10, 65_536, 2688 // 16) == fs.FactorGrid(256, 84, 2, 256)
-    # a full card past SPLIT_K_MIN: one narrow range a K_CHUNK (64 slices of 8)
-    assert grid(d10n, 4_194_304, -(-2717 // 8), 8) == fs.FactorGrid(1024, 64, 6, 4096)
+    # a full card past SPLIT_K_MIN: one narrow range a K_CHUNK (32 slices of 16)
+    assert grid(d10n, 4_194_304, -(-2717 // 16), 8) == fs.FactorGrid(768, 32, 6, 5462)
     d5, d5n = fs.factor_plan(5, 129), fs.factor_plan(5, 129, 8)
-    assert grid(d5n, 64, 640 // 16, 8).ranges == 40
+    assert grid(d5n, 64, 640 // 32, 8) == fs.FactorGrid(256, 1, 20, 1)
     assert grid(fs.factor_plan(3, 17), 262_144, 1) == fs.FactorGrid(1024, 1, 1, 256)
-    for B, slices, plan, n0 in ((4_194_304, 20, d5, 0), (4_194_304, 40, d5n, 8)):
+    for B, slices, plan, n0 in ((4_194_304, 20, d5, 0), (4_194_304, 20, d5n, 8)):
         g = grid(plan, B, slices, n0)
         assert (g.rows, g.ranges) == (plan.rows, 1)
     assert fs.row_chunks(524_288, 640, 2049) == [(0, 209_664), (209_664, 419_328),
